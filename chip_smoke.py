@@ -1,0 +1,537 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py             # from the repository root
+    python3 chip_smoke.py --profile   # also: torch.profiler breakdown of one
+                                      # transcribe by CUDA kernel
+
+Phases (any failure exits non-zero and prints no result line):
+
+1. the card's name and power limit (nvidia-smi); build the CUDA kernels
+   from `toolbox_for_asr_and_tts_tpu_torch/csrc/` (nvcc, sm_90a);
+2. each kernel against its plain PyTorch version at the main path's shapes
+   (TF32 off): K1 in f32 and bf16 at the encoder and decoder shapes, K2 in
+   f32; the device time of kernel, plain version and one-call library
+   yardstick (CUDA events around calls queued behind a spin kernel, so no
+   host gap is timed; median), the kernel's per-call time with its host
+   overhead (CUDA events over back-to-back calls), and the least time the
+   card could take (bytes or flops over its peak rate).
+   TF32 stays off for every phase;
+3. the full-width main path: `Recognizer.random(ParaformerConfig(), seed=0)`
+   (Paraformer-large: 50 + 16 layers, d 512, vocab 8404) transcribes a
+   batch of 8 x up to 10 s of 16 kHz audio, with and without hotwords; the
+   kernels' launch counters are zeroed just before each transcribe and read
+   just after; RTF of the batch; then the card's forward pass is held
+   against the same port on the CPU for 2 of the rows;
+4. the `kernels` JSON line, then the result line
+   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+Needs one card, no network, and only the files of this repository.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SR = 16000
+ROW_SECONDS = (10.0, 7.3, 3.1, 9.2, 5.5, 8.8, 6.4, 4.7)
+CPU_ROWS = (0, 1)            # rows held against the CPU run (same bucket)
+K1_SITES = {"encoder": 167, "decoder": 96}   # T at 10 s: LFR frames, k_max
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise PhaseError(msg)
+
+
+# ------------------------------------------------------------- the card
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def card_peaks(name: str):
+    """(memory bytes/s, float32 flop/s outside the tensor cores) from
+    NVIDIA's data sheets; unknown cards count as the H100 SXM."""
+    n = name.upper()
+    if "H200" in n:
+        return 4.8e12, 67e12
+    if "H100" in n and "PCIE" in n:
+        return 2.0e12, 51e12
+    if "H100" in n and "NVL" in n:
+        return 3.9e12, 60e12
+    return 3.35e12, 67e12
+
+
+def bound(nbytes: float, flops: float, peaks):
+    t_bytes, t_ops = nbytes / peaks[0] * 1e3, flops / peaks[1] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def call_ms(torch, fn, reps: int = 50, rounds: int = 7) -> float:
+    """Per-call time of back-to-back calls, host overhead included: median
+    over `rounds` of CUDA-event time over `reps` calls, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def _device_events(prof):
+    return [e for e in prof.key_averages()
+            if "CUDA" in str(getattr(e, "device_type", ""))]
+
+
+_SPIN = {}
+
+
+def _spin_cycles_per_ms(torch) -> float:
+    """Clock cycles per ms of torch.cuda._sleep's spin kernel (CUDA events)."""
+    if "per_ms" not in _SPIN:
+        cycles = 20_000_000
+        torch.cuda._sleep(cycles)              # warm-up
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        _SPIN["per_ms"] = cycles / start.elapsed_time(end)
+    return _SPIN["per_ms"]
+
+
+def device_ms(torch, fn, reps: int = 10, rounds: int = 7) -> float:
+    """Device time per call, host launch gaps left out: a spin kernel
+    (torch.cuda._sleep) holds the stream while the host queues `reps` calls
+    behind the start event, so the CUDA events time only the card's work.
+    A round in which the card reached the start event before the host had
+    queued every call is run again with a longer spin. Median over
+    `rounds`, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin_ms = 2 * host_ms + 1.0
+    times = []
+    while len(times) < rounds:
+        require(spin_ms < 2000, "the host could not queue the calls ahead "
+                                "of the card")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * _spin_cycles_per_ms(torch)))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued_ahead = not start.query()
+        end.synchronize()
+        if queued_ahead:
+            times.append(start.elapsed_time(end) / reps)
+        else:
+            spin_ms *= 2
+    return statistics.median(times)
+
+
+def set_tf32(torch, on: bool) -> str:
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+    return (f"tf32: torch.backends.cuda.matmul.allow_tf32="
+            f"{torch.backends.cuda.matmul.allow_tf32} "
+            f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+
+
+# -------------------------------------------------------- phase 2: kernels
+def check_k1(torch, peaks):
+    import torch.nn.functional as F
+    from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import fsmn_conv as k1
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    for site, t in K1_SITES.items():
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            b, d, k, pad = 8, 512, 11, (5, 5)
+            x = torch.randn((b, t, d), generator=g, device=dev).to(dtype)
+            w = torch.randn((d, 1, k), generator=g, device=dev) * 0.02
+            lens = torch.tensor([t, t * 3 // 4, t // 3, t, t // 2, t - 7,
+                                 t * 2 // 3, t // 4], device=dev)
+            mask = (torch.arange(t, device=dev)[None] < lens[:, None]).float()
+            got = k1.fsmn_depthwise(x, w, pad[0], pad[1], mask)
+            want = k1.fsmn_depthwise_plain(x, w, pad[0], pad[1], mask)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            require(err <= tol, f"K1 {site} {dtype}: max|err| {err} > {tol}")
+            wk = w.to(dtype)
+
+            def library():
+                y = F.conv1d(x.transpose(1, 2), wk, padding=pad[0], groups=d)
+                return x + y.transpose(1, 2)
+
+            kernel = lambda: k1.fsmn_depthwise(x, w, *pad, mask)  # noqa: E731
+            ms = device_ms(torch, kernel)
+            host_ms = call_ms(torch, kernel)
+            plain_ms = device_ms(
+                torch, lambda: k1.fsmn_depthwise_plain(x, w, *pad, mask))
+            library_ms = device_ms(torch, library)
+            el = x.element_size()
+            nbytes = 2 * x.numel() * el + d * k * el + mask.numel() * 4
+            flops = (2 * k + 2) * x.numel()
+            bound_ms, bound_by = bound(nbytes, flops, peaks)
+            rows.append(dict(site=site, dtype=str(dtype).split(".")[-1],
+                             shape=[b, t, d, k], max_abs_err=err, tol=tol,
+                             ms=ms, call_ms=host_ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=library_ms))
+            print(f"K1 fsmn_conv {site} {rows[-1]['dtype']} "
+                  f"x[{b},{t},{d}] K={k}: max|err| {err:.3g} (tol {tol}) "
+                  f"device: kernel {ms * 1e3:.2f} us, plain "
+                  f"{plain_ms * 1e3:.2f} us, conv1d+x {library_ms * 1e3:.2f} "
+                  f"us, bound {bound_ms * 1e3:.2f} us ({bound_by}); "
+                  f"per call with host overhead {host_ms * 1e3:.2f} us",
+                  flush=True)
+    return rows
+
+
+def check_k2(torch, peaks):
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.ops import frontend as fe
+    from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import frame_window as k2
+    cfg = fe.FrontendConfig()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    audio = torch.from_numpy(
+        (0.3 * rng.standard_normal((8, 10 * SR)) * 32768.0)
+        .astype(np.float32)).to(dev)
+    win = torch.from_numpy(fe._window_coeffs(cfg)).to(dev)
+    t = fe.num_fbank_frames(audio.shape[1], cfg)
+    args = (audio, win, t, cfg.frame_length, cfg.frame_shift, cfg.n_fft,
+            cfg.preemphasis, cfg.remove_dc_offset)
+    got = k2.frame_window(*args)
+    want = k2.frame_window_plain(*args)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = 1e-5 * audio.abs().max().item()
+    rel = ((got - want).abs() - 1e-5 * want.abs()).max().item()
+    require(rel <= tol, f"K2: max|err| {err} beyond rtol 1e-5, atol {tol}")
+    ms = device_ms(torch, lambda: k2.frame_window(*args))
+    host_ms = call_ms(torch, lambda: k2.frame_window(*args))
+    plain_ms = device_ms(torch, lambda: k2.frame_window_plain(*args))
+    nbytes = audio.numel() * 4 + win.numel() * 4 + got.numel() * 4
+    flops = 6 * 8 * t * cfg.frame_length
+    bound_ms, bound_by = bound(nbytes, flops, peaks)
+    print(f"K2 frame_window audio[8,{audio.shape[1]}] -> [8,{t},{cfg.n_fft}]: "
+          f"max|err| {err:.3g} (rtol 1e-5, atol {tol:.3g}) device: kernel "
+          f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
+          f"{bound_ms * 1e3:.2f} us ({bound_by}), library: none; per call "
+          f"with host overhead {host_ms * 1e3:.2f} us", flush=True)
+    return dict(shape=[8, audio.shape[1], t, cfg.n_fft], max_abs_err=err,
+                ms=ms, call_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+# ------------------------------------------------------ phase 3: main path
+def make_wavs():
+    """Speech-like rows: a few drifting harmonics plus noise, with pauses."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    wavs = []
+    for secs in ROW_SECONDS:
+        n = int(secs * SR)
+        t = np.arange(n) / SR
+        f0 = 120 + 80 * np.sin(2 * np.pi * 0.3 * t + rng.uniform(0, 6))
+        phase = 2 * np.pi * np.cumsum(f0) / SR
+        x = sum(0.2 / h * np.sin(h * phase) for h in range(1, 6))
+        x = x * (0.5 + 0.5 * np.sin(2 * np.pi * 1.7 * t) ** 2)
+        x = x + 0.02 * rng.standard_normal(n)
+        x[int(0.4 * n): int(0.45 * n)] *= 0.01
+        wavs.append(x.astype(np.float32))
+    return wavs
+
+
+def counted(torch, fn):
+    """Run fn with both launch counters zeroed just before it and read just
+    after it: (result, K1 launches, K2 launches)."""
+    from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import fsmn_conv as k1
+    from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import frame_window as k2
+    torch.cuda.synchronize()
+    k1.launches = 0
+    k2.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, k1.launches, k2.launches
+
+
+def check_results(res, wavs, cfg):
+    import numpy as np
+    require(len(res) == len(wavs), "one result per row")
+    for i, r in enumerate(res):
+        n = len(r.token_ids)
+        require(len(r.timestamps_ms) == n and len(r.timestamp) == n,
+                f"row {i}: {n} tokens but {len(r.timestamps_ms)} timestamps")
+        require(all(0 <= t < cfg.vocab_size for t in r.token_ids),
+                f"row {i}: token id out of range")
+        require(abs(r.audio_s - len(wavs[i]) / SR) < 1e-3, "audio_s")
+        require(np.isfinite(r.rtf) and r.rtf > 0, "rtf")
+    require(len(res[0].token_ids) > 0, "the 10 s row fired no token")
+
+
+def hotwords_for(reco, res):
+    toks = reco.tokenizer.tokens
+    ids = res[0].token_ids
+    return {toks[ids[0]] + toks[ids[1] % 8000 + 4]: 20,
+            toks[ids[2]] + toks[ids[3]]: -10}
+
+
+def main_path(torch, card, profile: bool):
+    from toolbox_for_asr_and_tts_tpu_torch.asr.recognizer import Recognizer
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer import ParaformerConfig
+    cfg = ParaformerConfig()
+    t0 = time.perf_counter()
+    reco = Recognizer.random(cfg, seed=0)           # the card, by default
+    torch.cuda.synchronize()
+    print(f"main path: Recognizer.random(ParaformerConfig(), seed=0) on "
+          f"{reco.device} in {time.perf_counter() - t0:.1f} s "
+          f"(encoder {cfg.encoder_layers}, decoder {cfg.decoder_layers}+1, "
+          f"d {cfg.d_model}, ffn {cfg.ffn_dim}, vocab {cfg.vocab_size})",
+          flush=True)
+    wavs = make_wavs()
+    audio_s = sum(len(w) for w in wavs) / SR
+    warm = reco.transcribe(wavs)                    # library handles, plans
+    hw = hotwords_for(reco, warm)
+    reco.transcribe(wavs, hotwords=hw)
+
+    res, k1_n, k2_n = counted(torch, lambda: reco.transcribe(wavs))
+    check_results(res, wavs, cfg)
+    print(f"launches per transcribe (no hotwords): K1 {k1_n}, K2 {k2_n}",
+          flush=True)
+    require(k1_n >= cfg.encoder_layers + cfg.decoder_layers,
+            f"K1 launched {k1_n} times")
+    require(k2_n == 1, f"K2 launched {k2_n} times")
+    res_hw, k1_hw, k2_hw = counted(
+        torch, lambda: reco.transcribe(wavs, hotwords=hw))
+    check_results(res_hw, wavs, cfg)
+    print(f"launches per transcribe (hotwords {sorted(hw)}): K1 {k1_hw}, "
+          f"K2 {k2_hw}", flush=True)
+    require(k1_hw >= cfg.encoder_layers + 2 * cfg.decoder_layers,
+            f"K1 launched {k1_hw} times with rescoring")
+    require(k2_hw == 1, f"K2 launched {k2_hw} times with rescoring")
+    for i in (0, 1, 2):
+        print(f"  row {i} ({ROW_SECONDS[i]} s): {len(res[i].token_ids)} "
+              f"tokens, first ids {res[i].token_ids[:8]}, spans "
+              f"{res[i].timestamp[:2]}")
+
+    rtf = {}
+    for name, kw in (("plain", {}), ("hotwords", {"hotwords": hw})):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            reco.transcribe(wavs, **kw)
+            times.append(time.perf_counter() - t0)
+        rtf[name] = statistics.median(times) / audio_s
+        print(f"RTF batch 8 ({audio_s:.1f} s audio, {name}): "
+              f"{rtf[name]:.6f} (median of 5, "
+              f"{statistics.median(times) * 1e3:.1f} ms) on {card}",
+              flush=True)
+    if profile:
+        profile_transcribe(torch, reco, wavs, rtf["plain"] * audio_s * 1e3)
+        time_rescoring(torch, reco, wavs)
+    return reco, wavs, {"K1": k1_n, "K2": k2_n, "K1_rescoring": k1_hw,
+                        "K2_rescoring": k2_hw}, rtf
+
+
+def profile_transcribe(torch, reco, wavs, wall_ms: float):
+    """Device time of one transcribe by kernel (torch.profiler), against
+    the unprofiled wall time of the same call."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        reco.transcribe(wavs)
+        torch.cuda.synchronize()
+    rows = _device_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    require(busy_ms > 0, "profiler saw no device time")
+    print(f"profile: one transcribe, device busy {busy_ms:.1f} ms of "
+          f"{wall_ms:.1f} ms unprofiled wall (idle share "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}%)")
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    for e in rows[:15]:
+        print(f"  {e.self_device_time_total / 1e3:8.3f} ms "
+              f"{e.count:5d}x  {e.key[:90]}")
+
+
+def time_rescoring(torch, reco, wavs):
+    """Phase 2 of a hotword transcribe, part by part: the re-decode on the
+    card, the bf16 logits fetch, and the host's float64 log-softmax."""
+    import numpy as np
+    from scipy.special import log_softmax
+    batch, lens = reco.bucketer.pad_batch(wavs)
+    dev = reco.forward_padded(batch, lens)
+    counts = dev["token_count"].cpu().numpy()
+    k_b = min(-(-int(counts.max()) // reco.K_BUCKET) * reco.K_BUCKET,
+              dev["embeds"].shape[1])
+    parts = {"decode": [], "fetch": [], "log_softmax": []}
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = reco.rescoring_logits(dev["embeds"], dev["token_count"],
+                                       dev["enc"], dev["feat_lens"], k_b)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        arr = logits.float().cpu().numpy()
+        t2 = time.perf_counter()
+        for i, n in enumerate(counts):
+            log_softmax(arr[i, :n].astype(np.float64), axis=-1)
+        t3 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[key].append(dt * 1e3)
+    print("rescoring phase 2 (median of 5): " + ", ".join(
+        f"{k} {statistics.median(v):.1f} ms" for k, v in parts.items())
+        + f" (k_b {k_b}, logits {tuple(logits.shape)} bf16)")
+
+
+def compare_cpu(torch, reco, wavs):
+    """The card's forward pass vs the same port on the CPU, rows CPU_ROWS."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.asr.recognizer import Recognizer
+    cpu = Recognizer.random(reco.cfg, seed=0, device="cpu")
+    batch, lens = reco.bucketer.pad_batch([wavs[i] for i in CPU_ROWS])
+    t0 = time.perf_counter()
+    a = {k: v.cpu() for k, v in reco.forward_padded(batch, lens).items()}
+    b = cpu.forward_padded(batch, lens)
+    print(f"cpu comparison: rows {list(CPU_ROWS)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    count = b["token_count"].numpy()
+    require((a["token_count"].numpy() == count).all(),
+            f"token_count card {a['token_count'].tolist()} cpu {count.tolist()}")
+    logits = b["logits"].double().numpy()
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    gap = top2[..., 1] - top2[..., 0]
+    valid = np.arange(logits.shape[1])[None] < count[:, None]
+    same = a["tokens"].numpy() == b["tokens"].numpy()
+    decisive = valid & (gap > 1e-3)
+    share = same[valid].mean() if valid.any() else 1.0
+    require(same[decisive].all(), "tokens differ where the top-2 gap > 1e-3")
+    require(share >= 0.999, f"only {share:.4%} of tokens equal")
+    # fire frames may differ only where the CPU cumsum sits within 1e-4 of
+    # the token boundary the two runs placed differently
+    al = b["alphas"].double().numpy()
+    tail = np.full((al.shape[0], 1), reco.cfg.predictor_tail_threshold)
+    csum = np.cumsum(np.concatenate([al, tail], axis=1), axis=1)
+    fa, fb = a["fire_frame"].numpy(), b["fire_frame"].numpy()
+    near = 0
+    for r, k in zip(*np.nonzero(valid & (fa != fb))):
+        lo = min(fa[r, k], fb[r, k])
+        require(abs(csum[r, lo] - (k + 1)) < 1e-4,
+                f"row {r} token {k}: fire frame {fa[r, k]} vs {fb[r, k]} "
+                f"with cumsum {csum[r, lo]:.6f} far from {k + 1}")
+        near += 1
+    dlog = np.abs(a["logits"].double().numpy() - logits).max()
+    dal = np.abs(a["alphas"].double().numpy() - al).max()
+    denc = np.abs(a["enc"].double().numpy() - b["enc"].double().numpy()).max()
+    print(f"card vs cpu: token_count {count.tolist()} equal; tokens equal "
+          f"{same[valid].sum()}/{valid.sum()} ({share:.4%}), "
+          f"{(~same[valid]).sum()} differ (all with top-2 gap <= 1e-3); "
+          f"fire frames differing near a boundary: {near}; "
+          f"max|dlogit| {dlog:.3g}, max|dalpha| {dal:.3g}, max|denc| "
+          f"{denc:.3g}", flush=True)
+
+
+# ---------------------------------------------------------------- main
+def main(argv) -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    try:
+        from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import _build
+    except ImportError:
+        print("chip_smoke: the port's package is not beside this script",
+              file=sys.stderr)
+        return 1
+    profile = "--profile" in argv
+    try:
+        card = card_line()
+        print(card, flush=True)       # name, power limit: as nvidia-smi says
+        kind = torch.cuda.get_device_name(0)
+        peaks = card_peaks(kind)
+        print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+              f"cuda {torch.version.cuda}; peaks used for bounds: "
+              f"{peaks[0] / 1e12} TB/s, {peaks[1] / 1e12} TFLOP/s f32",
+              flush=True)
+        _build.load()
+        info = _build.build_info
+        print(f"kernels built from {', '.join(_build.SOURCES)} in "
+              f"{info['seconds']:.1f} s (cached {info['cached']}) -> "
+              f"{os.path.relpath(info['path'], ROOT)}", flush=True)
+        for line in str(info["log"]).splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas: {line.strip()}")
+
+        # off for every phase: the comparisons need full f32, and the main
+        # path then runs as it is compared (the package sets neither flag)
+        print(set_tf32(torch, False), flush=True)
+        k1_rows = check_k1(torch, peaks)
+        k2_row = check_k2(torch, peaks)
+        reco, wavs, launches, rtf = main_path(torch, card, profile)
+        compare_cpu(torch, reco, wavs)
+    except Exception:   # every phase failure ends the run without a result
+        traceback.print_exc()
+        return 1
+
+    main_k1 = next(r for r in k1_rows
+                   if r["site"] == "encoder" and r["dtype"] == "float32")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "call_ms")
+    kernels = [
+        dict(name="fsmn_conv", route="cuda",
+             source="toolbox_for_asr_and_tts_tpu_torch/csrc/fsmn_conv.cu",
+             replaces="toolbox_for_asr_and_tts_tpu/ops/pallas/fsmn_conv.py:38",
+             launches=launches["K1"],
+             **{k: main_k1[k] for k in keys},
+             launches_with_rescoring=launches["K1_rescoring"],
+             shapes=k1_rows),
+        dict(name="frame_window", route="cuda",
+             source="toolbox_for_asr_and_tts_tpu_torch/csrc/frame_window.cu",
+             replaces="toolbox_for_asr_and_tts_tpu/ops/pallas/frame_window.py:56",
+             launches=launches["K2"],
+             **{k: k2_row[k] for k in keys},
+             shape=k2_row["shape"]),
+    ]
+    print(json.dumps({"rtf_batch8": rtf, "card": card}))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
