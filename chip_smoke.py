@@ -4,19 +4,22 @@
     python3 chip_smoke.py             # from the repository root
     python3 chip_smoke.py --profile   # also: torch.profiler breakdown of one
                                       # transcribe by CUDA kernel
+    python3 chip_smoke.py --sweep     # also: K1's device time per tile
 
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit (nvidia-smi); build the CUDA kernels
    from `toolbox_for_asr_and_tts_tpu_torch/csrc/` (nvcc, sm_90a);
 2. each kernel against its plain PyTorch version at the main path's shapes
-   (TF32 off): K1 in f32 and bf16 at the encoder and decoder shapes, K2 in
-   f32; the device time of kernel, plain version and one-call library
-   yardstick (CUDA events around calls queued behind a spin kernel, so no
-   host gap is timed; median), the kernel's per-call time with its host
-   overhead (CUDA events over back-to-back calls), and the least time the
-   card could take (bytes or flops over its peak rate).
-   TF32 stays off for every phase;
+   (TF32 off): K1 in f32 (max|err| 0) and bf16 at the encoder and decoder
+   shapes, in the encoder also on the strided V view of a qkv buffer that
+   the path passes, with the tile the wrapper chose; K2 in f32; the device
+   time of kernel, plain version and one-call library yardstick (CUDA
+   events around calls queued behind a spin kernel, so no host gap is
+   timed; median), beside the same method's per-launch floor (a 1-cycle
+   spin kernel), the kernel's per-call time with its host overhead (CUDA
+   events over back-to-back calls), and the least time the card could take
+   (bytes or flops over its peak rate). TF32 stays off for every phase;
 3. the full-width main path: `Recognizer.random(ParaformerConfig(), seed=0)`
    (Paraformer-large: 50 + 16 layers, d 512, vocab 8404) transcribes a
    batch of 8 x up to 10 s of 16 kHz audio, with and without hotwords; the
@@ -166,33 +169,62 @@ def set_tf32(torch, on: bool) -> str:
 
 
 # -------------------------------------------------------- phase 2: kernels
-def check_k1(torch, peaks):
+K1_D, K1_K, K1_PAD = 512, 11, (5, 5)
+
+
+def k1_case(torch, site: str, dtype, seed: int):
+    """K1's inputs at a main-path site, x as the path passes it: in the
+    encoder the V third of a [8, T, 3D] qkv buffer (a strided view), in the
+    decoder a contiguous [8, T, D]; w [D, 1, K] f32; a length mask."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, t, d = 8, K1_SITES[site], K1_D
+    if site == "encoder":
+        x = torch.randn((b, t, 3 * d), generator=g,
+                        device=dev).to(dtype)[..., 2 * d:]
+    else:
+        x = torch.randn((b, t, d), generator=g, device=dev).to(dtype)
+    w = torch.randn((d, 1, K1_K), generator=g, device=dev) * 0.02
+    lens = torch.tensor([t, t * 3 // 4, t // 3, t, t // 2, t - 7,
+                         t * 2 // 3, t // 4], device=dev)
+    mask = (torch.arange(t, device=dev)[None] < lens[:, None]).float()
+    return x, w, mask
+
+
+def k1_err(torch, got, want) -> float:
+    torch.cuda.synchronize()
+    return (got.float() - want.float()).abs().max().item()
+
+
+def check_k1(torch, peaks, floor_ms: float):
+    """K1 against its plain version (f32: max|err| 0, the kernel repeats the
+    plain roundings; bf16: 1e-2, one output rounding) on the contiguous
+    input and, in the encoder, on the strided V view the path passes."""
     import torch.nn.functional as F
     from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import fsmn_conv as k1
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    for site, t in K1_SITES.items():
-        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
-            b, d, k, pad = 8, 512, 11, (5, 5)
-            x = torch.randn((b, t, d), generator=g, device=dev).to(dtype)
-            w = torch.randn((d, 1, k), generator=g, device=dev) * 0.02
-            lens = torch.tensor([t, t * 3 // 4, t // 3, t, t // 2, t - 7,
-                                 t * 2 // 3, t // 4], device=dev)
-            mask = (torch.arange(t, device=dev)[None] < lens[:, None]).float()
-            got = k1.fsmn_depthwise(x, w, pad[0], pad[1], mask)
-            want = k1.fsmn_depthwise_plain(x, w, pad[0], pad[1], mask)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
+    for site in K1_SITES:
+        for dtype, tol in ((torch.float32, 0.0), (torch.bfloat16, 1e-2)):
+            xv, w, mask = k1_case(torch, site, dtype, seed=1)
+            x = xv.contiguous()
+            b, t, d = x.shape
+            k, pad = K1_K, K1_PAD
+            tile = k1.tile_for(xv, k)
+            errs = [k1_err(torch, k1.fsmn_depthwise(a, w, *pad, mask),
+                           k1.fsmn_depthwise_plain(a, w, *pad, mask))
+                    for a in {id(x): x, id(xv): xv}.values()]
+            err = max(errs)
             require(err <= tol, f"K1 {site} {dtype}: max|err| {err} > {tol}")
-            wk = w.to(dtype)
+            wk = w.to(dtype)    # timed in x's dtype, as a model in it holds w
 
             def library():
                 y = F.conv1d(x.transpose(1, 2), wk, padding=pad[0], groups=d)
                 return x + y.transpose(1, 2)
 
-            kernel = lambda: k1.fsmn_depthwise(x, w, *pad, mask)  # noqa: E731
+            kernel = lambda: k1.fsmn_depthwise(x, wk, *pad, mask)  # noqa: E731
             ms = device_ms(torch, kernel)
+            strided_ms = (None if xv is x else device_ms(
+                torch, lambda: k1.fsmn_depthwise(xv, wk, *pad, mask)))
             host_ms = call_ms(torch, kernel)
             plain_ms = device_ms(
                 torch, lambda: k1.fsmn_depthwise_plain(x, w, *pad, mask))
@@ -202,18 +234,60 @@ def check_k1(torch, peaks):
             flops = (2 * k + 2) * x.numel()
             bound_ms, bound_by = bound(nbytes, flops, peaks)
             rows.append(dict(site=site, dtype=str(dtype).split(".")[-1],
-                             shape=[b, t, d, k], max_abs_err=err, tol=tol,
-                             ms=ms, call_ms=host_ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by,
-                             library_ms=library_ms))
+                             shape=[b, t, d, k], tile=list(tile),
+                             max_abs_err=err, tol=tol, ms=ms,
+                             strided_ms=strided_ms, call_ms=host_ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=library_ms,
+                             launch_floor_ms=floor_ms))
+            strided = ("" if strided_ms is None else
+                       f"strided V view of [{b},{t},{3 * d}] "
+                       f"{strided_ms * 1e3:.2f} us, ")
             print(f"K1 fsmn_conv {site} {rows[-1]['dtype']} "
-                  f"x[{b},{t},{d}] K={k}: max|err| {err:.3g} (tol {tol}) "
-                  f"device: kernel {ms * 1e3:.2f} us, plain "
-                  f"{plain_ms * 1e3:.2f} us, conv1d+x {library_ms * 1e3:.2f} "
-                  f"us, bound {bound_ms * 1e3:.2f} us ({bound_by}); "
+                  f"x[{b},{t},{d}] K={k} {tile}: max|err| {err:.3g} "
+                  f"(tol {tol}) device: kernel {ms * 1e3:.2f} us, {strided}"
+                  f"plain {plain_ms * 1e3:.2f} us, conv1d+x "
+                  f"{library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+                  f"({bound_by}), launch floor {floor_ms * 1e3:.2f} us; "
                   f"per call with host overhead {host_ms * 1e3:.2f} us",
                   flush=True)
     return rows
+
+
+def sweep_k1(torch):
+    """K1's device time for each tile (frames per thread x channels per
+    block x K fixed at 11 or not; the wrapper's threads along T for each) at
+    both sites and dtypes, on the input the main path passes; every tile is
+    first held against the plain version."""
+    from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import fsmn_conv as k1
+    for site in K1_SITES:
+        for dtype, tol in ((torch.float32, 0.0), (torch.bfloat16, 1e-2)):
+            x, w, mask = k1_case(torch, site, dtype, seed=3)
+            wk = w.to(dtype).contiguous()
+            want = k1.fsmn_depthwise_plain(x, w, *K1_PAD, mask)
+            chosen = k1.tile_for(x, K1_K)
+            times = {}
+            for frames in (2, 4, 8):
+                for channels in (32, 64, 128, 256, 512):
+                    for k_const in (0, K1_K):
+                        tile = k1.make_tile(x.shape[1], K1_K, chosen.vec,
+                                            frames, channels, k_const)
+
+                        def fn(tile=tile):
+                            return k1.launch(x, wk, K1_PAD[0], mask, tile)
+
+                        err = k1_err(torch, fn(), want)
+                        require(err <= tol, f"K1 sweep {tile}: max|err| {err}")
+                        times[tile] = device_ms(torch, fn)
+            best = min(times, key=times.get)
+            print(f"K1 sweep {site} {str(dtype).split('.')[-1]} "
+                  f"x{list(x.shape)} strides {x.stride()}: best {best} "
+                  f"{times[best] * 1e3:.2f} us, chosen {chosen} "
+                  f"{times[chosen] * 1e3:.2f} us", flush=True)
+            for tile, ms in sorted(times.items(), key=lambda kv: kv[1]):
+                print(f"  frames {tile.frames} channels {tile.channels:3d} "
+                      f"threads_t {tile.threads_t:3d} k_const "
+                      f"{tile.k_const:2d}: {ms * 1e3:.2f} us")
 
 
 def check_k2(torch, peaks):
@@ -377,6 +451,11 @@ def profile_transcribe(torch, reco, wavs, wall_ms: float):
     print(f"profile: one transcribe, device busy {busy_ms:.1f} ms of "
           f"{wall_ms:.1f} ms unprofiled wall (idle share "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%)")
+    counts = {name: sum(e.count for e in rows if name in e.key)
+              for name in ("elementwise", "copy")}
+    print(f"profile: {sum(e.count for e in rows)} kernel launches, "
+          f"{counts['elementwise']} of them elementwise kernels "
+          f"({counts['copy']} copies)")
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[:15]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms "
@@ -499,7 +578,12 @@ def main(argv) -> int:
         # off for every phase: the comparisons need full f32, and the main
         # path then runs as it is compared (the package sets neither flag)
         print(set_tf32(torch, False), flush=True)
-        k1_rows = check_k1(torch, peaks)
+        floor_ms = device_ms(torch, lambda: torch.cuda._sleep(1))
+        print(f"launch floor of the event method (a 1-cycle spin kernel): "
+              f"{floor_ms * 1e3:.2f} us per launch", flush=True)
+        k1_rows = check_k1(torch, peaks, floor_ms)
+        if "--sweep" in argv:
+            sweep_k1(torch)
         k2_row = check_k2(torch, peaks)
         reco, wavs, launches, rtf = main_path(torch, card, profile)
         compare_cpu(torch, reco, wavs)
@@ -517,6 +601,9 @@ def main(argv) -> int:
              replaces="toolbox_for_asr_and_tts_tpu/ops/pallas/fsmn_conv.py:38",
              launches=launches["K1"],
              **{k: main_k1[k] for k in keys},
+             strided_ms=main_k1["strided_ms"],
+             launch_floor_ms=main_k1["launch_floor_ms"],
+             tile=main_k1["tile"],
              launches_with_rescoring=launches["K1_rescoring"],
              shapes=k1_rows),
         dict(name="frame_window", route="cuda",

@@ -24,16 +24,39 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+def _fsmn_against_plain(x, w, pad_l, mask=None):
+    """One launch (the counter +1), a new contiguous y in x's dtype; f32
+    equal to the plain version bit for bit (the kernel repeats its
+    roundings in its order), bf16 within 1e-2 (one output rounding)."""
+    pad_r = w.shape[-1] - 1 - pad_l
+    before = k1.launches
+    got = k1.fsmn_depthwise(x, w, pad_l, pad_r, mask)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 1
+    want = k1.fsmn_depthwise_plain(x, w, pad_l, pad_r, mask)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert got.is_contiguous()
+    if x.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                                   atol=1e-2)
+
+
+def _randn(rng, *shape, scale=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * scale)
+                            .astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 0.0),
                                        (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("t", [167, 96, 5])
 def test_fsmn_kernel_matches_plain(cuda, dtype, tol, t):
-    """f32: the kernel repeats the plain version's roundings (1e-5 leaves
-    room for none); bf16: one rounding of the output (1e-2)."""
+    """f32: the kernel repeats the plain version's roundings (exact);
+    bf16: one rounding of the output (1e-2)."""
     rng = np.random.default_rng(1)
-    x = torch.from_numpy(rng.standard_normal((8, t, 512)).astype(np.float32))
-    w = torch.from_numpy((rng.standard_normal((512, 1, 11)) * 0.1)
-                         .astype(np.float32))
+    x = _randn(rng, 8, t, 512)
+    w = _randn(rng, 512, 1, 11, scale=0.1)
     mask = torch.ones(8, t)
     mask[3, t // 2:] = 0.0
     xt, wt, mt = x.to(cuda, dtype), w.to(cuda), mask.to(cuda)
@@ -51,12 +74,54 @@ def test_fsmn_kernel_matches_plain(cuda, dtype, tol, t):
 @pytest.mark.parametrize("pad_l,k", [(0, 1), (19, 20), (3, 11)])
 def test_fsmn_kernel_pads(cuda, pad_l, k):
     rng = np.random.default_rng(2)
-    x = torch.from_numpy(rng.standard_normal((2, 50, 40)).astype(np.float32))
-    w = torch.from_numpy(rng.standard_normal((40, 1, k)).astype(np.float32))
+    x = _randn(rng, 2, 50, 40)
+    w = _randn(rng, 40, 1, k)
     xt, wt = x.to(cuda), w.to(cuda)
     got = k1.fsmn_depthwise(xt, wt, pad_l, k - 1 - pad_l)
     want = k1.fsmn_depthwise_plain(xt, wt, pad_l, k - 1 - pad_l)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["v_view", "odd_d", "unaligned"])
+def test_fsmn_kernel_layouts(cuda, dtype, layout):
+    """The V third of a [8, 167, 1536] qkv buffer (16-byte vectors, read in
+    place); D not a multiple of the vector (30 f32, 36 bf16) and a base off
+    16 bytes (x[..., 1:65] of a 68-wide buffer), both on the scalar path."""
+    rng = np.random.default_rng(4)
+    if layout == "v_view":
+        x = _randn(rng, 8, 167, 1536).to(cuda, dtype)[..., 1024:]
+    elif layout == "odd_d":
+        x = _randn(rng, 2, 50, 30 if dtype == torch.float32 else 36
+                   ).to(cuda, dtype)
+    else:
+        x = _randn(rng, 2, 50, 68).to(cuda, dtype)[..., 1:65]
+    b, t, d = x.shape
+    w = _randn(rng, d, 1, 11, scale=0.1).to(cuda)
+    mask = torch.ones(b, t, device=cuda)
+    mask[-1, t // 3:] = 0.0
+    assert k1.tile_for(x, 11).vec == (1 if layout != "v_view"
+                                      else 16 // x.element_size())
+    for m in (None, mask):
+        _fsmn_against_plain(x, w, 5, m)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("side", ["pad_left", "pad_right"])
+@pytest.mark.parametrize("k", [1, 11, 12, 20])
+@pytest.mark.parametrize("t", [1, 5, 167])
+def test_fsmn_kernel_lengths_and_taps(cuda, dtype, side, k, t):
+    """T shorter than, near and beyond a block's frames; K of SAN-M (11,
+    the unrolled instantiation), KWS (12), FSMN-VAD (20) and 1; all the
+    padding on the left (causal) or on the right."""
+    rng = np.random.default_rng(5)
+    x = _randn(rng, 3, t, 256).to(cuda, dtype)
+    w = _randn(rng, 256, 1, k, scale=0.1).to(cuda)
+    mask = torch.ones(3, t, device=cuda)
+    mask[1, (t + 1) // 2:] = 0.0
+    pad_l = k - 1 if side == "pad_left" else 0
+    for m in (None, mask):
+        _fsmn_against_plain(x, w, pad_l, m)
 
 
 @pytest.mark.parametrize("seconds,extra", [(10.0, 0), (0.1, 3)])

@@ -58,6 +58,93 @@ def test_fsmn_plain_matches_pallas_and_nn(t, d, k, pad_l):
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("t,d,k,pad_l", [(13, 32, 11, 5), (40, 64, 20, 19)])
+def test_fsmn_plain_on_qkv_v_view(t, d, k, pad_l, with_mask):
+    """The wrapper takes the V third of a numpy-seeded [2, T, 3D] buffer as
+    a view (as SAN-M passes it) and gives, within 1e-5, what it gives on the
+    contiguous copy, the reference's `fsmn_block` on the same V, and (without
+    a mask, which the Pallas kernel does not take) the Pallas kernel in
+    interpret mode."""
+    rng = np.random.default_rng(5)
+    qkv = rng.standard_normal((2, t, 3 * d)).astype(np.float32)
+    w = (rng.standard_normal((d, 1, k)) * 0.1).astype(np.float32)
+    mask = np.ones((2, t), np.float32)
+    mask[1, t // 2:] = 0.0
+    v = torch.from_numpy(qkv)[..., 2 * d:]
+    assert not v.is_contiguous() and v.stride() == (3 * d * t, 3 * d, 1)
+    m = torch.from_numpy(mask) if with_mask else None
+    pad_r = k - 1 - pad_l
+    got = k1.fsmn_depthwise(v, torch.from_numpy(w), pad_l, pad_r, m).numpy()
+    assert got.flags["C_CONTIGUOUS"] and got.shape == (2, t, d)
+    copy = k1.fsmn_depthwise(v.contiguous(), torch.from_numpy(w), pad_l,
+                             pad_r, m).numpy()
+    np.testing.assert_allclose(got, copy, rtol=1e-5, atol=1e-5)
+    v_np = np.ascontiguousarray(qkv[..., 2 * d:])
+    ref = np.asarray(jnn.fsmn_block(
+        {"w": jnp.asarray(w)}, jnp.asarray(v_np), (pad_l, pad_r),
+        jnp.asarray(mask) if with_mask else None))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    if not with_mask:
+        pallas = np.asarray(jax_fsmn_depthwise(
+            jnp.asarray(v_np), jnp.asarray(w), pad_l, pad_r, interpret=True))
+        np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case,dtype,vec", [
+    ("v_view", torch.float32, 4), ("v_view", torch.bfloat16, 8),
+    ("contiguous", torch.float32, 4), ("odd_d", torch.float32, 1),
+    ("odd_d", torch.bfloat16, 1), ("unaligned", torch.float32, 1),
+    ("odd_frame_stride", torch.bfloat16, 1)])
+def test_fsmn_tile_vector_or_scalar(case, dtype, vec):
+    """16-byte vectors need x's base, batch and frame strides and D to be
+    multiples of 16 bytes; anything else takes the kernel's scalar path."""
+    if case == "v_view":
+        x = torch.zeros(8, 167, 1536, dtype=dtype)[..., 1024:]
+    elif case == "contiguous":
+        x = torch.zeros(8, 96, 512, dtype=dtype)
+    elif case == "odd_d":
+        x = torch.zeros(2, 50, 30 if dtype == torch.float32 else 36,
+                        dtype=dtype)
+    elif case == "unaligned":   # only the base is off 16 bytes
+        x = torch.zeros(2, 50, 68, dtype=dtype)[..., 1:65]
+    else:
+        x = torch.zeros(2, 50, 3 * 64 + 4, dtype=dtype)[..., :64]
+    tile = k1.tile_for(x, 11)
+    assert tile.vec == vec
+    assert tile.k_const == (11 if vec > 1 else 0)
+    assert tile.smem_bytes(11) <= k1._SMEM_LIMIT
+    assert tile.block_frames() >= tile.frames
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fsmn_tile_fits_shared_memory_at_max_taps(dtype):
+    x = torch.zeros(2, 50, 512, dtype=dtype)
+    tile = k1.tile_for(x, k1.MAX_TAPS)
+    assert tile.k_const == 0
+    assert tile.smem_bytes(k1.MAX_TAPS) <= k1._SMEM_LIMIT
+    assert tile.channels % 8 == 0
+    assert tile.threads_d() * tile.threads_t <= k1.THREADS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,frames,threads_t", [
+    (167, 4, 16),   # the encoder: 384 blocks fill 132 SMs with 4 frames
+    (96, 2, 16),    # the decoder: 4 frames would leave 256 blocks, 2 do not
+    (5, 2, 4),      # a short input: one block of whole warps along T
+    (1, 2, 4)])
+def test_fsmn_tile_frames_fill_the_card(dtype, t, frames, threads_t):
+    """4 frames per thread only where the grid still gives each of the
+    H100's 132 SMs 2.5 blocks; threads along T in whole warps, no more than
+    T needs."""
+    x = torch.zeros(8, t, 3 * 512, dtype=dtype)[..., 1024:]
+    tile = k1.tile_for(x, 11)
+    assert (tile.frames, tile.channels, tile.threads_t) == (
+        frames, k1.TILE_CHANNELS, threads_t)
+    assert tile.block_frames() * -(-t // tile.block_frames()) >= t
+    assert tile.threads_d() * tile.threads_t % 32 == 0
+
+
 def test_fsmn_plain_mask_matches_nn():
     x, w = _fsmn_inputs(40, 32, 11)
     mask = np.ones((2, 40), np.float32)
@@ -85,8 +172,10 @@ def test_fsmn_plain_bf16_keeps_dtype():
 
 @pytest.mark.parametrize("case", ["rank", "dtype", "contiguous", "w_shape",
                                   "pads", "mask_shape", "mask_dtype",
-                                  "device"])
+                                  "device", "channel_stride"])
 def test_fsmn_wrapper_rejects(case):
+    """Any batch and frame stride is taken; a channel stride other than 1
+    (a transpose, a step along D) is not."""
     x = torch.zeros(2, 8, 4)
     w = torch.zeros(4, 1, 3)
     kw = dict(pad_l=1, pad_r=1, mask=None)
@@ -96,6 +185,8 @@ def test_fsmn_wrapper_rejects(case):
         x = x.half()
     elif case == "contiguous":
         x = torch.zeros(2, 4, 8).transpose(1, 2)
+    elif case == "channel_stride":
+        x = torch.zeros(2, 8, 8)[..., ::2]
     elif case == "w_shape":
         w = torch.zeros(5, 1, 3)
     elif case == "pads":

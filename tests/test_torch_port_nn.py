@@ -113,6 +113,56 @@ def test_fsmn_block(with_mask):
     _close(got, want)
 
 
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_fsmn_block_on_qkv_v_view(with_mask):
+    """fsmn_block on the V third of a [B, T, 3D] buffer, as SAN-M passes it:
+    the reference's fsmn_block on the same V."""
+    p = jnn.fsmn_memory_init(jax.random.PRNGKey(8), 32, 11)
+    qkv = _x(3, 20, 96, seed=9)
+    mask = _mask(3, 20, np.array([20, 9, 1])) if with_mask else None
+    got = nn.fsmn_block(_pt(p), torch.from_numpy(qkv)[..., 64:], (5, 5),
+                        None if mask is None else torch.from_numpy(mask))
+    want = jnn.fsmn_block(p, jnp.asarray(qkv[..., 64:]), (5, 5),
+                          None if mask is None else jnp.asarray(mask))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_sanm_attention_passes_v_view_without_copy(monkeypatch, with_mask):
+    """K1 receives the V third of the qkv product itself: a view sharing its
+    storage, at offset 2D with frame stride 3D, so no copy precedes it; the
+    attention still equals the reference's."""
+    seen = {"linear": [], "fsmn": []}
+    linear, fsmn = nn.linear, nn.fsmn_depthwise
+
+    def spy_linear(p, x):
+        y = linear(p, x)
+        seen["linear"].append(y)
+        return y
+
+    def spy_fsmn(x, *args):
+        seen["fsmn"].append(x)
+        return fsmn(x, *args)
+
+    monkeypatch.setattr(nn, "linear", spy_linear)
+    monkeypatch.setattr(nn, "fsmn_depthwise", spy_fsmn)
+    p = jnn.sanm_attention_init(jax.random.PRNGKey(4), 48, 32, 4, 11)
+    x = _x(2, 13, 48)
+    mask = _mask(2, 13, np.array([13, 6])) if with_mask else None
+    got = nn.sanm_attention(_pt(p), torch.from_numpy(x), 4,
+                            None if mask is None else torch.from_numpy(mask),
+                            11, 0)
+    qkv = seen["linear"][0]
+    (v,) = seen["fsmn"]
+    assert qkv.shape == (2, 13, 96)
+    assert v.untyped_storage().data_ptr() == qkv.untyped_storage().data_ptr()
+    assert v.data_ptr() == qkv.data_ptr() + 64 * qkv.element_size()
+    assert v.stride() == qkv.stride() and not v.is_contiguous()
+    _close(got, jnn.sanm_attention(p, jnp.asarray(x), 4,
+                                   None if mask is None else jnp.asarray(mask),
+                                   11, 0))
+
+
 @pytest.mark.parametrize("k,shift", [(11, 0), (11, 2), (4, 0), (1, 0)])
 def test_sanm_pad(k, shift):
     assert nn.sanm_pad(k, shift) == jnn.sanm_pad(k, shift)

@@ -26,12 +26,13 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: every pointer and the stream are c_void_p, so ctypes never
 # cuts a 64-bit address to a 32-bit int.
+_FSMN = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _I, _I, _I, _I, _I, _P]
 SIGNATURES = {
-    "fsmn_conv_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "fsmn_conv_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fsmn_conv_f32": _FSMN,
+    "fsmn_conv_bf16": _FSMN,
     "frame_window_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
 }
 

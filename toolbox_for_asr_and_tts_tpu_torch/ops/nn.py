@@ -115,8 +115,10 @@ def fsmn_memory_init(g: torch.Generator, d: int, kernel_size: int) -> Params:
 def fsmn_block(p: Params, x: torch.Tensor, pad: Tuple[int, int],
                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """FSMN memory: mask → x + depthwise_conv(pad)(x) → mask, as the
-    reference's `fsmn_block`, in one launch of kernel K1 (the masks fused)."""
-    return fsmn_depthwise(x.contiguous(), p["w"], pad[0], pad[1],
+    reference's `fsmn_block`, in one launch of kernel K1 (the masks fused).
+    x may be a view with unit channel stride (SAN-M passes the V third of
+    its qkv product): K1 reads it in place."""
+    return fsmn_depthwise(x, p["w"], pad[0], pad[1],
                           None if mask is None else mask.float().contiguous())
 
 
