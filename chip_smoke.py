@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py             # from the repository root
     python3 chip_smoke.py --profile   # also: torch.profiler breakdown of one
-                                      # transcribe by CUDA kernel
+                                      # transcribe by CUDA kernel, and the
+                                      # card's busy time per streaming step
     python3 chip_smoke.py --sweep     # also: K1's device time per tile
 
 Phases (any failure exits non-zero and prints no result line):
@@ -13,7 +14,11 @@ Phases (any failure exits non-zero and prints no result line):
 2. each kernel against its plain PyTorch version at the main path's shapes
    (TF32 off): K1 in f32 (max|err| 0) and bf16 at the encoder and decoder
    shapes, in the encoder also on the strided V view of a qkv buffer that
-   the path passes, with the tile the wrapper chose; K2 in f32; the device
+   the path passes, with the tile the wrapper chose; K2 in f32; both also at
+   the streaming path's shapes (K1: the chunked encoder's V view of
+   [S, 9, 1536] at S 64 and 1, FSMN-VAD's [64, 19 + 40, 128] with K 20 and
+   pad (19, 0); K2: the fused step's ring [64, 4320] → 25 frames and the
+   first VAD tick [64, 6400] → 38 frames); the device
    time of kernel, plain version and one-call library yardstick (CUDA
    events around calls queued behind a spin kernel, so no host gap is
    timed; median), beside the same method's per-launch floor (a 1-cycle
@@ -26,7 +31,21 @@ Phases (any failure exits non-zero and prints no result line):
    kernels' launch counters are zeroed just before each transcribe and read
    just after; RTF of the batch; then the card's forward pass is held
    against the same port on the CPU for 2 of the rows;
-4. the `kernels` JSON line, then the result line
+4. the streaming path at full width: `BatchedChunkedASR(ParaformerConfig(),
+   OnlineConfig(), capacity=64, partials=True)` on S = 1, 16 and 64 live
+   sessions of 3.2-8 s each, fed in 0.4 s chunks and then finalized; per
+   run the launch counters are zeroed just before and read just after (K1
+   50 and K2 1 per chunked step), and the per-step wall time (host clock,
+   ending in the fetch) is printed with its real-time share; then
+   `BatchedVadTicker(FsmnVadConfig(), capacity=64)` on 64 sessions (K1 4
+   and K2 1 per tick); with `--profile` the card's busy time per step.
+   Two sessions of the S = 16 run are held against a per-session
+   `OnlineRecognizer(partial_mode="incremental")` on the card (ids equal)
+   and, through the ticker step's halves (`fused_encode`, `fused_decode`)
+   and the streaming VAD, against the same on the CPU (fired counts equal,
+   embeddings within 1e-3, ids equal where the top-2 logit gap exceeds
+   1e-3, VAD decisions equal, posteriors within 1e-4);
+5. the `streaming` and `kernels` JSON lines, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs one card, no network, and only the files of this repository.
@@ -196,62 +215,130 @@ def k1_err(torch, got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+def k1_measure(torch, peaks, floor_ms: float, site: str, xv, w, pad, mask,
+               tol: float, library, kept=None):
+    """K1 against its plain version on x as the path passes it (`xv`, a
+    view or not) and contiguous; its device time on both, the plain
+    version's and the library yardstick's (`library(x, w)`), its bound.
+    kept: the output rows the path keeps (the last ones), where it drops
+    some; the bound is then that of the function the path needs (x read
+    once, the kept rows written), beside the whole call's."""
+    from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import fsmn_conv as k1
+    x = xv.contiguous()
+    b, t, d = x.shape
+    k = w.shape[-1]
+    tile = k1.tile_for(xv, k)
+    errs = [k1_err(torch, k1.fsmn_depthwise(a, w, *pad, mask),
+                   k1.fsmn_depthwise_plain(a, w, *pad, mask))
+            for a in {id(x): x, id(xv): xv}.values()]
+    err = max(errs)
+    dtype = str(x.dtype).split(".")[-1]
+    require(err <= tol, f"K1 {site} {dtype}: max|err| {err} > {tol}")
+    wk = w.to(x.dtype)    # timed in x's dtype, as a model in it holds w
+    kernel = lambda: k1.fsmn_depthwise(x, wk, *pad, mask)  # noqa: E731
+    ms = device_ms(torch, kernel)
+    strided_ms = (None if xv is x else device_ms(
+        torch, lambda: k1.fsmn_depthwise(xv, wk, *pad, mask)))
+    host_ms = call_ms(torch, kernel)
+    plain_ms = device_ms(
+        torch, lambda: k1.fsmn_depthwise_plain(x, w, *pad, mask))
+    library_ms = device_ms(torch, lambda: library(x, wk))
+    el = x.element_size()
+
+    def bound_of(rows: int):
+        nbytes = ((x.numel() + b * rows * d + d * k) * el
+                  + (0 if mask is None else mask.numel() * 4))
+        return bound(nbytes, (2 * k + 2) * b * rows * d, peaks)
+    bound_ms, bound_by = bound_of(t if kept is None else kept)
+    row = dict(site=site, dtype=dtype, shape=[b, t, d, k], pad=list(pad),
+               masked=mask is not None, tile=list(tile), max_abs_err=err,
+               tol=tol, ms=ms, strided_ms=strided_ms, call_ms=host_ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=library_ms, launch_floor_ms=floor_ms)
+    whole = ""
+    if kept is not None:
+        row["kept_rows"] = kept
+        row["bound_whole_call_ms"] = bound_of(t)[0]
+        whole = (f" for the {kept} kept rows ({t} computed: "
+                 f"{row['bound_whole_call_ms'] * 1e3:.2f} us)")
+    strided = ("" if strided_ms is None else
+               f"strided view of [{b},{t},{xv.stride(1)}] "
+               f"{strided_ms * 1e3:.2f} us, ")
+    print(f"K1 fsmn_conv {site} {dtype} x[{b},{t},{d}] K={k} pad={pad} "
+          f"{'masked' if mask is not None else 'no mask'} {tile}: max|err| "
+          f"{err:.3g} (tol {tol}) device: kernel {ms * 1e3:.2f} us, "
+          f"{strided}plain {plain_ms * 1e3:.2f} us, library "
+          f"{library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+          f"({bound_by}){whole}, launch floor {floor_ms * 1e3:.2f} us; per call "
+          f"with host overhead {host_ms * 1e3:.2f} us", flush=True)
+    return row
+
+
+def conv_plus_x(pad):
+    """The library yardstick of a length-preserving K1 call with a
+    symmetric pad: one `F.conv1d(groups=D)` and the residual add."""
+    import torch.nn.functional as F
+
+    def library(x, w):
+        y = F.conv1d(x.transpose(1, 2), w, padding=pad[0], groups=x.shape[-1])
+        return x + y.transpose(1, 2)
+    return library
+
+
 def check_k1(torch, peaks, floor_ms: float):
     """K1 against its plain version (f32: max|err| 0, the kernel repeats the
     plain roundings; bf16: 1e-2, one output rounding) on the contiguous
     input and, in the encoder, on the strided V view the path passes."""
-    import torch.nn.functional as F
-    from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import fsmn_conv as k1
     rows = []
     for site in K1_SITES:
         for dtype, tol in ((torch.float32, 0.0), (torch.bfloat16, 1e-2)):
             xv, w, mask = k1_case(torch, site, dtype, seed=1)
-            x = xv.contiguous()
-            b, t, d = x.shape
-            k, pad = K1_K, K1_PAD
-            tile = k1.tile_for(xv, k)
-            errs = [k1_err(torch, k1.fsmn_depthwise(a, w, *pad, mask),
-                           k1.fsmn_depthwise_plain(a, w, *pad, mask))
-                    for a in {id(x): x, id(xv): xv}.values()]
-            err = max(errs)
-            require(err <= tol, f"K1 {site} {dtype}: max|err| {err} > {tol}")
-            wk = w.to(dtype)    # timed in x's dtype, as a model in it holds w
-
-            def library():
-                y = F.conv1d(x.transpose(1, 2), wk, padding=pad[0], groups=d)
-                return x + y.transpose(1, 2)
-
-            kernel = lambda: k1.fsmn_depthwise(x, wk, *pad, mask)  # noqa: E731
-            ms = device_ms(torch, kernel)
-            strided_ms = (None if xv is x else device_ms(
-                torch, lambda: k1.fsmn_depthwise(xv, wk, *pad, mask)))
-            host_ms = call_ms(torch, kernel)
-            plain_ms = device_ms(
-                torch, lambda: k1.fsmn_depthwise_plain(x, w, *pad, mask))
-            library_ms = device_ms(torch, library)
-            el = x.element_size()
-            nbytes = 2 * x.numel() * el + d * k * el + mask.numel() * 4
-            flops = (2 * k + 2) * x.numel()
-            bound_ms, bound_by = bound(nbytes, flops, peaks)
-            rows.append(dict(site=site, dtype=str(dtype).split(".")[-1],
-                             shape=[b, t, d, k], tile=list(tile),
-                             max_abs_err=err, tol=tol, ms=ms,
-                             strided_ms=strided_ms, call_ms=host_ms,
-                             plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=library_ms,
-                             launch_floor_ms=floor_ms))
-            strided = ("" if strided_ms is None else
-                       f"strided V view of [{b},{t},{3 * d}] "
-                       f"{strided_ms * 1e3:.2f} us, ")
-            print(f"K1 fsmn_conv {site} {rows[-1]['dtype']} "
-                  f"x[{b},{t},{d}] K={k} {tile}: max|err| {err:.3g} "
-                  f"(tol {tol}) device: kernel {ms * 1e3:.2f} us, {strided}"
-                  f"plain {plain_ms * 1e3:.2f} us, conv1d+x "
-                  f"{library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
-                  f"({bound_by}), launch floor {floor_ms * 1e3:.2f} us; "
-                  f"per call with host overhead {host_ms * 1e3:.2f} us",
-                  flush=True)
+            rows.append(k1_measure(torch, peaks, floor_ms, site, xv, w,
+                                   K1_PAD, mask, tol, conv_plus_x(K1_PAD)))
     return rows
+
+
+# K1 and K2 at the streaming path's shapes (f32, as the path runs)
+STREAM_S = 64                 # sessions of the largest bucket timed
+VAD_CTX, VAD_T, VAD_D, VAD_K = 19, 40, 128, 20   # [cache ‖ h], lorder 20
+
+
+def check_streaming_kernels(torch, peaks, floor_ms: float):
+    """K1 in the chunked encoder (the V third of an [S, 9, 1536] qkv
+    buffer, K 11, no mask) at S 64 and 1, and in FSMN-VAD's streaming step
+    ([cache ‖ h] = [64, 19 + 40, 128], K 20, pad (19, 0), of which the path
+    keeps rows 19 onward; yardstick: the reference's h + valid conv); K2 on
+    the fused step's audio ring [64, 4320] → 25 frames and on the first
+    0.4 s VAD tick [64, 6400] → 38 frames."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    w = torch.randn((512, 1, 11), generator=g, device=dev) * 0.02
+    for s in (STREAM_S, 1):
+        qkv = torch.randn((s, 9, 1536), generator=g, device=dev)
+        rows.append(k1_measure(torch, peaks, floor_ms, f"stream_encoder_S{s}",
+                               qkv[..., 1024:], w, (5, 5), None, 0.0,
+                               conv_plus_x((5, 5))))
+    hc = torch.randn((STREAM_S, VAD_CTX + VAD_T, VAD_D), generator=g,
+                     device=dev)
+    wv = torch.randn((VAD_D, 1, VAD_K), generator=g, device=dev) * 0.02
+
+    def valid_conv_plus_h(x, wk):
+        y = F.conv1d(x.transpose(1, 2), wk, groups=x.shape[-1])
+        return x[:, VAD_CTX:] + y.transpose(1, 2)
+
+    from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import fsmn_conv as k1
+    got = k1.fsmn_depthwise(hc, wv, VAD_CTX, 0)[:, VAD_CTX:]
+    lib_err = k1_err(torch, got, valid_conv_plus_h(hc, wv))
+    require(lib_err <= 1e-5, f"K1 VAD slice vs h + valid conv: {lib_err}")
+    row = k1_measure(torch, peaks, floor_ms, "stream_vad", hc, wv,
+                     (VAD_CTX, 0), None, 0.0, valid_conv_plus_h, kept=VAD_T)
+    row["slice_vs_valid_conv_err"] = lib_err
+    rows.append(row)
+    k2_rows = [check_k2(torch, peaks, STREAM_S, 4320, 25, "stream_ring"),
+               check_k2(torch, peaks, STREAM_S, 6400, 38, "stream_vad_tick")]
+    return rows, k2_rows
 
 
 def sweep_k1(torch):
@@ -290,7 +377,11 @@ def sweep_k1(torch):
                       f"{tile.k_const:2d}: {ms * 1e3:.2f} us")
 
 
-def check_k2(torch, peaks):
+def check_k2(torch, peaks, b: int = 8, n: int = 10 * SR, t=None,
+             site: str = "offline"):
+    """K2 against its plain version on [b, n] audio at the ×32768 scale
+    (rtol 1e-5, atol 1e-5·max|x|: only the mean's summation order
+    differs), t frames (default: all that fit)."""
     import numpy as np
     from toolbox_for_asr_and_tts_tpu_torch.ops import frontend as fe
     from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import frame_window as k2
@@ -298,10 +389,10 @@ def check_k2(torch, peaks):
     dev = torch.device("cuda")
     rng = np.random.default_rng(2)
     audio = torch.from_numpy(
-        (0.3 * rng.standard_normal((8, 10 * SR)) * 32768.0)
+        (0.3 * rng.standard_normal((b, n)) * 32768.0)
         .astype(np.float32)).to(dev)
     win = torch.from_numpy(fe._window_coeffs(cfg)).to(dev)
-    t = fe.num_fbank_frames(audio.shape[1], cfg)
+    t = fe.num_fbank_frames(n, cfg) if t is None else t
     args = (audio, win, t, cfg.frame_length, cfg.frame_shift, cfg.n_fft,
             cfg.preemphasis, cfg.remove_dc_offset)
     got = k2.frame_window(*args)
@@ -310,19 +401,20 @@ def check_k2(torch, peaks):
     err = (got - want).abs().max().item()
     tol = 1e-5 * audio.abs().max().item()
     rel = ((got - want).abs() - 1e-5 * want.abs()).max().item()
-    require(rel <= tol, f"K2: max|err| {err} beyond rtol 1e-5, atol {tol}")
+    require(rel <= tol, f"K2 {site}: max|err| {err} beyond rtol 1e-5, "
+                        f"atol {tol}")
     ms = device_ms(torch, lambda: k2.frame_window(*args))
     host_ms = call_ms(torch, lambda: k2.frame_window(*args))
     plain_ms = device_ms(torch, lambda: k2.frame_window_plain(*args))
     nbytes = audio.numel() * 4 + win.numel() * 4 + got.numel() * 4
-    flops = 6 * 8 * t * cfg.frame_length
+    flops = 6 * b * t * cfg.frame_length
     bound_ms, bound_by = bound(nbytes, flops, peaks)
-    print(f"K2 frame_window audio[8,{audio.shape[1]}] -> [8,{t},{cfg.n_fft}]: "
+    print(f"K2 frame_window {site} audio[{b},{n}] -> [{b},{t},{cfg.n_fft}]: "
           f"max|err| {err:.3g} (rtol 1e-5, atol {tol:.3g}) device: kernel "
           f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
           f"{bound_ms * 1e3:.2f} us ({bound_by}), library: none; per call "
           f"with host overhead {host_ms * 1e3:.2f} us", flush=True)
-    return dict(shape=[8, audio.shape[1], t, cfg.n_fft], max_abs_err=err,
+    return dict(site=site, shape=[b, n, t, cfg.n_fft], max_abs_err=err,
                 ms=ms, call_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
 
@@ -539,6 +631,328 @@ def compare_cpu(torch, reco, wavs):
           f"{denc:.3g}", flush=True)
 
 
+# ------------------------------------------------ phase 4: streaming path
+CHUNK = 6400                  # the WebSocket protocol's 0.4 s chunk
+STEP_S = 0.24                 # audio one chunked step consumes (c1 = 4)
+STREAM_SIZES = (1, 16, 64)    # live sessions per run
+COMPARE_SESSIONS = (0, 1)     # of the S = 16 run, held against references
+
+
+def session_audio(n: int, seed: int):
+    """n sessions of speech-like audio, 3.2-8.0 s each in whole 0.4 s
+    chunks: a few drifting harmonics plus noise, with a pause."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        samples = CHUNK * int(rng.integers(8, 21))
+        t = np.arange(samples) / SR
+        f0 = 110 + 90 * np.sin(2 * np.pi * rng.uniform(0.2, 0.5) * t
+                               + rng.uniform(0, 6))
+        phase = 2 * np.pi * np.cumsum(f0) / SR
+        x = sum(0.2 / h * np.sin(h * phase) for h in range(1, 6))
+        x = x * (0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(1, 3) * t) ** 2)
+        x = x + 0.02 * rng.standard_normal(samples)
+        x[samples // 2: samples // 2 + 3200] *= 0.01
+        out.append(x.astype(np.float32))
+    return out
+
+
+def drive_chunked(asr, audios):
+    """Join one session per audio, feed every session its 0.4 s chunks
+    tick by tick, then finalize each and leave. Returns (per-tick (wall s,
+    steps, every session fed), per-session ids from the ticks, per-session
+    ids from the finalize drains)."""
+    slots = [asr.join() for _ in audios]
+    back = {s: i for i, s in enumerate(slots)}
+    ids = {i: [] for i in range(len(audios))}
+    finals = {i: [] for i in range(len(audios))}
+    ticks = []
+    for c in range(max(len(a) for a in audios) // CHUNK):
+        chunks = {slots[i]: a[c * CHUNK:(c + 1) * CHUNK]
+                  for i, a in enumerate(audios) if (c + 1) * CHUNK <= len(a)}
+        steps = asr.steps
+        t0 = time.perf_counter()
+        fired = asr.tick(chunks)            # ends in the fetch of its outputs
+        ticks.append((time.perf_counter() - t0, asr.steps - steps,
+                      len(chunks) == len(audios)))
+        for s, v in fired.items():
+            ids[back[s]].extend(v)
+    for i, s in enumerate(slots):
+        for s2, v in asr.finalize_slot(s).items():
+            finals[back[s2]].extend(v)
+    for s in slots:
+        asr.leave(s)
+    return ticks, ids, finals
+
+
+def step_stats(ticks):
+    """Median and p95 per-step wall time (ms) over the ticks after the
+    first, a tick's wall split evenly over its steps; all ticks, and those
+    in which every session was fed."""
+    import numpy as np
+
+    def stats(sel):
+        per = [w / n * 1e3 for w, n, _ in sel for _ in range(n) if n]
+        if not per:
+            return None
+        return dict(median_ms=float(np.median(per)),
+                    p95_ms=float(np.percentile(per, 95)), steps=len(per))
+    rest = ticks[1:]
+    return stats(rest), stats([t for t in rest if t[2]])
+
+
+def profile_steps(torch, asr, audios, n_ticks: int = 3):
+    """Card busy time per step (torch.profiler) over n_ticks ticks of fresh
+    sessions, against those ticks' unprofiled-like wall."""
+    from torch.profiler import ProfilerActivity, profile
+    slots = [asr.join() for _ in audios]
+    asr.tick({s: a[:CHUNK] for s, a in zip(slots, audios)})    # warm-up
+    steps = asr.steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for c in range(1, 1 + n_ticks):
+            asr.tick({s: a[c * CHUNK:(c + 1) * CHUNK]
+                      for s, a in zip(slots, audios)})
+        torch.cuda.synchronize()
+    for s in slots:
+        asr.leave(s)
+    rows = _device_events(prof)
+    n = asr.steps - steps
+    busy = sum(e.self_device_time_total for e in rows) / 1e3 / n
+    launches = sum(e.count for e in rows) / n
+    require(busy > 0, "profiler saw no device time in the streaming steps")
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    print(f"profile: {len(audios)} sessions, per step: busy {busy:.3f} ms, "
+          f"{launches:.1f} launches; top kernels per step:")
+    for e in rows[:10]:
+        print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms "
+              f"{e.count / n:7.1f}x  {e.key[:90]}")
+    return dict(busy_ms_per_step=busy, launches_per_step=launches, steps=n)
+
+
+def streaming_path(torch, card, params, profile: bool):
+    """The chunked online Paraformer at full width through
+    `BatchedChunkedASR(capacity=64, partials=True)` on the card, for S = 1,
+    16 and 64 live sessions; then `BatchedVadTicker` on S = 64."""
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer import ParaformerConfig
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer_online import OnlineConfig
+    from toolbox_for_asr_and_tts_tpu_torch.parallel.stream_batcher import (
+        BatchedChunkedASR)
+    cfg, ocfg = ParaformerConfig(), OnlineConfig()
+    t0 = time.perf_counter()
+    asr = BatchedChunkedASR(params, cfg, ocfg, capacity=64, partials=True)
+    asr.warm()                         # every pow-2 prefix once, all masked
+    torch.cuda.synchronize()
+    print(f"streaming: BatchedChunkedASR(ParaformerConfig(), OnlineConfig(), "
+          f"capacity=64, partials=True) on {asr.device}, warmed in "
+          f"{time.perf_counter() - t0:.1f} s (chunk [{ocfg.c0}, {ocfg.c1}, "
+          f"{ocfg.c2}], window {ocfg.window}, k/v cache {ocfg.kv_frames})",
+          flush=True)
+    out, compare_ids = {}, {}
+    for n in STREAM_SIZES:
+        audios = session_audio(n, seed=100 + n)
+        steps_before = asr.steps
+        (ticks, ids, finals), k1_n, k2_n = counted(
+            torch, lambda: drive_chunked(asr, audios))
+        n_steps = asr.steps - steps_before   # feeding ticks and finalize drains
+        steps = sum(t[1] for t in ticks)
+        require(n_steps > steps, f"S={n}: {n_steps} steps, {steps} feeding")
+        require(k1_n == cfg.encoder_layers * n_steps and k2_n == n_steps,
+                f"S={n}: K1 launched {k1_n} times and K2 {k2_n} times in "
+                f"{n_steps} steps")
+        every, all_live = step_stats(ticks)
+        tokens = sum(len(v) for v in ids.values())
+        require(tokens > 0, f"S={n}: no token fired")
+        for i, v in ids.items():
+            require(all(0 <= t < cfg.vocab_size for t in v + finals[i]),
+                    f"S={n} session {i}: token id out of range")
+        row = dict(sessions=n, audio_s=sum(len(a) for a in audios) / SR,
+                   steps=n_steps, feed_steps=steps,
+                   k1_per_step=k1_n / n_steps, k2_per_step=k2_n / n_steps,
+                   step=every, step_all_live=all_live,
+                   rt_share=every["median_ms"] / 1e3 / STEP_S,
+                   tokens=tokens,
+                   final_tokens=sum(len(v) for v in finals.values()))
+        if profile:
+            row["profile"] = profile_steps(torch, asr,
+                                           session_audio(n, seed=200 + n))
+        out[f"S{n}"] = row
+        print(f"streaming S={n}: {n_steps} steps ({steps} feeding, the rest "
+              f"finalize drains), K1 {k1_n} ({k1_n / n_steps:g}/step), K2 "
+              f"{k2_n} ({k2_n / n_steps:g}/step); step wall median "
+              f"{every['median_ms']:.2f} ms, p95 {every['p95_ms']:.2f} ms "
+              f"(all {n} live: {all_live}); real-time share "
+              f"{row['rt_share']:.4f}; {tokens} tokens fired, "
+              f"{row['final_tokens']} in finalize"
+              + (f"; profile {row['profile']}" if profile else "")
+              + f" on {card}", flush=True)
+        if n == 16:
+            compare_ids = {i: ids[i] for i in COMPARE_SESSIONS}
+            compare_audio = [audios[i] for i in COMPARE_SESSIONS]
+    out["vad"] = vad_path(torch, card)
+    return out, compare_ids, compare_audio
+
+
+def vad_path(torch, card):
+    """BatchedVadTicker(FsmnVadConfig(), capacity=64) on S = 64 sessions of
+    0.4 s chunks: tick wall time and launches per tick."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.models import fsmn_vad as fv
+    from toolbox_for_asr_and_tts_tpu_torch.parallel.stream_batcher import (
+        BatchedVadTicker)
+    cfg = fv.FsmnVadConfig()
+    vad = BatchedVadTicker(fv.init_params(cfg, torch.Generator().manual_seed(0)),
+                           cfg, capacity=64)
+    audios = session_audio(64, seed=164)
+    slots = [vad.join() for _ in audios]
+
+    def run():
+        walls, decisions = [], 0
+        for c in range(max(len(a) for a in audios) // CHUNK):
+            chunks = {s: a[c * CHUNK:(c + 1) * CHUNK]
+                      for s, a in zip(slots, audios) if (c + 1) * CHUNK <= len(a)}
+            t0 = time.perf_counter()
+            res = vad.tick(chunks)
+            walls.append(time.perf_counter() - t0)
+            decisions += sum(res.values())
+        return walls, decisions
+
+    (walls, speech), k1_n, k2_n = counted(torch, run)
+    n = len(walls)
+    require(k1_n == cfg.fsmn_layers * n and k2_n == n,
+            f"VAD: K1 {k1_n}, K2 {k2_n} in {n} ticks")
+    rest = [w * 1e3 for w in walls[1:]]
+    row = dict(sessions=64, ticks=n, k1_per_tick=k1_n / n,
+               k2_per_tick=k2_n / n, tick_median_ms=float(np.median(rest)),
+               tick_p95_ms=float(np.percentile(rest, 95)),
+               speech_decisions=int(speech))
+    print(f"streaming VAD S=64: {n} ticks, K1 {k1_n / n:g}/tick, K2 "
+          f"{k2_n / n:g}/tick; tick wall median {row['tick_median_ms']:.2f} "
+          f"ms, p95 {row['tick_p95_ms']:.2f} ms; {speech} speech decisions "
+          f"on {card}", flush=True)
+    return row
+
+
+def run_direct(torch, device, params, audios):
+    """The sessions on `device` through the halves of the ticker's step,
+    `paraformer_online.fused_encode` then `fused_decode`, as one batch of
+    len(audios) rows fed 0.24 s per step (rows that ended are fed silence,
+    and two silence steps close the run, as `finalize_slot` pads); and each
+    session through its own `StreamingFrontend` and
+    `fsmn_vad.apply_streaming` in 0.4 s chunks. Returns per step the f32
+    fired embeddings, fired counts, logits and token mask, and per VAD
+    chunk the posteriors and the speech decision."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.models import fsmn_vad as fv
+    from toolbox_for_asr_and_tts_tpu_torch.models import paraformer_online as po
+    from toolbox_for_asr_and_tts_tpu_torch.models.convert import tree_to
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer import ParaformerConfig
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer_streaming import (
+        StreamingFrontend)
+    cpu = lambda t: t.detach().float().cpu()   # noqa: E731
+    cfg, ocfg = ParaformerConfig(), po.OnlineConfig()
+    a = ocfg.c1 * cfg.frontend.lfr_n * cfg.frontend.frame_shift
+    n_steps = -(-max(len(x) for x in audios) // a) + 2
+    audio = np.zeros((len(audios), n_steps * a), np.float32)
+    for i, x in enumerate(audios):
+        audio[i, :len(x)] = x
+    p = tree_to(params, device)
+    vcfg = fv.FsmnVadConfig()
+    vp = tree_to(fv.init_params(vcfg, torch.Generator().manual_seed(0)), device)
+    steps, vad = [], []
+    with torch.inference_mode():
+        st = po.init_fused_state(cfg, ocfg, len(audios), True, device)
+        for s in range(n_steps):
+            chunk = torch.from_numpy(audio[:, s * a:(s + 1) * a]).to(device)
+            st, enc, emb, n = po.fused_encode(p, st, chunk, cfg, ocfg,
+                                              k_cap=ocfg.tokens_per_chunk)
+            st, logits, mask = po.fused_decode(p, st, enc, emb, n, cfg, ocfg)
+            steps.append((cpu(emb), n.cpu(), cpu(logits), mask.cpu()))
+        for x in audios:
+            front = StreamingFrontend(vcfg.frontend, None, device)
+            cache = fv.init_cache(1, vcfg, device)
+            for c in range(0, len(x), CHUNK):
+                feats = front.push(x[c:c + CHUNK])
+                if len(feats):
+                    post, cache = fv.apply_streaming(
+                        vp, torch.from_numpy(feats[None]).to(device), cache,
+                        vcfg)
+                    speech = bool((fv.speech_prob(post, vcfg) > 0.5).any())
+                    vad.append((cpu(post), speech))
+    return steps, vad
+
+
+def compare_streaming(torch, params, compare_ids, compare_audio):
+    """Sessions COMPARE_SESSIONS of the S = 16 run: (a) their ticker ids
+    equal a per-session OnlineRecognizer(partial_mode="incremental") on the
+    card; (b) the same sessions through the ticker step's halves and the
+    streaming VAD (`run_direct`) on the card and on the CPU, full width:
+    fired counts equal, f32 embeddings within 1e-3, ids equal wherever the
+    CPU's top-2 logit gap exceeds 1e-3; VAD decisions equal and posteriors
+    within 1e-4."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.asr.tokenizer import CharTokenizer
+    from toolbox_for_asr_and_tts_tpu_torch.models import paraformer_online as po
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer import ParaformerConfig
+    cfg = ParaformerConfig()
+    for i, audio in zip(COMPARE_SESSIONS, compare_audio):
+        reco = po.OnlineRecognizer(params, cfg, CharTokenizer.dummy(
+            cfg.vocab_size), po.OnlineConfig(), partial_mode="incremental")
+        for c in range(0, len(audio), CHUNK):
+            reco.push_audio(audio[c:c + CHUNK])
+        require(reco._inc_ids == compare_ids[i],
+                f"session {i}: ticker ids {compare_ids[i]} vs per-session "
+                f"recognizer {reco._inc_ids}")
+    print(f"streaming: ticker ids of sessions {list(COMPARE_SESSIONS)} of the "
+          f"S=16 run equal per-session OnlineRecognizer(incremental) on the "
+          f"card ({[len(compare_ids[i]) for i in COMPARE_SESSIONS]} tokens)",
+          flush=True)
+    t0 = time.perf_counter()
+    card, card_vad = run_direct(torch, torch.device("cuda"), params,
+                                compare_audio)
+    cpu, cpu_vad = run_direct(torch, torch.device("cpu"), params, compare_audio)
+    emb_err, tokens, same, differ = 0.0, 0, 0, 0
+    for (ea, na, la, ma), (eb, nb, lb, mb) in zip(card, cpu):
+        require(torch.equal(na, nb), f"fired counts {na.tolist()} vs "
+                                     f"{nb.tolist()}")
+        require(torch.equal(ma, mb), "decode token masks differ")
+        for r, n in enumerate(nb.tolist()):
+            if n:
+                emb_err = max(emb_err, (ea[r, :n] - eb[r, :n]).abs().max().item())
+                tokens += n
+        valid = mb.bool().numpy()
+        top2 = np.sort(lb.double().numpy(), axis=-1)[..., -2:]
+        gap = top2[..., 1] - top2[..., 0]
+        eq = (la.argmax(-1) == lb.argmax(-1)).numpy()
+        require((eq | ~valid | (gap <= 1e-3)).all(),
+                "ids differ where the top-2 gap > 1e-3")
+        same += int((eq & valid).sum())
+        differ += int((~eq & valid).sum())
+    require(tokens > 0, "no token fired in the card-vs-CPU run")
+    require(emb_err <= 1e-3, f"fired embeddings differ by {emb_err}")
+    require(len(card_vad) == len(cpu_vad) > 0, "VAD chunk counts differ")
+    require([s for _, s in card_vad] == [s for _, s in cpu_vad],
+            "VAD decisions differ")
+    post_err = max((a - b).abs().max().item()
+                   for (a, _), (b, _) in zip(card_vad, cpu_vad))
+    require(post_err <= 1e-4, f"VAD posteriors differ by {post_err}")
+    row = dict(sessions=list(COMPARE_SESSIONS), steps=len(card), fired=tokens,
+               max_abs_embed_err=emb_err, ids_equal=same, ids_differ=differ,
+               vad_chunks=len(card_vad),
+               vad_speech=sum(s for _, s in card_vad),
+               vad_max_abs_post_err=post_err,
+               seconds=time.perf_counter() - t0)
+    print(f"streaming card vs cpu (fused_encode + fused_decode, "
+          f"{len(card)} steps of {len(compare_audio)} rows): fired counts "
+          f"equal ({tokens} tokens), max|dembed| {emb_err:.3g}; ids equal "
+          f"{same}, differ {differ} (all with top-2 gap <= 1e-3); VAD "
+          f"decisions equal over {row['vad_chunks']} chunks "
+          f"({row['vad_speech']} speech), max|dposterior| {post_err:.3g}",
+          flush=True)
+    return row
+
+
 # ---------------------------------------------------------------- main
 def main(argv) -> int:
     try:
@@ -585,8 +999,13 @@ def main(argv) -> int:
         if "--sweep" in argv:
             sweep_k1(torch)
         k2_row = check_k2(torch, peaks)
+        k1_stream, k2_stream = check_streaming_kernels(torch, peaks, floor_ms)
         reco, wavs, launches, rtf = main_path(torch, card, profile)
         compare_cpu(torch, reco, wavs)
+        streaming, compare_ids, compare_audio = streaming_path(
+            torch, card, reco.params, profile)
+        streaming["card_vs_cpu"] = compare_streaming(
+            torch, reco.params, compare_ids, compare_audio)
     except Exception:   # every phase failure ends the run without a result
         traceback.print_exc()
         return 1
@@ -605,15 +1024,21 @@ def main(argv) -> int:
              launch_floor_ms=main_k1["launch_floor_ms"],
              tile=main_k1["tile"],
              launches_with_rescoring=launches["K1_rescoring"],
-             shapes=k1_rows),
+             launches_per_chunked_step=streaming["S64"]["k1_per_step"],
+             launches_per_vad_tick=streaming["vad"]["k1_per_tick"],
+             shapes=k1_rows + k1_stream),
         dict(name="frame_window", route="cuda",
              source="toolbox_for_asr_and_tts_tpu_torch/csrc/frame_window.cu",
              replaces="toolbox_for_asr_and_tts_tpu/ops/pallas/frame_window.py:56",
              launches=launches["K2"],
              **{k: k2_row[k] for k in keys},
-             shape=k2_row["shape"]),
+             shape=k2_row["shape"],
+             launches_per_chunked_step=streaming["S64"]["k2_per_step"],
+             launches_per_vad_tick=streaming["vad"]["k2_per_tick"],
+             shapes=[k2_row] + k2_stream),
     ]
     print(json.dumps({"rtf_batch8": rtf, "card": card}))
+    print(json.dumps({"streaming": streaming, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -159,3 +159,108 @@ def test_wrapper_refuses_cpu_mask_with_cuda_x(cuda):
     w = torch.zeros(4, 1, 3, device=cuda)
     with pytest.raises(ValueError):
         k1.fsmn_depthwise(x, w, 1, 1, torch.ones(2, 8))
+
+
+# ------------------------------------------------- the streaming shapes
+@pytest.mark.parametrize("b", [1, 64])
+def test_fsmn_kernel_streaming_window(cuda, b):
+    """The chunked encoder's call: the V third of a [B, 9, 1536] qkv
+    buffer (window W = 9), K 11, pad (5, 5), no mask; exact in f32."""
+    rng = np.random.default_rng(6)
+    x = _randn(rng, b, 9, 1536).to(cuda)[..., 1024:]
+    w = _randn(rng, 512, 1, 11, scale=0.1).to(cuda)
+    assert k1.tile_for(x, 11).vec == 4
+    _fsmn_against_plain(x, w, 5)
+
+
+@pytest.mark.parametrize("b", [1, 64])
+def test_fsmn_kernel_vad_cache_window(cuda, b):
+    """FSMN-VAD's streaming call: [cache ‖ h] = [B, 19 + 40, 128], K 20,
+    causal pad (19, 0), no mask; exact in f32, and rows 19 onward equal h
+    plus the valid depthwise conv of [cache ‖ h]."""
+    rng = np.random.default_rng(7)
+    hc = _randn(rng, b, 59, 128).to(cuda)
+    w = _randn(rng, 128, 1, 20, scale=0.1).to(cuda)
+    _fsmn_against_plain(hc, w, 19)
+    got = k1.fsmn_depthwise(hc, w, 19, 0)[:, 19:]
+    valid = torch.nn.functional.conv1d(hc.transpose(1, 2), w, groups=128)
+    torch.testing.assert_close(got, hc[:, 19:] + valid.transpose(1, 2),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b", [1, 64])
+def test_frame_window_kernel_ring(cuda, b):
+    """The fused step's framing of its audio ring: [B, 4320] → 25 frames
+    (24·160 + 400 = 4240 ≤ 4320, no frame past the end), ×32768 scale."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy((0.3 * rng.standard_normal((b, 4320)) * 32768.0)
+                         .astype(np.float32)).to(cuda)
+    win = torch.from_numpy(fe._window_coeffs(fe.FrontendConfig())).to(cuda)
+    before = k2.launches
+    got = k2.frame_window(x, win, 25, 400, 160, 512)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1 and got.shape == (b, 25, 512)
+    want = k2.frame_window_plain(x, win, 25, 400, 160, 512)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * x.abs().max().item())
+
+
+def _tickers_on(device, partials):
+    """The tiny-width Paraformer at FULL encoder depth (50 layers, so K1
+    runs 50 times a step) and a small VAD, same seeded weights."""
+    from toolbox_for_asr_and_tts_tpu_torch.models import fsmn_vad as fv
+    from toolbox_for_asr_and_tts_tpu_torch.models import paraformer as pf
+    from toolbox_for_asr_and_tts_tpu_torch.parallel import stream_batcher as sb
+    cfg = pf.ParaformerConfig(d_model=32, n_heads=2, ffn_dim=64,
+                              encoder_layers=50, decoder_layers=2,
+                              vocab_size=64)
+    vcfg = fv.FsmnVadConfig(proj_dim=16, linear_dim=32, fsmn_layers=4)
+    p = pf.init_params(cfg, torch.Generator().manual_seed(0))
+    vp = fv.init_params(vcfg, torch.Generator().manual_seed(0))
+    return (sb.BatchedChunkedASR(p, cfg, capacity=4, partials=partials,
+                                 device=device),
+            sb.BatchedVadTicker(vp, vcfg, capacity=4, device=device))
+
+
+@pytest.mark.parametrize("partials", [False, True])
+def test_tickers_on_card_match_cpu(cuda, partials):
+    """Both tickers on the card against the same on the CPU, 3 sessions
+    of 0.4 s chunks: fired counts and ids equal, embeddings within one
+    bf16 step, VAD decisions equal; K1 +50 and K2 +1 per chunked step, K1
+    +4 per VAD group step and K2 +1 per fbank length bucket."""
+    rng = np.random.default_rng(9)
+    audio = [(0.1 * rng.standard_normal(19200)).astype(np.float32)
+             for _ in range(3)]
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        asr, vad_t = _tickers_on(dev, partials)
+        slots = [asr.join() for _ in audio]
+        vslots = [vad_t.join() for _ in audio]
+        fired, decisions = [], []
+        for s in range(0, 19200, 6400):
+            k1_0, k2_0, steps_0 = k1.launches, k2.launches, asr.steps
+            fired.append(asr.tick({sl: a[s:s + 6400]
+                                   for sl, a in zip(slots, audio)}))
+            if dev.type == "cuda":
+                n = asr.steps - steps_0
+                assert k1.launches - k1_0 == 50 * n
+                assert k2.launches - k2_0 == n
+            k1_0, k2_0 = k1.launches, k2.launches
+            decisions.append(vad_t.tick({sl: a[s:s + 6400]
+                                         for sl, a in zip(vslots, audio)}))
+            if dev.type == "cuda":
+                assert k1.launches - k1_0 == 4 and k2.launches - k2_0 == 1
+        fired.append(asr.finalize_slot(slots[0]))
+        outs[dev.type] = fired, decisions
+    (fc, dc), (fg, dg) = outs["cpu"], outs["cuda"]
+    assert dc == dg
+    assert sum(len(v) for tick in fc for v in tick.values()) > 0
+    for a, b in zip(fg, fc):
+        assert sorted(a) == sorted(b)
+        for s in b:
+            assert len(a[s]) == len(b[s])
+            if partials:
+                assert a[s] == b[s]
+            elif b[s]:
+                np.testing.assert_allclose(np.stack(a[s]), np.stack(b[s]),
+                                           rtol=2.0 ** -7, atol=1e-4)

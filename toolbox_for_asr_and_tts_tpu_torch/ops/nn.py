@@ -107,6 +107,20 @@ def sinusoidal_posenc(t: int, d: int, offset: int = 1,
 
 
 # -------------------------------------------------------------- FSMN block
+def fsmn_block_init(g: torch.Generator, d: int, lorder: int,
+                    rorder: int = 0) -> Params:
+    """VAD-style FSMNBlock: the kernel covers lorder past frames (the
+    current one included) and rorder future ones, torch layout
+    [D, 1, lorder + rorder]; `fsmn_pad` gives its pads."""
+    return {"w": torch.randn((d, 1, lorder + rorder), generator=g) * 0.02}
+
+
+def fsmn_pad(lorder: int, rorder: int = 0) -> Tuple[int, int]:
+    """Pads for a VAD-style FSMN conv (kernel = lorder + rorder, lorder
+    includes the current frame): output length == T."""
+    return lorder - 1, rorder
+
+
 def fsmn_memory_init(g: torch.Generator, d: int, kernel_size: int) -> Params:
     """SAN-M memory conv weights (kernel_size taps), torch layout [D, 1, K]."""
     return {"w": torch.randn((d, 1, kernel_size), generator=g) * 0.02}
