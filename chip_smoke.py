@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py             # from the repository root
     python3 chip_smoke.py --profile   # also: torch.profiler breakdown of one
-                                      # transcribe by CUDA kernel, and the
+                                      # transcribe by CUDA kernel, the
                                       # card's busy time per streaming step
+                                      # and over an S = 16 service run
     python3 chip_smoke.py --sweep     # also: K1's device time per tile
 
 Phases (any failure exits non-zero and prints no result line):
@@ -45,8 +46,29 @@ Phases (any failure exits non-zero and prints no result line):
    and the streaming VAD, against the same on the CPU (fired counts equal,
    embeddings within 1e-3, ids equal where the top-2 logit gap exceeds
    1e-3, VAD decisions equal, posteriors within 1e-4);
-5. the `streaming` and `kernels` JSON lines, then the result line
-   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+5. the voice service at full width (phase 6): the engines wired as
+   `service/engines.py::build_engines` wires them (FinalizeHub over the
+   Diarizer with Paraformer-large, CAM++ and the large CT-Transformer;
+   KwsHub; VadHub and ChunkedHub with 64 rows; random weights from fixed
+   seeds), served by the port's `create_app` on 127.0.0.1 and driven by a
+   minimal RFC 6455 client (`RawWS`): S = 1 and 16 concurrent sessions of
+   real-time 0.4 s PCM chunks (partial and finalize latency, median and
+   p95), one session through all four modes (wake → enrollment →
+   start_asr → an utterance with SV), and the REST endpoint against a
+   direct `Diarizer.diarize`. Around each of these runs the launch
+   counters are zeroed just before and read just after, and each kernel's
+   launches must equal what the run's device programs launch, as the
+   models and tickers count them (chunked steps, transcribes, punctuate
+   forwards, embeds, KWS forwards, VAD steps); then the launches per
+   punctuate forward, KWS batch and embed around direct calls, and
+   CT-Transformer, CAM++ (random BatchNorm statistics) and KWS on the card
+   against the CPU; K1 and K2 at the service shapes join phase 2. Each
+   audio frame the client sends is followed by a `{"type": "chunk_end"}`
+   text frame, answered MISSING_AUDIO_DATA, so that replies can be
+   attributed to chunks: extra traffic that real clients do not send;
+6. the `streaming`, `service` and `kernels` JSON lines, then the result
+   line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+   ...}}.
 
 Needs one card, no network, and only the files of this repository.
 """
@@ -275,12 +297,17 @@ def k1_measure(torch, peaks, floor_ms: float, site: str, xv, w, pad, mask,
 
 
 def conv_plus_x(pad):
-    """The library yardstick of a length-preserving K1 call with a
-    symmetric pad: one `F.conv1d(groups=D)` and the residual add."""
+    """The library yardstick of a length-preserving K1 call: one
+    `F.conv1d(groups=D)` (its own padding when the pad is symmetric, an
+    `F.pad` before it when not) and the residual add."""
     import torch.nn.functional as F
 
     def library(x, w):
-        y = F.conv1d(x.transpose(1, 2), w, padding=pad[0], groups=x.shape[-1])
+        xt = x.transpose(1, 2)
+        if pad[0] == pad[1]:
+            y = F.conv1d(xt, w, padding=pad[0], groups=x.shape[-1])
+        else:
+            y = F.conv1d(F.pad(xt, pad), w, groups=x.shape[-1])
         return x + y.transpose(1, 2)
     return library
 
@@ -338,6 +365,41 @@ def check_streaming_kernels(torch, peaks, floor_ms: float):
     rows.append(row)
     k2_rows = [check_k2(torch, peaks, STREAM_S, 4320, 25, "stream_ring"),
                check_k2(torch, peaks, STREAM_S, 6400, 38, "stream_vad_tick")]
+    return rows, k2_rows
+
+
+# K1 and K2 at the service slice's shapes (f32, as the path runs)
+CT_SHAPES = ((1, 32), (8, 64))   # punctuate groups: (batch, length bucket)
+KWS_T, KWS_D, KWS_K, KWS_PAD = 53, 64, 12, (9, 2)   # 1.6 s → 53 LFR frames
+KWS_WINDOW, KWS_FRAMES = 25600, 158
+SV_WINDOWS = 16                  # the diarizer's 1 s windows per embed
+
+
+def check_service_kernels(torch, peaks, floor_ms: float):
+    """K1 in the CT-Transformer (the V third of a [B, T, 1536] qkv buffer,
+    K 11, pad (5, 5), a length mask) at [1, 32] and [8, 64], and in the KWS
+    DFSMN ([64, 53, 64], K 12 = lorder 10 + rorder 2, pad (9, 2), no
+    mask); K2 on the KWS batch of 64 1.6 s windows → 158 frames and on
+    the speaker embed of the diarizer's 1 s windows (16 of them, the pow-2
+    count a finalize of a few seconds gives) → 98 frames."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    w = torch.randn((512, 1, 11), generator=g, device=dev) * 0.02
+    for b, t in CT_SHAPES:
+        qkv = torch.randn((b, t, 1536), generator=g, device=dev)
+        lens = torch.tensor([t - 7 * (i % 3) for i in range(b)], device=dev)
+        mask = (torch.arange(t, device=dev)[None] < lens[:, None]).float()
+        rows.append(k1_measure(torch, peaks, floor_ms, f"ct_b{b}_t{t}",
+                               qkv[..., 1024:], w, (5, 5), mask, 0.0,
+                               conv_plus_x((5, 5))))
+    h = torch.randn((64, KWS_T, KWS_D), generator=g, device=dev)
+    wk = torch.randn((KWS_D, 1, KWS_K), generator=g, device=dev) * 0.02
+    rows.append(k1_measure(torch, peaks, floor_ms, "kws", h, wk, KWS_PAD,
+                           None, 0.0, conv_plus_x(KWS_PAD)))
+    k2_rows = [check_k2(torch, peaks, 64, KWS_WINDOW, KWS_FRAMES,
+                        "kws_batch"),
+               check_k2(torch, peaks, SV_WINDOWS, SR, None, "sv_embed")]
     return rows, k2_rows
 
 
@@ -953,6 +1015,625 @@ def compare_streaming(torch, params, compare_ids, compare_audio):
     return row
 
 
+# ------------------------------------------------- phase 6: the service
+SERVICE_SIZES = (1, 16)       # concurrent WebSocket sessions per run
+SILENCE_CHUNKS = 6            # 2.4 s after the speech: finalize at 2.0 s
+WS_PATH = "/api/v1/voice/asr/ws"
+# answered MISSING_AUDIO_DATA, in order: one extra text frame and one error
+# reply per chunk, which real clients do not cause (not every chunk gets a
+# reply of its own, so arrival order alone cannot attribute replies)
+MARKER = b'{"type": "chunk_end"}'
+
+
+class RawWS:
+    """A minimal RFC 6455 client over a socket (the card's machine has no
+    `websockets`): the upgrade handshake, masked client frames, and a
+    reader thread that answers pings and keeps every text message with its
+    arrival time (`time.perf_counter`)."""
+
+    def __init__(self, port: int, timeout: float = 300.0):
+        import base64
+        import socket
+        import threading
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=timeout)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall(
+            (f"GET {WS_PATH} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+             "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+             f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n\r\n"
+             ).encode())
+        head = b""
+        while b"\r\n\r\n" not in head:      # byte by byte: no frame is eaten
+            head += self._read(1)
+        status = head.split(b"\r\n", 1)[0]
+        require(b" 101 " in status + b" ", f"WS upgrade refused: {status!r}")
+        self.messages = []                  # [(t, dict)]
+        self.cond = threading.Condition()
+        self._send_lock = threading.Lock()
+        self.error = None
+        self.reader = threading.Thread(target=self._read_loop, daemon=True)
+        self.reader.start()
+
+    def _read(self, n: int) -> bytes:
+        out = b""
+        while len(out) < n:
+            got = self.sock.recv(n - len(out))
+            if not got:
+                raise ConnectionError("connection closed")
+            out += got
+        return out
+
+    def _read_loop(self) -> None:
+        import struct
+        try:
+            while True:
+                h = self._read(2)
+                n = h[1] & 0x7F
+                if n == 126:
+                    n = struct.unpack(">H", self._read(2))[0]
+                elif n == 127:
+                    n = struct.unpack(">Q", self._read(8))[0]
+                payload = self._read(n)
+                op = h[0] & 0x0F
+                if op == 0x9:
+                    self.send(0xA, payload)
+                elif op == 0x8:
+                    return
+                elif op == 0x1:
+                    msg = json.loads(payload)
+                    with self.cond:
+                        self.messages.append((time.perf_counter(), msg))
+                        self.cond.notify_all()
+        except (ConnectionError, OSError) as e:
+            self.error = e
+        finally:
+            with self.cond:
+                self.cond.notify_all()
+
+    def send(self, opcode: int, payload: bytes) -> float:
+        """One masked frame; returns the time it was handed to the socket."""
+        import struct
+        import numpy as np
+        mask = os.urandom(4)
+        n = len(payload)
+        hdr = bytes([0x80 | opcode])
+        if n < 126:
+            hdr += bytes([0x80 | n])
+        elif n < 1 << 16:
+            hdr += bytes([0x80 | 126]) + struct.pack(">H", n)
+        else:
+            hdr += bytes([0x80 | 127]) + struct.pack(">Q", n)
+        body = (np.frombuffer(payload + b"\0" * (-n % 4), np.uint32)
+                ^ np.frombuffer(mask, np.uint32)[0]).tobytes()[:n]
+        with self._send_lock:
+            t = time.perf_counter()
+            self.sock.sendall(hdr + mask + body)
+        return t
+
+    def wait_for(self, pred, timeout: float) -> None:
+        """Block until pred(messages) holds."""
+        end = time.perf_counter() + timeout
+        with self.cond:
+            while not pred(self.messages):
+                left = end - time.perf_counter()
+                require(left > 0 and self.error is None,
+                        f"WS: no expected reply within {timeout} s "
+                        f"(error {self.error!r}); got "
+                        f"{[m for _, m in self.messages][-4:]}")
+                self.cond.wait(min(left, 1.0))
+
+    def close(self) -> None:
+        import struct
+        try:
+            self.send(0x8, struct.pack(">H", 1000))
+        except OSError:
+            pass
+        self.sock.close()
+        self.reader.join(timeout=10)
+
+
+def pcm(x) -> bytes:
+    import numpy as np
+    return np.clip(np.round(x * 32768.0), -32768, 32767).astype(
+        "<i2").tobytes()
+
+
+def wav_b64(x) -> str:
+    import base64
+    from toolbox_for_asr_and_tts_tpu_torch.utils.audio import encode_wav_bytes
+    return base64.b64encode(encode_wav_bytes(x, SR)).decode()
+
+
+def drive_ws(port: int, steps, pace_s: float = CHUNK / SR):
+    """One WebSocket session: the welcome, then each step — ("pcm", chunk)
+    as a binary frame, ("json", obj) as a text frame — each followed by
+    MARKER, whose MISSING_AUDIO_DATA reply closes the step's replies (the
+    app answers a connection's frames in order). Audio steps are paced in
+    real time. Returns (welcome, [(t_send, step kind, [(t, reply)])])."""
+    ws = RawWS(port)
+    try:
+        ws.wait_for(lambda m: len(m) >= 1, 60)
+        welcome = ws.messages[0][1]
+        sent = []
+        t0 = time.perf_counter()
+        n_audio = 0
+        for kind, obj in steps:
+            if kind == "pcm":
+                delay = t0 + n_audio * pace_s - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                n_audio += 1
+                t = ws.send(0x2, pcm(obj))
+            else:
+                t = ws.send(0x1, json.dumps(obj).encode())
+            ws.send(0x1, MARKER)
+            sent.append((t, kind))
+
+        def done(msgs):
+            return sum(m.get("code") == "MISSING_AUDIO_DATA"
+                       for _, m in msgs) >= len(steps)
+        ws.wait_for(done, 300)
+    finally:
+        ws.close()
+    groups, cur = [], []
+    for t, m in ws.messages[1:]:
+        if m.get("code") == "MISSING_AUDIO_DATA":
+            groups.append(cur)
+            cur = []
+        else:
+            cur.append((t, m))
+    return welcome, [(ts, kind, g) for (ts, kind), g in zip(sent, groups)]
+
+
+def utterance_steps(audio, flags):
+    """The first 0.4 s chunk as JSON with the session flags and its audio
+    (base64 WAV), the rest as binary PCM, then 2.4 s of silence."""
+    import numpy as np
+    chunks = [audio[i:i + CHUNK] for i in range(0, len(audio), CHUNK)]
+    chunks += [np.zeros(CHUNK, np.float32)] * SILENCE_CHUNKS
+    return ([("json", dict(flags, audio_data=wav_b64(chunks[0])))]
+            + [("pcm", c) for c in chunks[1:]])
+
+
+def utterance_stats(welcome, steps, what: str):
+    """Require welcome → ≥ 1 partial → finalizing → result; return the
+    partial latencies (send of a chunk → its `processing` message) and the
+    finalize latency (send of the chunk that triggers it → `result`), s."""
+    require(welcome.get("type") == "welcome", f"{what}: no welcome")
+    partial, final, seen = [], None, set()
+    for t_send, _, replies in steps:
+        for t, m in replies:
+            seen.add(m.get("type"))
+            if m.get("type") == "error":
+                raise PhaseError(f"{what}: error reply {m}")
+            if m.get("type") == "processing" and m.get("intermediate_text"):
+                partial.append(t - t_send)
+            if m.get("type") == "result":
+                final = t - t_send
+                require(any(r.get("status") == "finalizing"
+                            for _, r in replies),
+                        f"{what}: result without finalizing in its step")
+    require(partial, f"{what}: no processing message with a partial text")
+    require(final is not None, f"{what}: no result ({sorted(seen)})")
+    return partial, final
+
+
+def quantiles(xs):
+    import numpy as np
+    return dict(median_ms=float(np.median(xs) * 1e3),
+                p95_ms=float(np.percentile(xs, 95) * 1e3), n=len(xs))
+
+
+def campplus_params(torch, cfg, seed: int):
+    """CAM++ weights drawn from `seed` with non-trivial BatchNorm
+    statistics and affines. The default stats (mean 0, variance 1) leave
+    random-weight embeddings tiny, and a wrong conv or layout would then
+    hide under any absolute tolerance."""
+    from toolbox_for_asr_and_tts_tpu_torch.models import campplus
+    g = torch.Generator().manual_seed(seed)
+
+    def bn(tree):
+        if isinstance(tree, list):
+            return [bn(v) for v in tree]
+        if not isinstance(tree, dict):
+            return tree
+        if "mean" not in tree or "var" not in tree:
+            return {k: bn(v) for k, v in tree.items()}
+        d = tree["mean"].shape[0]
+        out = dict(tree, mean=0.3 * torch.randn(d, generator=g),
+                   var=0.5 + 1.5 * torch.rand(d, generator=g))
+        if "g" in tree:
+            out.update(g=0.5 + torch.rand(d, generator=g),
+                       b=0.2 * torch.randn(d, generator=g))
+        return out
+    return bn(campplus.init_params(cfg, torch.Generator().manual_seed(seed)))
+
+
+def build_service(torch, reco):
+    """The engines as `service/engines.py::build_engines` wires them, at full
+    width on the card, the offline and online recognizers on `reco`'s
+    weights: FinalizeHub over the Diarizer (Paraformer-large, CAM++ with
+    random BatchNorm statistics, CT-Transformer large), KwsHub over the KWS, VadHub and ChunkedHub with
+    64 rows. The KWS threshold fires on the first full window (-1e9); the
+    model VAD's threshold 1.01 keeps its decision False (random weights
+    would hold the enrollment's silence timer at 0) while its ticks still
+    run on the card."""
+    from toolbox_for_asr_and_tts_tpu_torch.asr.diarization import Diarizer
+    from toolbox_for_asr_and_tts_tpu_torch.asr.session import VoiceEngines
+    from toolbox_for_asr_and_tts_tpu_torch.asr.speaker import SpeakerVerifier
+    from toolbox_for_asr_and_tts_tpu_torch.models.campplus import CampPlusConfig
+    from toolbox_for_asr_and_tts_tpu_torch.models.ct_transformer import (
+        CTTransformerConfig, Punctuator)
+    from toolbox_for_asr_and_tts_tpu_torch.models.kws_ctc import (
+        KeywordSpotter, KwsConfig)
+    from toolbox_for_asr_and_tts_tpu_torch.service import engines as E
+    from toolbox_for_asr_and_tts_tpu_torch.service import hub as H
+    os.environ["VOICE_VAD_THRESHOLD"] = "1.01"
+    t0 = time.perf_counter()
+    sv = SpeakerVerifier(campplus_params(torch, CampPlusConfig(), 0),
+                         CampPlusConfig())
+    punc = Punctuator.random(CTTransformerConfig(), seed=0)
+    kws = KeywordSpotter.random(KwsConfig(), seed=0, threshold=-1e9)
+    engines = VoiceEngines(
+        diarizer=H.FinalizeHub(Diarizer(reco, sv, punctuator=punc)),
+        kws=H.KwsHub(kws), verifier=sv,
+        vad_factory=E._vad_factory(capacity=64),
+        streaming_factory=E._streaming_factory(reco, capacity=64))
+    torch.cuda.synchronize()
+    print(f"service: engines on {sv.device}, {punc.device}, {kws.device} "
+          f"built in {time.perf_counter() - t0:.1f} s (ChunkedHub warmed at "
+          f"every pow-2 occupancy to 64; CT-Transformer {punc.cfg.num_layers} "
+          f"layers d {punc.cfg.d_model}, vocab {punc.cfg.vocab_size}; CAM++ "
+          f"blocks {sv.cfg.block_layers}; KWS {kws.cfg.num_layers} FSMN "
+          f"layers, proj {kws.cfg.proj_dim})", flush=True)
+    return engines, (reco, sv, punc, kws)
+
+
+class Server:
+    """The port's `create_app(engines=...)` served on 127.0.0.1 from a
+    thread; `stop` shuts the server and the engines down."""
+
+    def __init__(self, engines):
+        import asyncio
+        import threading
+        from toolbox_for_asr_and_tts_tpu_torch.runtime.config import VoiceConfig
+        from toolbox_for_asr_and_tts_tpu_torch.service.voice_app import create_app
+        self.app = create_app(engines=engines,
+                              cfg=VoiceConfig(disable_llm=True))
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(
+            target=lambda: self.loop.run_until_complete(
+                self.app.serve("127.0.0.1", 0)), daemon=True)
+        self.thread.start()
+        for _ in range(600):
+            if getattr(self.app, "port", None):
+                return
+            time.sleep(0.05)
+        raise PhaseError("the voice app did not start")
+
+    def stop(self) -> None:
+        import asyncio
+        asyncio.run_coroutine_threadsafe(self.app.shutdown(),
+                                         self.loop).result(60)
+        self.thread.join(60)
+        self.app.close_engines()
+        self.loop.close()
+
+
+def http_json(port: int, method: str, path: str, body: bytes = b""):
+    import socket
+    s = socket.create_connection(("127.0.0.1", port), timeout=300)
+    try:
+        s.sendall((f"{method} {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                   "Content-Type: application/json\r\n"
+                   f"Content-Length: {len(body)}\r\n\r\n").encode() + body)
+        data = b""
+        while b"\r\n\r\n" not in data:
+            data += s.recv(65536)
+        head, rest = data.split(b"\r\n\r\n", 1)
+        n = int(next(ln.split(b":")[1] for ln in head.split(b"\r\n")
+                     if ln.lower().startswith(b"content-length")))
+        while len(rest) < n:
+            rest += s.recv(65536)
+        return int(head.split()[1]), json.loads(rest[:n])
+    finally:
+        s.close()
+
+
+def program_counts(engines, models):
+    """The device programs that the service's models (`build_service`'s
+    recognizer, verifier, punctuator and spotter) and its hubs' tickers
+    have run so far, by their own counters."""
+    reco, sv, punc, kws = models
+    chunked = engines.streaming_factory.hub.ticker
+    vad = engines.vad_factory.hub.ticker
+    return dict(chunked_steps=chunked.steps, vad_steps=vad.steps,
+                vad_fbanks=vad.fbanks, transcribes=reco.forwards.n,
+                rescorings=reco.rescorings.n,
+                punctuate_forwards=punc.forwards.n, embeds=sv.forwards.n,
+                kws_forwards=kws.forwards.n, kws_fbanks=kws.fbanks.n)
+
+
+def accounted(torch, what: str, engines, models, fn):
+    """Run fn (one run of the served path) with both launch counters zeroed
+    just before it and read just after, and require each kernel's launches
+    to equal what the run's device programs launch: K1 once per layer of
+    each chunked step (encoder), transcribe (encoder and decoder),
+    rescoring (decoder), punctuate forward, KWS forward and VAD step; K2
+    once per chunked step, transcribe, embed, KWS fbank and VAD fbank.
+    Returns (fn's result, the run's program counts and launches)."""
+    reco, _, punc, kws = models
+    before = program_counts(engines, models)
+    out, k1, k2 = counted(torch, fn)
+    n = {k: v - before[k]
+         for k, v in program_counts(engines, models).items()}
+    enc, dec = reco.cfg.encoder_layers, reco.cfg.decoder_layers
+    want_k1 = (enc * n["chunked_steps"] + (enc + dec) * n["transcribes"]
+               + dec * n["rescorings"]
+               + punc.cfg.num_layers * n["punctuate_forwards"]
+               + kws.cfg.num_layers * n["kws_forwards"]
+               + engines.vad_factory.hub.ticker.cfg.fsmn_layers
+               * n["vad_steps"])
+    want_k2 = (n["chunked_steps"] + n["transcribes"] + n["embeds"]
+               + n["kws_fbanks"] + n["vad_fbanks"])
+    print(f"service {what}: K1 {k1} launches (expected {want_k1}), K2 {k2} "
+          f"(expected {want_k2}); programs {n}", flush=True)
+    require(k1 == want_k1 and k2 == want_k2,
+            f"{what}: K1 {k1} launches for {want_k1} expected, K2 {k2} for "
+            f"{want_k2}")
+    require(k1 > 0 and k2 > 0, f"{what}: K1 {k1}, K2 {k2} launches")
+    return out, dict(n, k1=k1, k2=k2)
+
+
+def sessions_run(torch, port: int, engines, models, n: int):
+    """n concurrent sessions (use_wake and use_sv off) of 3.2-8 s speech and
+    2.4 s silence, 0.4 s chunks paced in real time, launches accounted."""
+    import threading
+    audios = session_audio(n, seed=300 + n)
+    out = [None] * n
+    errors = []
+
+    def one(i):
+        try:
+            out[i] = drive_ws(port, utterance_steps(
+                audios[i], {"use_wake": False, "use_sv": False}))
+        except BaseException as e:   # reported by the caller
+            errors.append(e)
+
+    def run():
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+
+    t0 = time.perf_counter()
+    _, launches = accounted(torch, f"S={n}", engines, models, run)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    partial, final = [], []
+    for i, (welcome, steps) in enumerate(out):
+        p, f = utterance_stats(welcome, steps, f"S={n} session {i}")
+        partial += p
+        final.append(f)
+    row = dict(sessions=n, audio_s=sum(len(a) for a in audios) / SR,
+               wall_s=wall, partial=quantiles(partial),
+               finalize=quantiles(final), launches=launches)
+    print(f"service S={n}: partial latency median "
+          f"{row['partial']['median_ms']:.1f} ms, p95 "
+          f"{row['partial']['p95_ms']:.1f} ms ({len(partial)} partials); "
+          f"finalize latency median {row['finalize']['median_ms']:.1f} ms, "
+          f"p95 {row['finalize']['p95_ms']:.1f} ms; "
+          f"{launches['chunked_steps']} chunked steps, "
+          f"{launches['vad_steps']} VAD steps (the model VAD runs in "
+          f"enrollment only) in {wall:.1f} s", flush=True)
+    return row
+
+
+def four_mode_session(torch, port: int, engines, models):
+    """wake → wakeup → enrollment (5.2 s speech, 2.4 s silence) →
+    enrollment_completed → start_asr → asr_started → one utterance with
+    use_sv → result. The KWS runs through KwsHub, CAM++ at finalize (the
+    enrollment embedding and the speakers' segments), the model VAD in
+    enrollment. Launches accounted."""
+    import numpy as np
+    speech = session_audio(3, seed=400)
+    wake = np.concatenate(speech)[: 4 * CHUNK]
+    enroll = np.concatenate(speech)[4 * CHUNK: 17 * CHUNK]
+    silence = [np.zeros(CHUNK, np.float32)] * SILENCE_CHUNKS
+    steps = ([("pcm", wake[i:i + CHUNK]) for i in range(0, len(wake), CHUNK)]
+             + [("pcm", enroll[i:i + CHUNK])
+                for i in range(0, len(enroll), CHUNK)]
+             + [("pcm", c) for c in silence]
+             + [("json", {"type": "start_asr"})]
+             + utterance_steps(speech[2], {"use_sv": True}))
+    (welcome, got), launches = accounted(torch, "four modes", engines,
+                                         models, lambda: drive_ws(port, steps))
+    order = ["welcome"]
+    for _, _, replies in got:
+        for _, m in replies:
+            require(m.get("type") != "error", f"four-mode: error reply {m}")
+            order.append(m.get("type") if m.get("type") != "status"
+                         else m.get("status"))
+    require(welcome.get("mode") == "WAITING_FOR_WAKEUP", f"welcome {welcome}")
+    want = ["welcome", "wakeup", "enrollment_completed", "asr_started"]
+    seq = [o for o in order if o in want + ["result"]]
+    require(seq[:4] == want and seq[-1] == "result",
+            f"four-mode session replies {order}")
+    result = next(m for _, _, r in got for _, m in r
+                  if m.get("type") == "result")
+    row = dict(replies=order, result=result, launches=launches)
+    print(f"service four modes: {' → '.join(o for o in order if o != 'processing')}"
+          f"; result {result}", flush=True)
+    require(launches["kws_forwards"] >= 1 and launches["vad_steps"] >= 1
+            and launches["embeds"] >= 2,
+            "the KWS, the model VAD or CAM++ (enrollment and finalize) "
+            "never ran")
+    return row
+
+
+def rest_check(torch, port: int, engines, models):
+    """POST /api/v1/voice/asr with an 8 s WAV (use_wake off), launches
+    accounted: the text equals apply_hard_corrections of the port's
+    Diarizer.diarize on the same decoded audio, called directly on the
+    card."""
+    from toolbox_for_asr_and_tts_tpu_torch.asr.corrections import (
+        apply_hard_corrections)
+    from toolbox_for_asr_and_tts_tpu_torch.utils.audio import base64_to_audio_np
+    b64 = wav_b64(make_wavs()[5][: 8 * SR])
+    t0 = time.perf_counter()
+    (status, out), launches = accounted(
+        torch, "REST", engines, models,
+        lambda: http_json(port, "POST", "/api/v1/voice/asr", json.dumps(
+            {"audio_data": b64, "use_wake": False}).encode()))
+    wall = time.perf_counter() - t0
+    require(status == 200 and out.get("success"), f"REST: {status} {out}")
+    sents = engines.diarizer.inner.diarize(base64_to_audio_np(b64))
+    direct = apply_hard_corrections("".join(s.text for s in sents))
+    require(out["text"] == direct,
+            f"REST text {out['text']!r} vs direct diarize {direct!r}")
+    status, bad = http_json(port, "POST", "/api/v1/voice/asr", b"{}")
+    require(status == 422, f"REST without audio_data: {status} {bad}")
+    print(f"service REST: 8 s WAV in {wall * 1e3:.1f} ms, text of "
+          f"{len(out['text'])} chars equals the direct diarize "
+          f"({len(sents)} sentences); a body without audio_data → 422",
+          flush=True)
+    return dict(wall_ms=wall * 1e3, chars=len(out["text"]),
+                sentences=len(sents), launches=launches)
+
+
+def service_launches(torch, sv, punc, kws):
+    """Per-call figures beside the served runs' own accounting: launches
+    around direct calls, K1 per punctuate forward, K1 and K2 per KWS batch
+    (one length group of 64 windows), K2 per embed."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.models.ct_transformer import (
+        split_words)
+    rng = np.random.default_rng(7)
+    words = split_words("".join(chr(0x4E00 + int(c))
+                                for c in rng.integers(0, 20000, 20)))
+    _, k1_p, k2_p = counted(torch, lambda: punc.classify(words))
+    windows = [w[:KWS_WINDOW] for w in session_audio(64, seed=500)]
+    _, k1_k, k2_k = counted(torch, lambda: kws.detect_audio_batch(windows))
+    wavs = [w[: int(s * SR)] for w, s in zip(make_wavs(), (3.0, 2.2, 1.4))]
+    _, k1_e, k2_e = counted(torch, lambda: sv.embed(wavs))
+    row = dict(k1_per_punctuate_forward=k1_p, k2_per_punctuate_forward=k2_p,
+               k1_per_kws_batch=k1_k, k2_per_kws_batch=k2_k,
+               k1_per_embed=k1_e, k2_per_embed=k2_e)
+    print(f"service launches: punctuate forward K1 {k1_p} K2 {k2_p}; KWS "
+          f"batch of 64 K1 {k1_k} K2 {k2_k}; embed of 3 K1 {k1_e} K2 {k2_e}",
+          flush=True)
+    require(k1_p == punc.cfg.num_layers and k2_p == 0,
+            f"punctuate: K1 {k1_p}, K2 {k2_p}")
+    require(k1_k == kws.cfg.num_layers and k2_k == 1,
+            f"KWS batch: K1 {k1_k}, K2 {k2_k}")
+    require(k2_e == 1 and k1_e == 0, f"embed: K1 {k1_e}, K2 {k2_e}")
+    return row
+
+
+def service_card_vs_cpu(torch, sv, punc, kws):
+    """The port at full width on both devices: punctuation class ids equal
+    on 2 sentences; CAM++ (random BatchNorm statistics) embeddings within
+    1e-5·max|e| with cosine ≥ 0.9999; KWS scores within 1e-3."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.asr.speaker import SpeakerVerifier
+    from toolbox_for_asr_and_tts_tpu_torch.models.convert import tree_to
+    from toolbox_for_asr_and_tts_tpu_torch.models.ct_transformer import (
+        Punctuator, split_words)
+    from toolbox_for_asr_and_tts_tpu_torch.models.kws_ctc import KeywordSpotter
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(8)
+    cpu_punc = Punctuator(tree_to(punc.params, torch.device("cpu")),
+                          punc.cfg, punc.vocab, device="cpu")
+    sentences = [split_words("".join(chr(0x4E00 + int(c))
+                                     for c in rng.integers(0, 20000, n)))
+                 for n in (14, 40)]
+    punc_equal = 0
+    for words in sentences:
+        a, b = punc.classify(words), cpu_punc.classify(words)
+        require((a == b).all(), f"punctuation ids card {a} cpu {b}")
+        punc_equal += len(words)
+    del cpu_punc
+    cpu_sv = SpeakerVerifier(tree_to(sv.params, torch.device("cpu")), sv.cfg,
+                             device="cpu")
+    wavs = [w[: int(s * SR)] for w, s in zip(make_wavs(), (4.0, 2.5))]
+    ea, eb = sv.embed(wavs), cpu_sv.embed(wavs)
+    emb_max = float(np.abs(eb).max())
+    emb_err = float(np.abs(ea - eb).max())
+    cos = min(float(a @ b / np.linalg.norm(a) / np.linalg.norm(b))
+              for a, b in zip(ea, eb))
+    require(np.isfinite(ea).all() and emb_max > 0,
+            f"CAM++ embeddings: max|e| {emb_max}")
+    require(emb_err <= 1e-5 * emb_max and cos >= 0.9999,
+            f"CAM++ card vs cpu: max|d| {emb_err} (max|e| {emb_max}), "
+            f"cosine {cos}")
+    cpu_kws = KeywordSpotter.random(kws.cfg, seed=0, threshold=kws.threshold,
+                                    device="cpu")
+    windows = [w[:KWS_WINDOW] for w in session_audio(4, seed=600)]
+    sa = [s for _, s in kws.detect_audio_batch(windows)]
+    sb = [s for _, s in cpu_kws.detect_audio_batch(windows)]
+    kws_err = max(abs(a - b) for a, b in zip(sa, sb))
+    require(kws_err <= 1e-3, f"KWS scores card {sa} cpu {sb}")
+    row = dict(punctuation_ids_equal=punc_equal, campplus_max_abs=emb_max,
+               campplus_max_abs_err=emb_err,
+               campplus_min_cosine=cos, kws_max_abs_score_err=kws_err,
+               seconds=time.perf_counter() - t0)
+    print(f"service card vs cpu: punctuation ids equal on {punc_equal} words "
+          f"(2 sentences); CAM++ max|dembed| {emb_err:.3g} of max|e| "
+          f"{emb_max:.3g} (limit 1e-5·max|e|), min cosine "
+          f"{cos:.7f}; KWS max|dscore| {kws_err:.3g} over 4 windows",
+          flush=True)
+    return row
+
+
+def profile_service(torch, port: int, engines, models, n: int = 16):
+    """The card's busy time over a second S = n run (torch.profiler, all
+    threads), against that run's wall: the service's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        row = sessions_run(torch, port, engines, models, n)
+        torch.cuda.synchronize()
+    rows = _device_events(prof)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    require(busy > 0, "profiler saw no device time in the service run")
+    wall_ms = row["wall_s"] * 1e3
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    print(f"profile: service S={n}, card busy {busy:.1f} ms of "
+          f"{wall_ms:.1f} ms wall (idle share "
+          f"{100 * (1 - busy / wall_ms):.1f}%), "
+          f"{sum(e.count for e in rows)} kernel launches; top kernels:")
+    for e in rows[:10]:
+        print(f"  {e.self_device_time_total / 1e3:8.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+    return dict(busy_ms=busy, wall_ms=wall_ms,
+                launches=sum(e.count for e in rows),
+                partial=row["partial"], finalize=row["finalize"])
+
+
+def service_path(torch, card, reco, profile: bool):
+    """Phase 6: the voice service at full width on the card."""
+    engines, models = build_service(torch, reco)
+    _, sv, punc, kws = models
+    server = Server(engines)
+    try:
+        port = server.app.port
+        out = {f"S{n}": sessions_run(torch, port, engines, models, n)
+               for n in SERVICE_SIZES}
+        out["four_modes"] = four_mode_session(torch, port, engines, models)
+        out["rest"] = rest_check(torch, port, engines, models)
+        if profile:
+            out["profile_S16"] = profile_service(torch, port, engines,
+                                                 models)
+    finally:
+        server.stop()
+    out["launches"] = service_launches(torch, sv, punc, kws)
+    out["card_vs_cpu"] = service_card_vs_cpu(torch, sv, punc, kws)
+    return out
+
+
 # ---------------------------------------------------------------- main
 def main(argv) -> int:
     try:
@@ -1000,18 +1681,23 @@ def main(argv) -> int:
             sweep_k1(torch)
         k2_row = check_k2(torch, peaks)
         k1_stream, k2_stream = check_streaming_kernels(torch, peaks, floor_ms)
+        k1_service, k2_service = check_service_kernels(torch, peaks, floor_ms)
         reco, wavs, launches, rtf = main_path(torch, card, profile)
         compare_cpu(torch, reco, wavs)
         streaming, compare_ids, compare_audio = streaming_path(
             torch, card, reco.params, profile)
         streaming["card_vs_cpu"] = compare_streaming(
             torch, reco.params, compare_ids, compare_audio)
+        service = service_path(torch, card, reco, profile)
     except Exception:   # every phase failure ends the run without a result
         traceback.print_exc()
         return 1
 
     main_k1 = next(r for r in k1_rows
                    if r["site"] == "encoder" and r["dtype"] == "float32")
+    served = {run: service[run]["launches"]
+              for run in [f"S{n}" for n in SERVICE_SIZES] + ["four_modes",
+                                                             "rest"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms")
     kernels = [
@@ -1026,7 +1712,12 @@ def main(argv) -> int:
              launches_with_rescoring=launches["K1_rescoring"],
              launches_per_chunked_step=streaming["S64"]["k1_per_step"],
              launches_per_vad_tick=streaming["vad"]["k1_per_tick"],
-             shapes=k1_rows + k1_stream),
+             launches_per_punctuate_forward=service["launches"][
+                 "k1_per_punctuate_forward"],
+             launches_per_kws_batch=service["launches"]["k1_per_kws_batch"],
+             launches_per_embed=service["launches"]["k1_per_embed"],
+             launches_service={r: c["k1"] for r, c in served.items()},
+             shapes=k1_rows + k1_stream + k1_service),
         dict(name="frame_window", route="cuda",
              source="toolbox_for_asr_and_tts_tpu_torch/csrc/frame_window.cu",
              replaces="toolbox_for_asr_and_tts_tpu/ops/pallas/frame_window.py:56",
@@ -1035,10 +1726,16 @@ def main(argv) -> int:
              shape=k2_row["shape"],
              launches_per_chunked_step=streaming["S64"]["k2_per_step"],
              launches_per_vad_tick=streaming["vad"]["k2_per_tick"],
-             shapes=[k2_row] + k2_stream),
+             launches_per_punctuate_forward=service["launches"][
+                 "k2_per_punctuate_forward"],
+             launches_per_kws_batch=service["launches"]["k2_per_kws_batch"],
+             launches_per_embed=service["launches"]["k2_per_embed"],
+             launches_service={r: c["k2"] for r, c in served.items()},
+             shapes=[k2_row] + k2_stream + k2_service),
     ]
     print(json.dumps({"rtf_batch8": rtf, "card": card}))
     print(json.dumps({"streaming": streaming, "card": card}))
+    print(json.dumps({"service": service, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -264,3 +264,132 @@ def test_tickers_on_card_match_cpu(cuda, partials):
             elif b[s]:
                 np.testing.assert_allclose(np.stack(a[s]), np.stack(b[s]),
                                            rtol=2.0 ** -7, atol=1e-4)
+
+
+# ------------------------------------- the service slice's shapes and models
+@pytest.mark.parametrize("b,t,masked", [(1, 32, True), (8, 64, True),
+                                        (64, 53, False)])
+def test_fsmn_kernel_service_shapes(cuda, b, t, masked):
+    """CT-Transformer layers: the V third of a [B, T, 1536] qkv buffer, K 11
+    pad (5, 5) with a length mask; KWS FSMN layers: [64, 53, 64], K 12 =
+    lorder 10 + rorder 2, pad (9, 2), no mask. f32 exact."""
+    rng = np.random.default_rng(10 + b)
+    if t == 53:
+        x = _randn(rng, b, t, 64).to(cuda)
+        w = _randn(rng, 64, 1, 12, scale=0.1).to(cuda)
+        pad_l = 9
+    else:
+        x = _randn(rng, b, t, 1536).to(cuda)[..., 1024:]
+        w = _randn(rng, 512, 1, 11, scale=0.1).to(cuda)
+        pad_l = 5
+    mask = None
+    if masked:
+        mask = torch.ones(b, t, device=cuda)
+        mask[0, t - 7:] = 0.0
+    _fsmn_against_plain(x, w, pad_l, mask)
+
+
+def test_frame_window_kernel_kws_batch(cuda):
+    """KWS's batch of 64 1.6 s windows: [64, 25600] → 158 frames."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy((0.3 * rng.standard_normal((64, 25600)) * 32768.0)
+                         .astype(np.float32)).to(cuda)
+    win = torch.from_numpy(fe._window_coeffs(fe.FrontendConfig())).to(cuda)
+    before = k2.launches
+    got = k2.frame_window(x, win, 158, 400, 160, 512)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1 and got.shape == (64, 158, 512)
+    want = k2.frame_window_plain(x, win, 158, 400, 160, 512)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * x.abs().max().item())
+
+
+@pytest.fixture
+def no_tf32():
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = flags
+
+
+def _counted(fn):
+    torch.cuda.synchronize()
+    a, b = k1.launches, k2.launches
+    out = fn()
+    torch.cuda.synchronize()
+    return out, k1.launches - a, k2.launches - b
+
+
+def _texts(n_words=(9, 23)):
+    rng = np.random.default_rng(12)
+    return ["".join(chr(0x4E00 + int(c)) for c in rng.integers(0, 4000, n))
+            for n in n_words]
+
+
+def test_punctuator_on_card_matches_cpu(cuda, no_tf32):
+    """12 layers at d 64: class ids equal, 12 K1 per forward (one per
+    layer) and no K2, logits within 1e-4."""
+    from toolbox_for_asr_and_tts_tpu_torch.models import ct_transformer as ct
+    from toolbox_for_asr_and_tts_tpu_torch.models.convert import tree_to
+    cfg = ct.CTTransformerConfig(vocab_size=4096, num_layers=12, d_model=64,
+                                 embed_dim=64, n_heads=2, ffn_dim=128)
+    cpu = ct.Punctuator.random(cfg, device="cpu")
+    card = ct.Punctuator(tree_to(cpu.params, cuda), cfg, cpu.vocab,
+                         device=cuda)
+    texts = _texts()
+    words = ct.split_words(texts[1])
+    got, n1, n2 = _counted(lambda: card.classify(words))
+    assert (n1, n2) == (12, 0)
+    np.testing.assert_array_equal(got, cpu.classify(words))
+    out, n1, _ = _counted(lambda: card.punctuate_many(texts))
+    assert n1 == 12 * 2          # two length buckets: two forwards
+    assert out == cpu.punctuate_many(texts)
+    ids = torch.from_numpy(np.asarray(cpu.vocab.encode(words))[None])
+    lens = torch.tensor([len(words)])
+    want = ct.forward(cpu.params, ids, lens, cfg)
+    logits = ct.forward(card.params, ids.to(cuda), lens.to(cuda), cfg).cpu()
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+
+
+def test_speaker_verifier_on_card_matches_cpu(cuda, no_tf32):
+    """One K2 (and no K1) per embed call; embeddings within 1e-3 and
+    cosine ≥ 0.9999 of the CPU's; scores within 1e-4."""
+    from toolbox_for_asr_and_tts_tpu_torch.asr.speaker import SpeakerVerifier
+    cpu = SpeakerVerifier.random(device="cpu")
+    card = SpeakerVerifier.random(device=cuda)
+    rng = np.random.default_rng(13)
+    wavs = [(0.3 * rng.standard_normal(n)).astype(np.float32)
+            for n in (24000, 16000, 30000)]
+    got, n1, n2 = _counted(lambda: card.embed(wavs))
+    assert (n1, n2) == (0, 1)
+    want = cpu.embed(wavs)
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+    for a, b in zip(got, want):
+        cos = float(a @ b / np.linalg.norm(a) / np.linalg.norm(b))
+        assert cos >= 0.9999
+    assert abs(card.verify(wavs[0], wavs[1])[1]
+               - cpu.verify(wavs[0], wavs[1])[1]) < 1e-4
+
+
+def test_keyword_spotter_on_card_matches_cpu(cuda, no_tf32):
+    """4 FSMN layers (K1 +4) and one fbank (K2 +1) per length group of
+    detect_audio_batch; scores within 1e-3 of the CPU's."""
+    from toolbox_for_asr_and_tts_tpu_torch.models import kws_ctc
+    cfg = kws_ctc.KwsConfig(vocab_size=64, hidden_dim=32, proj_dim=16,
+                            num_layers=4)
+    cpu = kws_ctc.KeywordSpotter.random(cfg, threshold=0.0, device="cpu")
+    card = kws_ctc.KeywordSpotter.random(cfg, threshold=0.0, device=cuda)
+    rng = np.random.default_rng(14)
+    wins = [(0.3 * rng.standard_normal(25600)).astype(np.float32)
+            for _ in range(5)]
+    got, n1, n2 = _counted(lambda: card.detect_audio_batch(wins))
+    assert (n1, n2) == (4, 1)
+    want = cpu.detect_audio_batch(wins)
+    for (_, s), (_, w) in zip(got, want):
+        assert abs(s - w) < 1e-3
+    _, n1, n2 = _counted(lambda: card.detect_audio_batch(
+        wins + [wins[0][:16000]]))
+    assert (n1, n2) == (8, 2)    # two length groups

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points never fall back to the CPU quietly."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+pydantic, websockets or httpx, which the card's machine lacks), and its
+entry points never fall back to the CPU quietly."""
 import ast
 import json
 import os
@@ -19,6 +20,7 @@ from toolbox_for_asr_and_tts_tpu_torch.asr.vad import StreamingVadStepper  # noq
 from toolbox_for_asr_and_tts_tpu_torch.models import fsmn_vad as fv  # noqa: E402
 from toolbox_for_asr_and_tts_tpu_torch.models import paraformer as pf  # noqa: E402
 from toolbox_for_asr_and_tts_tpu_torch.models import paraformer_online as po  # noqa: E402
+from toolbox_for_asr_and_tts_tpu_torch.models.convert import tree_map  # noqa: E402
 from toolbox_for_asr_and_tts_tpu_torch.models.paraformer_streaming import (  # noqa: E402
     StreamingRecognizer)
 from toolbox_for_asr_and_tts_tpu_torch.parallel.stream_batcher import (  # noqa: E402
@@ -36,14 +38,21 @@ def _port_modules():
         port.__path__, prefix=port.__name__ + "."))
 
 
+NOT_ON_THE_CARD = ("pydantic", "websockets", "httpx")
+
+
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top == "jax" or top.startswith("jax") or top == REF
 
 
+def _missing_on_the_card(name: str) -> bool:
+    return name.split(".")[0] in NOT_ON_THE_CARD
+
+
 def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
-    assert len(mods) >= 24, mods
+    assert len(mods) >= 44, mods
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(sys.modules)))\n")
@@ -51,9 +60,16 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert not [m for m in loaded if _forbidden(m)]
+    assert not [m for m in loaded if _missing_on_the_card(m)]
     for name in ("asr.recognizer", "asr.vad", "models.fsmn_vad",
                  "models.paraformer_online", "models.paraformer_streaming",
-                 "ops.vad_energy", "parallel.stream_batcher", "utils.audio"):
+                 "ops.vad_energy", "parallel.stream_batcher", "utils.audio",
+                 "models.ct_transformer", "models.campplus",
+                 "models.kws_ctc", "asr.speaker", "asr.diarization",
+                 "asr.session", "asr.corrections", "asr.hotwords",
+                 "llm.correction", "runtime.config", "runtime.prom",
+                 "runtime.registry", "service.hub", "service.http",
+                 "service.schemas", "service.voice_app", "service.engines"):
         assert f"toolbox_for_asr_and_tts_tpu_torch.{name}" in loaded, name
 
 
@@ -79,9 +95,32 @@ def test_no_source_imports_jax_or_the_reference():
                 names = [node.module or ""]
             else:
                 continue
-            bad += [(path, nm) for nm in names if _forbidden(nm)]
-    assert n >= 25
+            bad += [(path, nm) for nm in names
+                    if _forbidden(nm) or (_missing_on_the_card(nm)
+                                          and path.endswith("chip_smoke.py"))]
+    assert n >= 45
     assert not bad, bad
+
+
+def test_service_modules_import_httpx_only_inside_calls():
+    """The LLM clients import httpx inside the call that needs it (the
+    card's machine has none); nothing else names pydantic, websockets or
+    httpx at all."""
+    for path in _sources():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        top_level = [n for n in tree.body
+                     if isinstance(n, (ast.Import, ast.ImportFrom))]
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for nm in filter(_missing_on_the_card, names):
+                assert nm == "httpx" and node not in top_level \
+                    and "/llm/" in path, (path, nm)
 
 
 def test_no_device_without_a_card_raises(monkeypatch):
@@ -139,3 +178,57 @@ def test_streaming_entry_points_run_on_explicit_cpu():
     assert all(v.device == cpu for v in t.state.values())
     w = t.params["encoder"]["layers"][0]["attn"]["qkv"]["w"]
     assert w.device == cpu
+
+
+def _service_entry_points(device):
+    """The service slice's entry points, built with `device`."""
+    from toolbox_for_asr_and_tts_tpu_torch.asr.speaker import SpeakerVerifier
+    from toolbox_for_asr_and_tts_tpu_torch.models.ct_transformer import (
+        Punctuator)
+    from toolbox_for_asr_and_tts_tpu_torch.models.kws_ctc import (
+        KeywordSpotter)
+    from toolbox_for_asr_and_tts_tpu_torch.service import engines
+    kw = {} if device is None else {"device": device}
+    return {
+        "Punctuator.random": lambda: Punctuator.random(**kw),
+        "SpeakerVerifier.random": lambda: SpeakerVerifier.random(**kw),
+        "KeywordSpotter.random": lambda: KeywordSpotter.random(**kw),
+        "build_engines": lambda: engines.build_engines(**kw),
+        "build_test_engines": lambda: engines.build_test_engines(**kw),
+    }
+
+
+def test_service_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, make in _service_entry_points(None).items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            _service_entry_points("cuda")[name]()
+
+
+def test_service_entry_points_run_on_explicit_cpu():
+    """The models and every hub of the test engines live on the CPU when
+    asked; closing the engines stops every hub thread."""
+    import threading
+    cpu = torch.device("cpu")
+    made = _service_entry_points("cpu")
+    for name in ("Punctuator.random", "SpeakerVerifier.random",
+                 "KeywordSpotter.random"):
+        obj = made[name]()
+        assert obj.device == cpu, name
+        leaves = []
+        tree_map(leaves.append, obj.params)
+        assert leaves and all(a.device == cpu for a in leaves), name
+    eng = made["build_test_engines"]()
+    try:
+        assert eng.verifier.device == cpu
+        assert eng.kws.inner.device == cpu
+        assert eng.diarizer.inner.recognizer.device == cpu
+        assert eng.diarizer.inner.punctuator.device == cpu
+        assert eng.streaming_factory.hub.device == cpu
+    finally:
+        eng.close()
+    assert not [t.name for t in threading.enumerate()
+                if t.name.startswith(("chunked-hub", "kws-hub",
+                                      "finalize-hub", "vad-hub"))]

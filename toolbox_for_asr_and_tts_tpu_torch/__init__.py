@@ -11,7 +11,13 @@ reference so that each module's counterpart is easy to find:
     ops/kernels/       their build step, ctypes wrappers, plain versions, counters
     ops/nn.py          functional layers over the reference's param tree
     ops/frontend.py    fbank → LFR → CMVN
-    models/            Paraformer, and the numpy → torch param converter
-    runtime/           bucketing, RTF metrics
-    asr/               tokenizer, hotword bias, n-gram LM, Recognizer
+    models/            Paraformer (offline, online), FSMN-VAD, CT-Transformer,
+                       CAM++, KWS, and the numpy → torch param converter
+    parallel/          the batched stream tickers
+    runtime/           bucketing, RTF metrics, config, Prometheus registry,
+                       model registry
+    asr/               Recognizer, VAD, speaker verification, diarization,
+                       the streaming session FSM, tokenizer, hotwords, LM
+    service/           serving hubs, engines, the HTTP/WS shell, voice app
+    llm/, utils/       LLM correction client, audio I/O
 """

@@ -1,1 +1,2 @@
-"""Offline recognition: Recognizer, tokenizer, hotword bias, n-gram LM."""
+"""Recognition and the voice session: Recognizer, VAD, speaker
+verification, diarization, the session FSM, tokenizer, hotwords, LM."""

@@ -26,7 +26,7 @@ from ..models.convert import tree_to
 from ..ops import frontend as fe
 from ..ops import nn
 from ..runtime.bucketing import Bucketer
-from ..runtime.metrics import RTFMeter, timing_log
+from ..runtime.metrics import RTFMeter, Tally, timing_log
 from .tokenizer import CharTokenizer
 
 
@@ -70,6 +70,10 @@ class Recognizer:
                                               device=self.device)
                               for c in cmvn)
         self.rtf = RTFMeter()
+        # device programs run (telemetry): forward_padded (K2 once, K1 in
+        # every encoder and decoder layer) and the rescoring re-decode
+        self.forwards = Tally()
+        self.rescorings = Tally()
         # ms per LFR frame (frame_shift 10 ms × lfr_n)
         self.frame_ms = self.fe_cfg.frame_shift_ms * self.fe_cfg.lfr_n
         # BiCIF timestamp branch: upsampled fire frames refine spans to
@@ -98,6 +102,7 @@ class Recognizer:
                        ) -> Dict[str, torch.Tensor]:
         """Padded audio [B, n_samples] (one bucket) and valid lengths [B] →
         `paraformer.forward`'s outputs on the device, plus `feat_lens`."""
+        self.forwards.add()
         n_samples = batch.shape[1]
         fcfg = self.fe_cfg
         t_fb = fe.num_fbank_frames(n_samples, fcfg)
@@ -124,6 +129,7 @@ class Recognizer:
                          k_b: int) -> torch.Tensor:
         """Phase 2: re-decode the first `k_b` CIF embeds → bf16 logits
         [B, k_b, V] (the cast the reference makes before its fetch)."""
+        self.rescorings.add()
         token_mask = nn.length_mask(torch.clamp_max(token_count, k_b), k_b)
         mem_mask = nn.length_mask(feat_lens, enc.shape[1])
         logits = paraformer.decode(self.params, embeds[:, :k_b], token_mask,

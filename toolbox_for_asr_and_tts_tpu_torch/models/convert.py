@@ -16,7 +16,11 @@ from ..device import DeviceLike, resolve_device
 
 
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
-    """Apply `fn` to every leaf of a tree of dicts, lists and tuples."""
+    """Apply `fn` to every leaf of a tree of dicts, lists and tuples. A None
+    leaf (an absent branch, such as CAM++'s `sc` shortcut or the last
+    block's `transit`) stays None."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -38,7 +42,9 @@ def params_from_numpy(tree: Any, device: DeviceLike = None,
                       dtype: torch.dtype = torch.float32) -> Any:
     """Numpy (or any array-like) parameter tree → torch tree on `device`
     (resolved as every entry point: the card unless "cpu" is passed), with
-    floating leaves cast to `dtype`."""
+    floating leaves cast to `dtype`. Every leaf converts alike, so
+    BatchNorm statistics (`mean`, `var`) and extra taps such as KWS's `wr`
+    need no rule of their own; None leaves stay None."""
     dev = resolve_device(device)
 
     def leaf(a: Any) -> torch.Tensor:

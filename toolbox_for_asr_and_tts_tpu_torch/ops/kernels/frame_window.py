@@ -16,12 +16,15 @@ each output row once, coalesced.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 import torch.nn.functional as F
 
 from . import _build
 
 launches = 0   # +1 per kernel launch; chip_smoke.py reads it
+_launches_lock = threading.Lock()   # serving hubs launch from several threads
 
 _ENTRY = "frame_window_f32"
 
@@ -88,5 +91,6 @@ def frame_window(audio: torch.Tensor, window: torch.Tensor, t_frames: int,
             t_frames, frame_len, frame_shift, n_fft, float(preemphasis),
             int(bool(remove_dc)), stream)
     _build.check(err, _ENTRY)
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return out

@@ -19,6 +19,7 @@ launches the kernel's scalar path (1 channel per thread) instead.
 """
 from __future__ import annotations
 
+import threading
 from functools import lru_cache
 from typing import NamedTuple, Optional
 
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 from . import _build
 
 launches = 0   # +1 per kernel launch; chip_smoke.py reads it
+_launches_lock = threading.Lock()   # serving hubs launch from several threads
 
 _ENTRY = {torch.float32: "fsmn_conv_f32", torch.bfloat16: "fsmn_conv_bf16"}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # channels in 16 bytes
@@ -209,5 +211,6 @@ def launch(x: torch.Tensor, w: torch.Tensor, pad_l: int,
         with torch.cuda.device(index):
             err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     _build.check(err, name)
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return y

@@ -27,7 +27,13 @@ NEG_INF = -1e9  # additive mask value (finite: a fully masked row stays uniform)
 
 # ----------------------------------------------------------------- helpers
 def _uniform(g: torch.Generator, shape, scale: float) -> torch.Tensor:
-    return torch.empty(shape).uniform_(-scale, scale, generator=g)
+    """Drawn on the generator's device."""
+    return torch.empty(shape, device=g.device).uniform_(-scale, scale,
+                                                        generator=g)
+
+
+def _normal(g: torch.Generator, shape) -> torch.Tensor:
+    return torch.randn(shape, generator=g, device=g.device)
 
 
 def length_mask(lengths: torch.Tensor, t: int) -> torch.Tensor:
@@ -38,6 +44,18 @@ def length_mask(lengths: torch.Tensor, t: int) -> torch.Tensor:
 
 def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float())
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(x)
+
+
+def log_softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    return torch.log_softmax(x, dim=dim)
 
 
 # ------------------------------------------------------------------ linear
@@ -68,6 +86,16 @@ def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     mu = x.mean(dim=-1, keepdim=True)
     var = x.var(dim=-1, keepdim=True, unbiased=False)
     return (x - mu) * torch.rsqrt(var + eps) * p["g"] + p["b"]
+
+
+# --------------------------------------------------------------- embedding
+def embedding_init(g: torch.Generator, n_vocab: int, d: int) -> Params:
+    """N(0, 1/d) table [n_vocab, d], drawn on the generator's device."""
+    return {"table": _normal(g, (n_vocab, d)) * (d ** -0.5)}
+
+
+def embedding(p: Params, ids: torch.Tensor) -> torch.Tensor:
+    return p["table"][ids.long()]
 
 
 # ------------------------------------------------------------------ conv1d
@@ -112,7 +140,7 @@ def fsmn_block_init(g: torch.Generator, d: int, lorder: int,
     """VAD-style FSMNBlock: the kernel covers lorder past frames (the
     current one included) and rorder future ones, torch layout
     [D, 1, lorder + rorder]; `fsmn_pad` gives its pads."""
-    return {"w": torch.randn((d, 1, lorder + rorder), generator=g) * 0.02}
+    return {"w": _normal(g, (d, 1, lorder + rorder)) * 0.02}
 
 
 def fsmn_pad(lorder: int, rorder: int = 0) -> Tuple[int, int]:
@@ -123,7 +151,7 @@ def fsmn_pad(lorder: int, rorder: int = 0) -> Tuple[int, int]:
 
 def fsmn_memory_init(g: torch.Generator, d: int, kernel_size: int) -> Params:
     """SAN-M memory conv weights (kernel_size taps), torch layout [D, 1, K]."""
-    return {"w": torch.randn((d, 1, kernel_size), generator=g) * 0.02}
+    return {"w": _normal(g, (d, 1, kernel_size)) * 0.02}
 
 
 def fsmn_block(p: Params, x: torch.Tensor, pad: Tuple[int, int],

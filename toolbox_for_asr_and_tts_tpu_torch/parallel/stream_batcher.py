@@ -328,6 +328,8 @@ class BatchedVadTicker:
         self._rows = _PackedRows(capacity, "VAD")
         self._frontends: Dict[int, StreamingFrontend] = {}
         self._audio: Dict[int, np.ndarray] = {}   # per-slot raw-sample tails
+        self.fbanks = 0   # fbank passes run (one K2 each)
+        self.steps = 0    # FSMN steps run (K1 in each layer)
 
     # ------------------------------------------------------------ rows
     @property
@@ -416,6 +418,7 @@ class BatchedVadTicker:
                     batch[i, :length] = self._audio[s][:length]
                 fb = fe.fbank(torch.from_numpy(batch).to(self.device), fcfg,
                               t_frames=fe.num_fbank_frames(lb, fcfg))
+                self.fbanks += 1
                 fb = fb.cpu().numpy()
                 for i, (s, length) in enumerate(rows):
                     n = fe.num_fbank_frames(length, fcfg)
@@ -456,6 +459,7 @@ class BatchedVadTicker:
             post, new = fsmn_vad.apply_streaming(
                 self.params, torch.from_numpy(batch).to(self.device), sub,
                 self.cfg)
+            self.steps += 1
             _masked_merge(sub, new, torch.from_numpy(in_group).to(self.device),
                           1)
             probs = fsmn_vad.speech_prob(post, self.cfg).cpu().numpy()

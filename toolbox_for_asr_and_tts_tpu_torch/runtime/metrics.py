@@ -7,6 +7,7 @@ waits for the device), so the recorded seconds include the device's time.
 from __future__ import annotations
 
 import logging
+import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -17,6 +18,20 @@ TIMING_PREFIX = "耗时统计 -"  # keep the reference's greppable convention
 
 def timing_log(step: str, ms: float) -> None:
     logger.info("%s %s: %.2f ms", TIMING_PREFIX, step, ms)
+
+
+class Tally:
+    """A running count that several threads may bump at once: the device
+    programs a model has run (serving hubs and sessions share the models).
+    Read `n` before and after a run to count that run's programs."""
+
+    def __init__(self) -> None:
+        self.n = 0
+        self._lock = threading.Lock()
+
+    def add(self, k: int = 1) -> None:
+        with self._lock:
+            self.n += k
 
 
 @dataclass
