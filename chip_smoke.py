@@ -4,8 +4,9 @@
     python3 chip_smoke.py             # from the repository root
     python3 chip_smoke.py --profile   # also: torch.profiler breakdown of one
                                       # transcribe by CUDA kernel, the
-                                      # card's busy time per streaming step
-                                      # and over an S = 16 service run
+                                      # card's busy time per streaming step,
+                                      # over an S = 16 service run and over
+                                      # one TTS synthesize
     python3 chip_smoke.py --sweep     # also: K1's device time per tile
 
 Phases (any failure exits non-zero and prints no result line):
@@ -66,9 +67,25 @@ Phases (any failure exits non-zero and prints no result line):
    audio frame the client sends is followed by a `{"type": "chunk_end"}`
    text frame, answered MISSING_AUDIO_DATA, so that replies can be
    attributed to chunks: extra traffic that real clients do not send;
-6. the `streaming`, `service` and `kernels` JSON lines, then the result
-   line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
-   ...}}.
+6. the TTS service at full width (phase 7): `Synthesizer.random(seed=0,
+   tiny=False)` on the card (Sambert d 256, 4 + 4 layers, 6 PNCA layers;
+   HiFi-GAN 512 channels, upsample (5, 5, 4, 2)), pinned to the serving
+   defaults (NAR decoder, two-phase, one call per batch of 8): a fixed
+   14-segment paragraph through `synthesize` (one warm-up, then the median
+   of 3: wall, audio seconds, RTF, the probes and synth groups run, no K1
+   or K2 launch), `synthesize_stream` (time to the first chunk; its
+   concatenation against the one-shot waveform within 1 LSB, equal
+   lengths), one segment in PNCA mode (AR steps, and the cost of one step
+   from `forward_ar` at two mel lengths), card against CPU on 2 segments
+   (probes, durations and mel lengths equal, mel within 1e-4 of its
+   largest magnitude, PCM within 2 LSB), and the port's TTS app on
+   127.0.0.1 (a REST job polled to `completed`, the same text over `WS
+   /api/v1/tts/ws`, whose pcm16 must equal the job's WAV samples);
+   `--profile` adds the card's busy time over one `synthesize` and the
+   PNCA step's launches. No TPU kernel lies on this path;
+7. the `streaming`, `service`, `tts` and `kernels` JSON lines, then the
+   result line {"ok": true, "device": {"platform": "gpu", "kind": ...,
+   "count": ...}}.
 
 Needs one card, no network, and only the files of this repository.
 """
@@ -1031,7 +1048,8 @@ class RawWS:
     reader thread that answers pings and keeps every text message with its
     arrival time (`time.perf_counter`)."""
 
-    def __init__(self, port: int, timeout: float = 300.0):
+    def __init__(self, port: int, timeout: float = 300.0,
+                 path: str = WS_PATH):
         import base64
         import socket
         import threading
@@ -1039,7 +1057,7 @@ class RawWS:
                                              timeout=timeout)
         key = base64.b64encode(os.urandom(16)).decode()
         self.sock.sendall(
-            (f"GET {WS_PATH} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+            (f"GET {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
              "Upgrade: websocket\r\nConnection: Upgrade\r\n"
              f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n\r\n"
              ).encode())
@@ -1290,17 +1308,20 @@ def build_service(torch, reco):
     return engines, (reco, sv, punc, kws)
 
 
-class Server:
-    """The port's `create_app(engines=...)` served on 127.0.0.1 from a
-    thread; `stop` shuts the server and the engines down."""
+def voice_app(engines):
+    from toolbox_for_asr_and_tts_tpu_torch.runtime.config import VoiceConfig
+    from toolbox_for_asr_and_tts_tpu_torch.service.voice_app import create_app
+    return create_app(engines=engines, cfg=VoiceConfig(disable_llm=True))
 
-    def __init__(self, engines):
+
+class Server:
+    """One of the port's apps (voice or TTS) served on 127.0.0.1 from a
+    thread; `stop` shuts the server and the app's engines down."""
+
+    def __init__(self, app):
         import asyncio
         import threading
-        from toolbox_for_asr_and_tts_tpu_torch.runtime.config import VoiceConfig
-        from toolbox_for_asr_and_tts_tpu_torch.service.voice_app import create_app
-        self.app = create_app(engines=engines,
-                              cfg=VoiceConfig(disable_llm=True))
+        self.app = app
         self.loop = asyncio.new_event_loop()
         self.thread = threading.Thread(
             target=lambda: self.loop.run_until_complete(
@@ -1310,7 +1331,7 @@ class Server:
             if getattr(self.app, "port", None):
                 return
             time.sleep(0.05)
-        raise PhaseError("the voice app did not start")
+        raise PhaseError("the app did not start")
 
     def stop(self) -> None:
         import asyncio
@@ -1617,7 +1638,7 @@ def service_path(torch, card, reco, profile: bool):
     """Phase 6: the voice service at full width on the card."""
     engines, models = build_service(torch, reco)
     _, sv, punc, kws = models
-    server = Server(engines)
+    server = Server(voice_app(engines))
     try:
         port = server.app.port
         out = {f"S{n}": sessions_run(torch, port, engines, models, n)
@@ -1631,6 +1652,440 @@ def service_path(torch, card, reco, profile: bool):
         server.stop()
     out["launches"] = service_launches(torch, sv, punc, kws)
     out["card_vs_cpu"] = service_card_vs_cpu(torch, sv, punc, kws)
+    return out
+
+
+# ------------------------------------------------------ phase 7: TTS
+# 14 segments at the service's targets (18 / 14 / 22): two batches of 8
+TTS_TEXT = ("患者今年六十二岁，因反复胸闷气短三天来院就诊。入院后查血压一百五十比"
+            "九十，心率八十八次每分钟，心电图提示窦性心律。医生建议低盐低脂饮食，"
+            "适量运动，戒烟限酒，规律作息。请按时服用降压药物，每天早晚各测一次血压"
+            "并做好记录。如果出现头晕头痛、胸痛或者呼吸困难，请立即拨打急救电话。下次"
+            "复诊时间是两周以后的星期三上午，请带好病历和检查报告。祝您早日康复，生活"
+            "愉快。")
+TTS_WS_PATH = "/api/v1/tts/ws"
+TTS_CPU_SEGMENTS = 2     # segments held against the CPU run
+TTS_MEL_REL = 1e-4       # card vs CPU: mel max |Δ| ≤ this · max |mel|
+TTS_PCM_LSB = 2          # card vs CPU: PCM within this many int16 steps
+TTS_STREAM_LSB = 1       # stream vs one-shot on the card
+PNCA_T_MELS = (96, 192)  # forward_ar at 32 and 64 steps: the step's cost
+
+
+def tts_counted(torch, synth, fn):
+    """fn with K1/K2's counters zeroed just before it and read just after,
+    and the synthesizer's programs (duration probes, synth groups, PNCA
+    steps, mel frames computed) over the same run."""
+    tallies = ("probes", "synths", "ar_steps", "mel_frames")
+    before = [getattr(synth, t).n for t in tallies]
+    out, k1, k2 = counted(torch, fn)
+    return out, dict({t: getattr(synth, t).n - b
+                      for t, b in zip(tallies, before)}, k1=k1, k2=k2)
+
+
+def hifigan_flops_per_frame(v) -> int:
+    """Operations (2 per multiply-add) of HiFi-GAN per mel frame, from its
+    config: conv_pre, per stage the ConvTranspose (C_in·C_out·K per input
+    sample) and every resblock conv at the stage's rate, conv_post."""
+    ch, rate = v.upsample_initial_channel, 1
+    flops = 2 * v.n_mels * ch * 7
+    for r, k in zip(v.upsample_rates, v.upsample_kernels):
+        flops += 2 * ch * (ch // 2) * k * rate
+        ch, rate = ch // 2, rate * r
+        taps = sum(2 * rk * len(rd) for rk, rd in zip(v.resblock_kernels,
+                                                      v.resblock_dilations))
+        flops += 2 * ch * ch * taps * rate
+    return flops + 2 * ch * 7 * rate
+
+
+def tts_pin(synth, mode: str = "nar"):
+    """The serving defaults, pinned whatever the environment says: the
+    NAR decoder, one call per batch."""
+    synth.decoder_mode = mode
+    synth.group_by_length = synth.mel_group = False
+    return synth
+
+
+def tts_segments(synth):
+    from toolbox_for_asr_and_tts_tpu_torch.tts.text_frontend import (
+        split_text_for_tts)
+    c = synth.cfg
+    return split_text_for_tts(TTS_TEXT, c.seg_target, c.seg_first,
+                              c.seg_hard_max)
+
+
+def check_tts(synth, res, segments):
+    """One result of `synthesize(TTS_TEXT)`: its segments, finite samples in
+    [-1, 1], whole mel frames per segment, and a length that is the sum of
+    the segments and pauses less one crossfade per boundary."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.tts.text_frontend import pause_after
+    c = synth.cfg
+    require(res.segments == segments, "segments differ from the split")
+    require(np.isfinite(res.wav).all() and np.abs(res.wav).max() <= 1.0,
+            "samples not finite or outside [-1, 1]")
+    hop = synth.vcfg.hop_length
+    n = [round(d * SR) for d in res.seg_durations_s]
+    require(all(k > 0 and k % hop == 0 for k in n),
+            f"segment lengths {n} not whole mel frames")
+    pauses = sum(int(SR * pause_after(s, c.pause_soft_ms, c.pause_hard_ms)
+                     / 1000) for s in segments[:-1])
+    fade = int(SR * c.crossfade_ms / 1000)
+    want = sum(n) + pauses - fade * (len(n) - 1)
+    require(len(res.wav) == want, f"{len(res.wav)} samples, {want} expected")
+
+
+def pcm16(wav):
+    import numpy as np
+    return np.round(np.asarray(wav, np.float64) * 32767.0).astype(np.int64)
+
+
+def tts_one_shot(torch, card, synth, segments):
+    """One warm-up, then the median of 3 `synthesize` calls: wall, audio
+    seconds, RTF, and each run's programs (K1 and K2 must not launch);
+    every run's PCM must equal the warm-up's (synthesis is deterministic)."""
+    bs = synth.cfg.batch_size
+    batches = -(-len(segments) // bs)
+    first = pcm16(synth.synthesize(TTS_TEXT).wav)   # cuDNN plans, handles
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res, n = tts_counted(torch, synth, lambda: synth.synthesize(TTS_TEXT))
+        wall = time.perf_counter() - t0
+        check_tts(synth, res, segments)
+        import numpy as np
+        require(np.array_equal(pcm16(res.wav), first),
+                "two syntheses of one text differ")
+        require(n["k1"] == 0 and n["k2"] == 0,
+                f"the TTS path launched K1 {n['k1']}, K2 {n['k2']} times")
+        require(n["probes"] == batches and n["synths"] == batches,
+                f"programs {n}: one probe and one synth per batch of {bs} "
+                f"expected ({batches} batches)")
+        runs.append(dict(wall_ms=wall * 1e3, audio_s=len(res.wav) / SR,
+                         rtf=wall / (len(res.wav) / SR), programs=n))
+    mid = sorted(runs, key=lambda r: r["wall_ms"])[1]
+    frames = mid["programs"]["mel_frames"]
+    gflop = frames * hifigan_flops_per_frame(synth.vcfg) / 1e9
+    f32_peak = card_peaks(card)[1]
+    print(f"tts one-shot: {len(segments)} segments in {batches} batches of "
+          f"<= {bs}, {mid['audio_s']:.3f} s of audio, wall "
+          f"{mid['wall_ms']:.1f} ms (median of 3: "
+          f"{[round(r['wall_ms'], 1) for r in runs]}), RTF {mid['rtf']:.5f}; "
+          f"programs per call {mid['programs']}; PCM of the 4 calls equal; "
+          f"HiFi-GAN {gflop:.1f} GFLOP per call over {frames} mel frames "
+          f"(padding included), {gflop / f32_peak * 1e12:.2f} ms at the f32 "
+          f"peak, on {card}", flush=True)
+    return res, dict(segments=len(segments), batches=batches,
+                     wall_ms=mid["wall_ms"], audio_s=mid["audio_s"],
+                     rtf=mid["rtf"], runs=runs,
+                     segment_seconds=res.seg_durations_s,
+                     hifigan_gflop=gflop,
+                     hifigan_f32_bound_ms=gflop / f32_peak * 1e12)
+
+
+def tts_stream(torch, synth):
+    """`synthesize_stream` under per-segment grouping (each segment in its
+    own phone and mel bucket, where the stream's contract holds): time to
+    the first chunk (one warm-up, median of 3) and its concatenation
+    against `synthesize()` under the same grouping: equal length, the
+    count of equal samples and the max |Δ| in int16 steps. (Under
+    whole-batch grouping the first segment, alone in the stream, gets its
+    own phone bucket and so its own mel cap: lengths may differ.)"""
+    import numpy as np
+
+    def run():
+        t0 = time.perf_counter()
+        first, chunks = None, []
+        for ev in synth.synthesize_stream(TTS_TEXT):
+            if first is None and ev["event"] == "chunk":
+                first = time.perf_counter() - t0
+            chunks.append(ev["audio"])
+        return first * 1e3, (time.perf_counter() - t0) * 1e3, \
+            np.concatenate(chunks)
+
+    synth.group_by_length = synth.mel_group = True
+    try:
+        one_shot = synth.synthesize(TTS_TEXT)
+        run()
+        runs = [run() for _ in range(3)]
+    finally:
+        tts_pin(synth)
+    ttfa = statistics.median(r[0] for r in runs)
+    wall = statistics.median(r[1] for r in runs)
+    got = runs[-1][2]
+    require(len(got) == len(one_shot.wav),
+            f"stream {len(got)} samples, one-shot {len(one_shot.wav)}")
+    d = np.abs(pcm16(got) - pcm16(one_shot.wav))
+    equal = int((d == 0).sum())
+    print(f"tts stream (per-segment grouping): first audio after "
+          f"{ttfa:.1f} ms (median of 3: {[round(r[0], 1) for r in runs]}), "
+          f"whole stream {wall:.1f} ms; against one-shot: {equal} of "
+          f"{len(d)} samples equal, max |d| {int(d.max())} LSB (limit "
+          f"{TTS_STREAM_LSB})", flush=True)
+    require(int(d.max()) <= TTS_STREAM_LSB,
+            f"stream differs from one-shot by {int(d.max())} LSB")
+    return dict(ttfa_ms=ttfa, wall_ms=wall, equal_samples=equal,
+                samples=len(d), max_lsb=int(d.max()))
+
+
+def tts_batch(synth, segments):
+    """[b, l, 4] ids, lengths and speakers of `segments`, as
+    `synthesize_segments` builds them (whole-batch grouping)."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.tts.text_frontend import (
+        text_to_ling_ids)
+    seqs = [text_to_ling_ids(s, synth.g2p, synth.vocab) for s in segments]
+    l = synth.bucketer.bucket(max(len(q) for q in seqs))
+    ids = np.zeros((len(seqs), l, 4), np.int32)
+    for i, q in enumerate(seqs):
+        ids[i, :len(q)] = q
+    lens = np.asarray([len(q) for q in seqs], np.int32)
+    return ids, lens, np.zeros(len(seqs), np.int32)
+
+
+def tts_pnca(torch, card, synth, segments, profile: bool):
+    """The PNCA decoder on one segment through `synthesize_segments` (wall,
+    AR steps), then `forward_ar` alone at two mel lengths: the difference
+    over the extra steps is the cost of one step (wall; launches under
+    --profile)."""
+    from toolbox_for_asr_and_tts_tpu_torch.models import sambert
+    tts_pin(synth, "pnca")
+    try:
+        synth.synthesize_segments(segments[:1], "zhitian_emo")   # warm-up
+        t0 = time.perf_counter()
+        (wavs, _), n = tts_counted(
+            torch, synth,
+            lambda: synth.synthesize_segments(segments[:1], "zhitian_emo"))
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        tts_pin(synth, "nar")
+    require(n["k1"] == 0 and n["k2"] == 0 and n["ar_steps"] > 0,
+            f"pnca programs {n}")
+    require(len(wavs[0]) > 0, "pnca gave no audio")
+    ids, lens, spk = (torch.from_numpy(a).to(synth.device)
+                      for a in tts_batch(synth, segments[:1]))
+
+    def ar(t_mel):
+        with torch.inference_mode():
+            out = sambert.forward_ar(synth.ap, ids, lens, spk, synth.acfg,
+                                     t_mel=t_mel)
+        torch.cuda.synchronize()
+        return out
+
+    ar(PNCA_T_MELS[0])
+    r = synth.acfg.outputs_per_step
+    steps = [-(-t // r) for t in PNCA_T_MELS]
+    walls = []
+    for t in PNCA_T_MELS:
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ar(t)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        walls.append(statistics.median(ts))
+    per_step = (walls[1] - walls[0]) / (steps[1] - steps[0])
+    out = dict(segment=segments[0], ar_steps=n["ar_steps"], wall_ms=wall,
+               ms_per_step_in_call=wall / n["ar_steps"],
+               forward_ar_ms={str(t): w for t, w in zip(PNCA_T_MELS, walls)},
+               ms_per_step=per_step)
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        launches = []
+        for t in PNCA_T_MELS:
+            with prof_ctx(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                ar(t)
+            launches.append(sum(e.count for e in _device_events(prof)))
+        out["launches"] = {str(t): k for t, k in zip(PNCA_T_MELS, launches)}
+        out["launches_per_step"] = ((launches[1] - launches[0])
+                                    / (steps[1] - steps[0]))
+    print(f"tts pnca: one segment ({len(wavs[0]) / SR:.3f} s) in {wall:.1f} "
+          f"ms, {n['ar_steps']} AR steps ({wall / n['ar_steps']:.3f} ms per "
+          f"step of the call); forward_ar alone {out['forward_ar_ms']} ms at "
+          f"t_mel {PNCA_T_MELS}: {per_step:.3f} ms per step"
+          + (f", {out['launches_per_step']:.1f} launches per step "
+             f"({out['launches']})" if profile else "") + f" on {card}",
+          flush=True)
+    return out
+
+
+def tts_card_vs_cpu(torch, synth, segments):
+    """The same weights on the CPU, TTS_CPU_SEGMENTS segments: duration
+    probe, durations and mel lengths equal, mel within TTS_MEL_REL of its
+    largest magnitude, PCM within TTS_PCM_LSB."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.models import sambert
+    from toolbox_for_asr_and_tts_tpu_torch.tts.synthesizer import Synthesizer
+    cpu = tts_pin(Synthesizer(synth.ap, synth.acfg, synth.vp, synth.vcfg,
+                              device="cpu"))
+    segs = segments[:TTS_CPU_SEGMENTS]
+    arrays = tts_batch(synth, segs)
+    l = arrays[0].shape[1]
+    probe = [s._dur_fn(*s._to_device(*arrays)).cpu().numpy()
+             for s in (synth, cpu)]
+    require(np.array_equal(*probe), f"duration probes differ: {probe}")
+    mb = synth.MEL_BUCKET
+    t_mel = int(max(min(-(-probe[0].max() // mb) * mb,
+                        l * synth.acfg.frames_per_phone), mb))
+    outs = []
+    for s in (synth, cpu):
+        with torch.inference_mode():
+            o = sambert.forward(s.ap, *s._to_device(*arrays), s.acfg,
+                                t_mel=t_mel)
+        outs.append({k: v.cpu().numpy() for k, v in o.items()})
+    card_o, cpu_o = outs
+    v = np.exp(cpu_o["log_duration"].astype(np.float64)) - 1.0
+    valid = np.arange(l)[None, :] < arrays[1][:, None]
+    margin = float(np.abs(v - np.floor(v) - 0.5)[valid].min())
+    for k in ("durations", "mel_lens"):
+        require(np.array_equal(card_o[k], cpu_o[k]),
+                f"{k} differ between card and CPU (least distance of a "
+                f"duration from a rounding tie {margin:.2e})")
+    mel_scale = float(np.abs(cpu_o["mel"]).max())
+    mel_err = float(np.abs(card_o["mel"] - cpu_o["mel"]).max())
+    (w_card, _), (w_cpu, _) = (s.synthesize_segments(segs, "zhitian_emo")
+                               for s in (synth, cpu))
+    require([len(w) for w in w_card] == [len(w) for w in w_cpu],
+            "segment lengths differ between card and CPU")
+    lsb = max(int(np.abs(pcm16(a) - pcm16(c)).max())
+              for a, c in zip(w_card, w_cpu))
+    equal = sum(int((pcm16(a) == pcm16(c)).sum())
+                for a, c in zip(w_card, w_cpu))
+    total = sum(len(w) for w in w_card)
+    print(f"tts card vs CPU ({len(segs)} segments, t_mel {t_mel}): probes "
+          f"{probe[0].tolist()} equal, durations and mel lengths "
+          f"{card_o['mel_lens'].tolist()} equal (least distance from a "
+          f"rounding tie {margin:.2e}); mel max |d| {mel_err:.3e} of max "
+          f"|mel| {mel_scale:.3f} (limit {TTS_MEL_REL:g} x); PCM {equal} of "
+          f"{total} samples equal, max |d| {lsb} LSB (limit {TTS_PCM_LSB})",
+          flush=True)
+    require(mel_err <= TTS_MEL_REL * mel_scale,
+            f"mel differs by {mel_err} (max |mel| {mel_scale})")
+    require(lsb <= TTS_PCM_LSB, f"PCM differs by {lsb} LSB")
+    return dict(segments=len(segs), t_mel=t_mel,
+                mel_lens=card_o["mel_lens"].tolist(), tie_margin=margin,
+                mel_max_abs_err=mel_err, mel_max_abs=mel_scale,
+                pcm_max_lsb=lsb, pcm_equal=equal, pcm_samples=total)
+
+
+def tts_service(torch, card, synth):
+    """The port's TTS app over `synth` on 127.0.0.1: one REST job polled to
+    `completed`, then the same text over the WebSocket, whose pcm16 chunks
+    must equal the job's WAV samples exactly (the same programs on the same
+    card). K1 and K2 must not launch."""
+    import base64
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.runtime.config import TTSConfig
+    from toolbox_for_asr_and_tts_tpu_torch.service.tts_app import create_app
+    from toolbox_for_asr_and_tts_tpu_torch.utils.audio import decode_wav_bytes
+    server = Server(create_app(synthesizer=synth, cfg=TTSConfig()))
+
+    def run():
+        port = server.app.port
+        t0 = time.perf_counter()
+        status, out = http_json(port, "POST", "/api/v1/tts/start",
+                                json.dumps({"text": TTS_TEXT}).encode())
+        require(status == 200, f"start: {status} {out}")
+        for _ in range(1200):
+            status, body = http_json(
+                port, "GET", f"/api/v1/tts/result/{out['job_id']}")
+            if body["status"] in ("completed", "error"):
+                break
+            time.sleep(0.05)
+        rest_ms = (time.perf_counter() - t0) * 1e3
+        require(body["status"] == "completed", f"job: {body}")
+        wav, sr = decode_wav_bytes(base64.b64decode(body["audio_base64"]))
+        job = np.round(wav[:, 0].astype(np.float64) * 32768.0).astype(np.int64)
+        ws = RawWS(port, path=TTS_WS_PATH)
+        try:
+            sent = ws.send(0x1, json.dumps({"text": TTS_TEXT}).encode())
+            ws.wait_for(lambda ms: any(m["type"] in ("done", "error")
+                                       for _, m in ms), 300)
+        finally:
+            ws.close()
+        msgs = ws.messages
+        require(all(m["type"] != "error" for _, m in msgs),
+                f"WS error: {[m for _, m in msgs if m['type'] == 'error']}")
+        chunks = [(t, m) for t, m in msgs if m["type"] == "chunk"]
+        pcm = np.concatenate([np.frombuffer(base64.b64decode(
+            m["pcm16_base64"]), "<i2") for _, m in chunks]).astype(np.int64)
+        require(len(pcm) == len(job) and np.array_equal(pcm, job),
+                f"WS pcm16 ({len(pcm)} samples) differs from the job's WAV "
+                f"({len(job)})")
+        return dict(rest_ms=rest_ms, samples=len(job),
+                    ws_first_chunk_ms=(chunks[0][0] - sent) * 1e3,
+                    ws_done_ms=(msgs[-1][0] - sent) * 1e3,
+                    ws_chunks=len(chunks))
+
+    try:
+        out, k1, k2 = counted(torch, run)
+    finally:
+        server.stop()
+    require(k1 == 0 and k2 == 0, f"the TTS app launched K1 {k1}, K2 {k2}")
+    out.update(k1=k1, k2=k2)
+    print(f"tts service: REST job polled to completed in "
+          f"{out['rest_ms']:.1f} ms; WS first chunk after "
+          f"{out['ws_first_chunk_ms']:.1f} ms, done after "
+          f"{out['ws_done_ms']:.1f} ms, {out['ws_chunks']} chunks whose "
+          f"pcm16 equals the job's {out['samples']} samples on {card}",
+          flush=True)
+    return out
+
+
+def profile_tts(torch, synth, wall_ms: float):
+    """The card's busy time over one `synthesize` (torch.profiler) against
+    its unprofiled wall time, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        synth.synthesize(TTS_TEXT)
+        torch.cuda.synchronize()
+    rows = _device_events(prof)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    require(busy > 0, "profiler saw no device time in synthesize")
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    launches = sum(e.count for e in rows)
+    print(f"profile: tts synthesize, card busy {busy:.2f} ms of {wall_ms:.1f} "
+          f"ms wall (idle share {100 * (1 - busy / wall_ms):.1f}%), "
+          f"{launches} kernel launches; top kernels:")
+    top = []
+    for e in rows[:10]:
+        print(f"  {e.self_device_time_total / 1e3:8.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+        top.append([e.key[:90], e.self_device_time_total / 1e3, e.count])
+    return dict(busy_ms=busy, wall_ms=wall_ms, launches=launches, top=top)
+
+
+def tts_path(torch, card, profile: bool):
+    """Phase 7: the TTS service at full width on the card."""
+    from toolbox_for_asr_and_tts_tpu_torch.tts.synthesizer import Synthesizer
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    synth = tts_pin(Synthesizer.random(seed=0, tiny=False))  # the card
+    torch.cuda.synchronize()
+    a, v = synth.acfg, synth.vcfg
+    print(f"tts: Synthesizer.random(seed=0, tiny=False) on {synth.device} in "
+          f"{time.perf_counter() - t0:.1f} s (Sambert d {a.d_model}, "
+          f"{a.encoder_layers} + {a.decoder_layers} layers, {a.pnca_layers} "
+          f"PNCA layers, vocab {a.vocab_size}; HiFi-GAN "
+          f"{v.upsample_initial_channel} channels, upsample "
+          f"{v.upsample_rates}, hop {v.hop_length})", flush=True)
+    segments = tts_segments(synth)
+    require(len(segments) > synth.cfg.batch_size,
+            f"{len(segments)} segments: one batch only")
+    res, one_shot = tts_one_shot(torch, card, synth, segments)
+    out = dict(one_shot=one_shot,
+               stream=tts_stream(torch, synth),
+               pnca=tts_pnca(torch, card, synth, segments, profile),
+               card_vs_cpu=tts_card_vs_cpu(torch, synth, segments),
+               service=tts_service(torch, card, synth))
+    # K1 / K2 launches over the counted runs (one-shot and served); each
+    # run required 0: the TTS path reaches neither kernel
+    out["launches"] = {k: sum(r["programs"][k] for r in one_shot["runs"])
+                       + out["service"][k] for k in ("k1", "k2")}
+    if profile:
+        out["profile"] = profile_tts(torch, synth, one_shot["wall_ms"])
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"tts phase: {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -1689,6 +2144,7 @@ def main(argv) -> int:
         streaming["card_vs_cpu"] = compare_streaming(
             torch, reco.params, compare_ids, compare_audio)
         service = service_path(torch, card, reco, profile)
+        tts = tts_path(torch, card, profile)
     except Exception:   # every phase failure ends the run without a result
         traceback.print_exc()
         return 1
@@ -1717,6 +2173,7 @@ def main(argv) -> int:
              launches_per_kws_batch=service["launches"]["k1_per_kws_batch"],
              launches_per_embed=service["launches"]["k1_per_embed"],
              launches_service={r: c["k1"] for r, c in served.items()},
+             launches_tts=tts["launches"]["k1"],
              shapes=k1_rows + k1_stream + k1_service),
         dict(name="frame_window", route="cuda",
              source="toolbox_for_asr_and_tts_tpu_torch/csrc/frame_window.cu",
@@ -1731,11 +2188,13 @@ def main(argv) -> int:
              launches_per_kws_batch=service["launches"]["k2_per_kws_batch"],
              launches_per_embed=service["launches"]["k2_per_embed"],
              launches_service={r: c["k2"] for r, c in served.items()},
+             launches_tts=tts["launches"]["k2"],
              shapes=[k2_row] + k2_stream + k2_service),
     ]
     print(json.dumps({"rtf_batch8": rtf, "card": card}))
     print(json.dumps({"streaming": streaming, "card": card}))
     print(json.dumps({"service": service, "card": card}))
+    print(json.dumps({"tts": tts, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -393,3 +393,87 @@ def test_keyword_spotter_on_card_matches_cpu(cuda, no_tf32):
     _, n1, n2 = _counted(lambda: card.detect_audio_batch(
         wins + [wins[0][:16000]]))
     assert (n1, n2) == (8, 2)    # two length groups
+
+
+# ------------------------------------------------------------------ TTS
+def _tts_pair(cuda, mode):
+    """The tiny synthesizer on the CPU and the same weights on the card."""
+    import os
+    from toolbox_for_asr_and_tts_tpu_torch.tts.synthesizer import Synthesizer
+    saved = os.environ.get("TTS_DECODER")
+    os.environ["TTS_DECODER"] = mode
+    try:
+        cpu = Synthesizer.random(tiny=True, device="cpu")
+        card = Synthesizer(cpu.ap, cpu.acfg, cpu.vp, cpu.vcfg, device=cuda)
+    finally:
+        if saved is None:
+            os.environ.pop("TTS_DECODER")
+        else:
+            os.environ["TTS_DECODER"] = saved
+    return cpu, card
+
+
+@pytest.mark.parametrize("mode", ["nar", "pnca"])
+def test_synthesizer_on_card_matches_cpu(cuda, no_tf32, mode):
+    """Tiny Sambert + HiFi-GAN on the card: segments and per-segment
+    sample counts (the mel lengths) equal the CPU's, PCM within 1 LSB, and
+    no K1 or K2 launch (the TTS path reaches neither)."""
+    cpu, card = _tts_pair(cuda, mode)
+    text = "今天天气很好。病人血压一百二，心率正常,没有出血。请多休息，按时吃药。谢谢。"
+    got, n1, n2 = _counted(lambda: card.synthesize(text))
+    assert (n1, n2) == (0, 0)
+    want = cpu.synthesize(text)
+    assert got.segments == want.segments
+    assert got.seg_durations_s == want.seg_durations_s
+    pcm = lambda w: np.round(w.astype(np.float64) * 32767.0)  # noqa: E731
+    assert len(got.wav) == len(want.wav)
+    assert np.abs(pcm(got.wav) - pcm(want.wav)).max() <= 1
+    assert np.array_equal(card.synthesize(text).wav, got.wav)   # repeatable
+
+
+@pytest.mark.parametrize("stride,kernel", [(5, 11), (4, 8), (2, 4)])
+def test_conv_transpose1d_on_card_matches_cpu(cuda, no_tf32, stride, kernel):
+    from toolbox_for_asr_and_tts_tpu_torch.ops import nn
+    rng = np.random.default_rng(15)
+    p = {"w": _randn(rng, 64, 32, kernel, scale=0.1),
+         "b": _randn(rng, 32, scale=0.1)}
+    x = _randn(rng, 4, 50, 64)
+    pad = (kernel - stride) // 2
+    want = nn.conv_transpose1d(p, x, stride, pad)
+    card_p = {k: v.to(cuda) for k, v in p.items()}
+    got = nn.conv_transpose1d(card_p, x.to(cuda), stride, pad).cpu()
+    assert got.shape == (4, 50 * stride, 32)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    # deterministic: forward convolutions only (cuDNN's ConvTranspose is not)
+    again = nn.conv_transpose1d(card_p, x.to(cuda), stride, pad).cpu()
+    assert torch.equal(got, again)
+
+
+def test_mha_on_card_matches_cpu(cuda, no_tf32):
+    from toolbox_for_asr_and_tts_tpu_torch.ops import nn
+    p = nn.mha_init(torch.Generator().manual_seed(16), 256, 4)
+    rng = np.random.default_rng(16)
+    x = _randn(rng, 3, 40, 256)
+    mask = (torch.arange(40)[None] < torch.tensor([[40], [17], [1]])).float()
+    want = nn.mha(p, x, 4, mask)
+    got = nn.mha({k: {n: t.to(cuda) for n, t in v.items()}
+                  for k, v in p.items()}, x.to(cuda), 4, mask.to(cuda)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_tts_entry_points_default_to_the_card(cuda):
+    """With no device, `Synthesizer` and `create_app`'s lazily built
+    synthesizer land on the card."""
+    from toolbox_for_asr_and_tts_tpu_torch.service.tts_app import create_app
+    from toolbox_for_asr_and_tts_tpu_torch.tts.synthesizer import Synthesizer
+    synth = Synthesizer.random(tiny=True)
+    assert synth.device.type == "cuda"
+    assert synth.ap["encoder"][0]["attn"]["q"]["w"].is_cuda
+    assert synth.vp["ups"][0]["w"].is_cuda
+    app = create_app()
+    try:
+        served = app.manager().synth
+        assert served.device.type == "cuda"
+        assert served.vcfg.upsample_initial_channel == 512   # full width
+    finally:
+        app.close_engines()

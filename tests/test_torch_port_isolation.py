@@ -69,7 +69,10 @@ def test_importing_every_module_loads_no_jax():
                  "asr.session", "asr.corrections", "asr.hotwords",
                  "llm.correction", "runtime.config", "runtime.prom",
                  "runtime.registry", "service.hub", "service.http",
-                 "service.schemas", "service.voice_app", "service.engines"):
+                 "service.schemas", "service.voice_app", "service.engines",
+                 "models.sambert", "models.hifigan", "tts.synthesizer",
+                 "tts.jobs", "tts.concat", "tts.text_frontend", "tts.prosody",
+                 "tts.break_stats", "service.tts_app"):
         assert f"toolbox_for_asr_and_tts_tpu_torch.{name}" in loaded, name
 
 
@@ -232,3 +235,44 @@ def test_service_entry_points_run_on_explicit_cpu():
     assert not [t.name for t in threading.enumerate()
                 if t.name.startswith(("chunked-hub", "kws-hub",
                                       "finalize-hub", "vad-hub"))]
+
+
+def _tts_entry_points(device):
+    """The TTS slice's entry points, built with `device`."""
+    from toolbox_for_asr_and_tts_tpu_torch.service.tts_app import create_app
+    from toolbox_for_asr_and_tts_tpu_torch.tts.synthesizer import Synthesizer
+    kw = {} if device is None else {"device": device}
+    cpu = Synthesizer.random(tiny=True, device="cpu")
+
+    def served():
+        app = create_app()
+        try:
+            return app.manager().synth
+        finally:
+            app.close_engines()
+    return {
+        "Synthesizer.random": lambda: Synthesizer.random(tiny=True, **kw),
+        "Synthesizer": lambda: Synthesizer(cpu.ap, cpu.acfg, cpu.vp,
+                                           cpu.vcfg, **kw),
+        **({"create_app": served} if device is None else {}),
+    }
+
+
+def test_tts_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, make in _tts_entry_points(None).items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    for name, make in _tts_entry_points("cuda").items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+def test_tts_entry_points_run_on_explicit_cpu():
+    cpu = torch.device("cpu")
+    for name, make in _tts_entry_points("cpu").items():
+        synth = make()
+        assert synth.device == cpu, name
+        leaves = []
+        tree_map(leaves.append, (synth.ap, synth.vp))
+        assert leaves and all(a.device == cpu for a in leaves), name

@@ -26,6 +26,7 @@ from toolbox_for_asr_and_tts_tpu_torch.asr.corrections import (  # noqa: E402
     apply_hard_corrections)
 from toolbox_for_asr_and_tts_tpu_torch.models.convert import params_from_numpy  # noqa: E402
 from toolbox_for_asr_and_tts_tpu_torch.runtime import config as C  # noqa: E402
+from toolbox_for_asr_and_tts_tpu_torch.runtime.registry import CheckpointsNotPorted  # noqa: E402
 from toolbox_for_asr_and_tts_tpu_torch.service import engines as E  # noqa: E402
 from toolbox_for_asr_and_tts_tpu_torch.service import hub as H  # noqa: E402
 from toolbox_for_asr_and_tts_tpu_torch.service import schemas  # noqa: E402
@@ -642,6 +643,6 @@ def test_build_engines_refuses_a_mounted_checkpoint(tmp_path):
     built: random weights never stand in for a mounted model."""
     before = _hub_threads()
     (tmp_path / "speech_campplus_sv_zh-cn_16k-common").mkdir()
-    with pytest.raises(E.CheckpointsNotPorted, match="checkpoints.py"):
+    with pytest.raises(CheckpointsNotPorted, match="checkpoints.py"):
         E.build_engines(str(tmp_path), device="cpu")
     assert _hub_threads() == before

@@ -120,6 +120,35 @@ def conv1d(p: Params, x: torch.Tensor, stride: int = 1,
     return y
 
 
+def conv_transpose1d(p: Params, x: torch.Tensor, stride: int,
+                     padding: int = 0) -> torch.Tensor:
+    """Torch-semantics ConvTranspose1d. x: [B, T, C_in] → [B, T', C_out]
+    float32 with T' = (T-1)·stride - 2·padding + K; weight (C_in, C_out, K).
+
+    Computed as one forward convolution over the stride's phases: before
+    the crop, output sample q·stride + φ is Σ_j x[q - j]·w[:, :, φ + j·stride],
+    so the phases are the output channels of a conv1d with J = ⌈K / stride⌉
+    taps (zero taps past K), interleaved afterwards. cuDNN's forward
+    convolutions are deterministic; `F.conv_transpose1d` (a backward-data
+    algorithm) is not by default, and two syntheses of one text differed in
+    the last bit of their PCM."""
+    w = p["w"].float()
+    c_in, c_out, k = w.shape
+    j = -(-k // stride)
+    # wp[φ·C_out + o, c, J-1-i] = w[c, o, φ + i·stride]
+    wp = (F.pad(w, (0, j * stride - k)).view(c_in, c_out, j, stride)
+          .permute(3, 1, 0, 2).flip(-1).reshape(stride * c_out, c_in, j))
+    z = F.conv1d(F.pad(x.float().transpose(1, 2), (j - 1, j - 1)), wp)
+    b, _, q = z.shape
+    t_out = (x.shape[1] - 1) * stride - 2 * padding + k
+    y = (z.view(b, stride, c_out, q).permute(0, 2, 3, 1)
+         .reshape(b, c_out, q * stride)[:, :, padding:padding + t_out])
+    y = y.transpose(1, 2)
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
 # -------------------------------------------------- sinusoidal position enc
 def sinusoidal_posenc(t: int, d: int, offset: int = 1,
                       device: Optional[torch.device] = None) -> torch.Tensor:
@@ -244,6 +273,27 @@ def cross_attention(p: Params, x: torch.Tensor, memory: torch.Tensor,
     m = None if memory_mask is None else memory_mask[:, None, :]
     out = attend(_split_heads(q, n_heads), _split_heads(k, n_heads),
                  _split_heads(v, n_heads), m)
+    return linear(p["out"], _merge_heads(out))
+
+
+def mha_init(g: torch.Generator, d: int, n_heads: int) -> Params:
+    """Standard transformer self-attention (q/k/v/out)."""
+    del n_heads
+    return {
+        "q": linear_init(g, d, d),
+        "k": linear_init(g, d, d),
+        "v": linear_init(g, d, d),
+        "out": linear_init(g, d, d),
+    }
+
+
+def mha(p: Params, x: torch.Tensor, n_heads: int,
+        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Self-attention. mask: [B, Tk] key validity or [B, Tq, Tk], applied
+    additively through `attend`."""
+    q, k, v = linear(p["q"], x), linear(p["k"], x), linear(p["v"], x)
+    out = attend(_split_heads(q, n_heads), _split_heads(k, n_heads),
+                 _split_heads(v, n_heads), mask)
     return linear(p["out"], _merge_heads(out))
 
 

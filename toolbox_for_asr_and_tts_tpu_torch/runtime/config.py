@@ -1,7 +1,9 @@
-"""Env-var driven configuration of the voice service, without pydantic.
+"""Env-var driven configuration of the voice and TTS services, without
+pydantic.
 
 Port of `toolbox_for_asr_and_tts_tpu/runtime/config.py` (`ServerConfig`,
-`SSLConfig`, `SecurityConfig`, `VoiceConfig`, `load_voice_config`). The
+`SSLConfig`, `SecurityConfig`, `VoiceConfig`, `TTSConfig`,
+`load_voice_config`, `load_tts_config`). The
 reference builds these on pydantic v2 models; the port's machines have no
 pydantic, so they are dataclasses that validate their fields as pydantic's
 lax mode does: the same field names and defaults, the same env reading, and
@@ -276,4 +278,55 @@ def load_voice_config() -> VoiceConfig:
         require_wake=_env_bool("VOICE_REQUIRE_WAKE", False),
         model_dir=os.getenv("VOICE_MODEL_DIR", "/workspace/models/damo"),
         generated_dir=os.getenv("GENERATED_DIR", "generated"),
+    )
+
+
+@dataclasses.dataclass
+class TTSConfig(Model):
+    """TTS-service configuration (reference tts_service.py:51-76 env knobs).
+
+    The reference's `beam_size`, `parallel_segments`,
+    `max_parallel_segments`, `use_batch` and `default_voice` (TTS_BEAM_SIZE,
+    TTS_PARALLEL_SEGMENTS, TTS_MAX_PARALLEL_SEGMENTS, TTS_USE_BATCH,
+    TTS_DEFAULT_VOICE) are left out: no module of either package reads
+    them, so setting them would change nothing."""
+
+    server: ServerConfig = dataclasses.field(
+        default_factory=lambda: ServerConfig(port=7001))
+    ssl: SSLConfig = dataclasses.field(default_factory=SSLConfig)
+
+    seg_target: int = 18
+    seg_first: int = 14
+    seg_hard_max: int = 22
+    crossfade_ms: int = 60
+    pause_soft_ms: int = 120
+    pause_hard_ms: int = 200
+    sampling_rate: int = 16000
+    batch_size: int = 8
+    max_concurrent_jobs: int = 2
+
+    model_dir: str = "/workspace/models/damo"
+
+
+def load_tts_config() -> TTSConfig:
+    return TTSConfig(
+        server=ServerConfig(
+            host=os.getenv("TTS_HOST", "0.0.0.0"),
+            port=_env_int("TTS_PORT", 7001),
+        ),
+        ssl=SSLConfig(
+            enabled=_env_bool("SSL_ENABLED", False),
+            certfile=os.getenv("SSL_CERTFILE"),
+            keyfile=os.getenv("SSL_KEYFILE"),
+        ),
+        seg_target=_env_int("TTS_SEG_TARGET", 18),
+        seg_first=_env_int("TTS_SEG_FIRST", 14),
+        seg_hard_max=_env_int("TTS_SEG_HARD_MAX", 22),
+        crossfade_ms=_env_int("TTS_CROSSFADE_MS", 60),
+        pause_soft_ms=_env_int("TTS_PAUSE_SOFT_MS", 120),
+        pause_hard_ms=_env_int("TTS_PAUSE_HARD_MS", 200),
+        sampling_rate=_env_int("TTS_SAMPLING_RATE", 16000),
+        batch_size=_env_int("TTS_BATCH_SIZE", 8),
+        max_concurrent_jobs=_env_int("TTS_MAX_JOBS", 2),
+        model_dir=os.getenv("TTS_MODEL_DIR", "/workspace/models/damo"),
     )

@@ -22,14 +22,11 @@ import os
 from typing import Optional
 
 from ..device import DeviceLike, resolve_device
+from ..runtime.registry import refuse_checkpoint
 
 logger = logging.getLogger("toolbox.engines")
 
 DEFAULT_CAPACITY = 64
-
-
-class CheckpointsNotPorted(RuntimeError):
-    """A checkpoint directory resolved, but the port cannot load it."""
 
 
 def _batch_serving() -> bool:
@@ -43,23 +40,6 @@ def _batch_capacity(default: Optional[int] = None) -> int:
     if env is not None:
         return int(env)
     return default if default is not None else DEFAULT_CAPACITY
-
-
-def _refuse_checkpoint(key: str, model_dir: Optional[str], what: str) -> None:
-    """Raise where a checkpoint directory resolves: serving random weights in
-    place of a mounted model is never the answer."""
-    from ..runtime.registry import resolve
-    d = resolve(key, model_dir)
-    if d is not None:
-        raise CheckpointsNotPorted(
-            f"{what}: checkpoint directory {d} (registry key {key!r}) found, "
-            "but the port cannot load checkpoints yet — its "
-            "runtime/checkpoints.py is not ported; unmount the directory to "
-            "serve random weights")
-    logger.warning(
-        "NO %s checkpoint dir (registry key %r) — serving RANDOMLY "
-        "INITIALIZED weights: outputs are arbitrary until a real model is "
-        "mounted", what, key)
 
 
 def build_test_engines(device: DeviceLike = None):
@@ -102,7 +82,7 @@ def _vad_factory(model_dir: Optional[str] = None,
     from ..models import fsmn_vad
     import torch
     dev = resolve_device(device)
-    _refuse_checkpoint("fsmn_vad", model_dir, "FSMN-VAD")
+    refuse_checkpoint("fsmn_vad", model_dir, "FSMN-VAD")
     cfg = fsmn_vad.FsmnVadConfig()
     params = fsmn_vad.init_params(cfg, torch.Generator().manual_seed(7))
     cmvn = None
@@ -151,8 +131,8 @@ def _streaming_factory(reco, model_dir=None, capacity=None,
     if os.getenv("VOICE_ENABLE_PARTIALS", "1") not in ("1", "true"):
         return None
     dev = resolve_device(device if device is not None else reco.device)
-    _refuse_checkpoint("paraformer_streaming", model_dir,
-                       "online ASR (paraformer-zh-streaming)")
+    refuse_checkpoint("paraformer_streaming", model_dir,
+                      "online ASR (paraformer-zh-streaming)")
     cmvn = None
     if reco.cmvn is not None:
         cmvn = tuple(c.cpu().numpy() for c in reco.cmvn)
@@ -219,7 +199,7 @@ def build_engines(model_dir: Optional[str] = None,
                       ("sv", "speaker verification (CAM++)"),
                       ("punc", "punctuation (CT-Transformer)"),
                       ("kws", "keyword spotting (charctc)")):
-        _refuse_checkpoint(key, model_dir, what)
+        refuse_checkpoint(key, model_dir, what)
     from ..models.campplus import CampPlusConfig
     from ..models.ct_transformer import CTTransformerConfig
     from ..models.kws_ctc import KwsConfig

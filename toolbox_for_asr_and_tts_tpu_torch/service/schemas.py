@@ -1,10 +1,11 @@
-"""Wire-format schemas of the voice service, without pydantic.
+"""Wire-format schemas of the voice and TTS services, without pydantic.
 
-Port of the voice half of `toolbox_for_asr_and_tts_tpu/service/schemas.py`
-(`ASRRequest`, `ASRResponse`) as validating dataclasses
-(`runtime/config.py::Model`): the same field names and defaults, and
-`ASRRequest.model_validate` refuses a missing or mistyped `audio_data` as
-the pydantic model does, with `ValidationError`.
+Port of `toolbox_for_asr_and_tts_tpu/service/schemas.py` (`ASRRequest`,
+`ASRResponse`, `TTSRequest`, `CancelRequest`, `TTSResponse`) as validating
+dataclasses (`runtime/config.py::Model`): the same field names and
+defaults, and `model_validate` refuses a missing or mistyped field (such as
+`audio_data`, `text` or `job_id`) as the pydantic model does, with
+`ValidationError`.
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ from typing import Optional
 
 from ..runtime.config import Model, ValidationError
 
-__all__ = ["ASRRequest", "ASRResponse", "ValidationError"]
+__all__ = ["ASRRequest", "ASRResponse", "CancelRequest", "TTSRequest",
+           "TTSResponse", "ValidationError"]
 
 
 @dataclasses.dataclass
@@ -32,3 +34,21 @@ class ASRResponse(Model):
     success: bool = True
     message: str = ""
     sample_id: Optional[str] = None
+
+
+@dataclasses.dataclass
+class TTSRequest(Model):
+    text: str
+    voice: str = "zhitian_emo"
+
+
+@dataclasses.dataclass
+class CancelRequest(Model):
+    job_id: str
+
+
+@dataclasses.dataclass
+class TTSResponse(Model):
+    job_id: str
+    status: str = "pending"
+    message: str = ""

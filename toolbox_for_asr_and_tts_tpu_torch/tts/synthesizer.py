@@ -1,0 +1,331 @@
+"""TTS synthesis pipeline: text → segments → phonemes → mel → waveform.
+
+Port of `toolbox_for_asr_and_tts_tpu/tts/synthesizer.py` on the card:
+
+- one device call per (batch, phone bucket, mel length): Sambert (NAR
+  `forward` or PNCA `forward_ar`) → HiFi-GAN → int16 PCM on the card, with
+  the mel lengths packed into the same int16 tensor, so one fetch brings a
+  group's audio and lengths back;
+- a job's segments are synthesized as padded batches of up to
+  `TTSConfig.batch_size` rows;
+- two-phase synthesis, always: a duration probe first, then mel lengths
+  rounded up to `MEL_BUCKET` frames, so the decoder and vocoder do not run
+  the L·frames_per_phone worst case;
+- crossfade and pause concatenation stay on the host (`tts/concat.py`).
+
+Knobs read from the environment at construction: TTS_DECODER (`nar`, the
+default, or `pnca`) and the two groupings TTS_GROUP_BY_LENGTH (one call per
+phone bucket) and TTS_MEL_GROUP (one call per mel bucket). The reference resolves the groupings with its dispatch
+profile (`runtime/autotune.py::env_or_profile`), which turns them on only
+on a directly attached TPU; the port has no such profile and reads the
+environment alone, default off, which is what the reference's profile gives
+on every other platform.
+
+Left out against the reference: `from_model_dir` and `scan_tts_package`
+(they wait for the port's `runtime/checkpoints.py`), the mesh path
+(`use_mesh`), `param_dtype`, and the single-phase path (TTS_TWO_PHASE=0,
+which decodes and vocodes every row at the worst-case length). `_fn` and `_dur_fn` run their program directly: eager PyTorch
+builds nothing per shape, so there is no per-shape cache to keep.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..models import hifigan, sambert
+from ..models.convert import tree_to
+from ..runtime.bucketing import Bucketer
+from ..runtime.config import TTSConfig
+from ..runtime.metrics import RTFMeter, Tally, timing_log
+from .concat import StreamingConcat, concat_segments
+from .text_frontend import (G2P, LingVocab, pause_after, split_text_for_tts,
+                            text_to_ling_ids)
+
+PHONE_BUCKETS = (16, 32, 48, 64, 96, 128)
+
+VOICES = ("zhitian_emo", "zhizhe_emo", "zhiyan_emo", "zhibei_emo")
+
+
+def _env_flag(name: str, default: str) -> bool:
+    return os.getenv(name, default) in ("1", "true")
+
+
+@dataclasses.dataclass
+class SynthesisResult:
+    wav: np.ndarray
+    sample_rate: int
+    segments: List[str]
+    seg_times_ms: List[float]
+    seg_durations_s: List[float]
+    rtf: float
+
+
+class Synthesizer:
+    MEL_BUCKET = 64  # t_mel granularity of the two-phase path
+
+    def __init__(self, acoustic_params, acoustic_cfg: sambert.SambertConfig,
+                 vocoder_params, vocoder_cfg: hifigan.HifiGanConfig,
+                 g2p: Optional[G2P] = None,
+                 vocab: Optional[LingVocab] = None,
+                 tts_cfg: Optional[TTSConfig] = None,
+                 voices: Sequence[str] = VOICES,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.ap = tree_to(acoustic_params, self.device)
+        self.vp = tree_to(vocoder_params, self.device)
+        self.acfg, self.vcfg = acoustic_cfg, vocoder_cfg
+        self.g2p = g2p or G2P()
+        self.vocab = vocab or LingVocab.default()
+        self.cfg = tts_cfg or TTSConfig()
+        self.voice_to_id = {v: i % acoustic_cfg.n_speakers
+                            for i, v in enumerate(voices)}
+        self.group_by_length = _env_flag("TTS_GROUP_BY_LENGTH", "0")
+        # "nar" (fast mode, default) or "pnca" (KAN-TTS AR decoder — the
+        # weight-compatible path for real zhitian_emo checkpoints)
+        self.decoder_mode = os.getenv("TTS_DECODER", "nar")
+        self.mel_group = _env_flag("TTS_MEL_GROUP", "0")
+        self.bucketer = Bucketer(PHONE_BUCKETS)
+        self.rtf = RTFMeter()
+        self.sample_rate = self.cfg.sampling_rate
+        # telemetry: the device programs run (duration probes, synth
+        # groups), the PNCA decoder's steps and the mel frames (padding
+        # included) that the decoder and vocoder computed
+        self.probes = Tally()
+        self.synths = Tally()
+        self.ar_steps = Tally()
+        self.mel_frames = Tally()
+
+    @classmethod
+    def random(cls, seed: int = 0, tiny: bool = True,
+               device: DeviceLike = None, **kw) -> "Synthesizer":
+        """Random weights drawn on `device` from `seed`: the reference's
+        test geometry (`tiny`) or the full width its TTS app serves without
+        a checkpoint (Sambert d 256, 4 + 4 layers, 6 PNCA layers; HiFi-GAN
+        512 channels, upsample (5, 5, 4, 2)). A card draw and a CPU draw of
+        one seed differ; copy `ap` / `vp` to compare devices."""
+        dev = resolve_device(device)
+        vocab = LingVocab.default()
+        if tiny:
+            acfg = sambert.SambertConfig(
+                vocab_size=len(vocab), d_model=32, n_heads=2, ffn_dim=64,
+                encoder_layers=1, decoder_layers=1, var_channels=32,
+                postnet_channels=32, frames_per_phone=8)
+            vcfg = hifigan.HifiGanConfig(
+                upsample_initial_channel=32, upsample_rates=(5, 5, 4, 2),
+                upsample_kernels=(11, 11, 8, 4), resblock_kernels=(3,),
+                resblock_dilations=((1, 3),))
+        else:
+            acfg = sambert.SambertConfig(vocab_size=len(vocab))
+            vcfg = hifigan.HifiGanConfig()
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return cls(sambert.init_params(g, acfg), acfg,
+                   hifigan.init_params(g, vcfg), vcfg, vocab=vocab,
+                   device=dev, **kw)
+
+    # ------------------------------------------------------ device programs
+    @torch.inference_mode()
+    def _fn(self, ids: torch.Tensor, lens: torch.Tensor, spk: torch.Tensor,
+            t_mel: int) -> torch.Tensor:
+        """Acoustic model → vocoder → int16 PCM for a [b, l] phone batch:
+        returns one int16 tensor [b, t_mel·hop + 1] whose last column holds
+        the mel lengths (≤ t_mel < 2^15), so one fetch brings both back."""
+        acfg = self.acfg
+        if t_mel + acfg.outputs_per_step >= 1 << 15:
+            raise ValueError(f"t_mel {t_mel} does not fit the int16 fetch")
+        pnca = self.decoder_mode == "pnca"
+        self.ar_steps.add(-(-t_mel // acfg.outputs_per_step) if pnca else 0)
+        self.mel_frames.add(ids.shape[0] * t_mel)
+        acoustic = sambert.forward_ar if pnca else sambert.forward
+        out = acoustic(self.ap, ids, lens, spk, acfg, t_mel=t_mel)
+        wav = hifigan.forward(self.vp, out["mel"], self.vcfg)
+        # int16 on the card: the final PCM format, and half the bytes of
+        # the f32 waveform to fetch
+        pcm = torch.clamp(torch.round(wav * 32767.0), -32768, 32767)
+        return torch.cat([pcm.to(torch.int16),
+                          out["mel_lens"][:, None].to(torch.int16)], 1)
+
+    @torch.inference_mode()
+    def _dur_fn(self, ids: torch.Tensor, lens: torch.Tensor,
+                spk: torch.Tensor) -> torch.Tensor:
+        """The duration probe of a [b, l] batch → mel frame counts [b]."""
+        return sambert.predict_mel_lens(self.ap, ids, lens, spk, self.acfg)
+
+    def _to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                for a in arrays]
+
+    # ------------------------------------------------------------ public
+    def synthesize_segments(self, segments: Sequence[str], voice: str
+                            ) -> Tuple[List[np.ndarray], List[float]]:
+        """Batch-synthesize text segments → per-segment waveforms, in the
+        order given. With TTS_GROUP_BY_LENGTH, one call per phone bucket;
+        else one call for the whole batch at the longest row's bucket."""
+        spk_id = self.voice_to_id.get(voice, 0)
+        ids_list = [text_to_ling_ids(s, self.g2p, self.vocab)
+                    for s in segments]
+        groups: Dict[int, List[int]] = {}
+        if self.group_by_length:
+            for idx, seq in enumerate(ids_list):
+                groups.setdefault(self.bucketer.bucket(max(len(seq), 1)),
+                                  []).append(idx)
+        else:
+            l_all = self.bucketer.bucket(
+                max(max((len(s) for s in ids_list), default=1), 1))
+            groups[l_all] = list(range(len(ids_list)))
+        hop = self.vcfg.hop_length
+        wavs: List[Optional[np.ndarray]] = [None] * len(segments)
+        durs: List[float] = [0.0] * len(segments)
+        t0 = time.perf_counter()
+        for l, idxs in sorted(groups.items()):
+            # exact batch rows (b ≤ batch_size): padded rows would
+            # synthesize full-length garbage mels
+            b = len(idxs)
+            ids = np.zeros((b, l, 4), np.int32)
+            lens = np.ones((b,), np.int32)
+            for row, idx in enumerate(idxs):
+                seq = ids_list[idx]
+                n = min(len(seq), l)
+                if n:
+                    ids[row, :n] = np.asarray(seq[:n], np.int32)
+                lens[row] = max(n, 1)
+            spk = np.full((b,), spk_id, np.int32)
+            # two-phase: the duration probe picks tight mel buckets; rows
+            # regroup by predicted mel bucket under TTS_MEL_GROUP
+            t_cap = l * self.acfg.frames_per_phone
+            mb = self.MEL_BUCKET
+            self.probes.add()
+            probe = self._dur_fn(*self._to_device(ids, lens, spk)).cpu().numpy()
+            t_rows = np.minimum(-(-probe // mb) * mb, t_cap)
+            t_rows = np.maximum(t_rows, mb).astype(int)
+            mel_groups: Dict[int, List[int]] = {}
+            if self.mel_group:
+                for row in range(b):
+                    mel_groups.setdefault(int(t_rows[row]), []).append(row)
+            else:
+                mel_groups[int(t_rows.max())] = list(range(b))
+            for t_mel, rows in sorted(mel_groups.items()):
+                self.synths.add()
+                packed = self._fn(
+                    *self._to_device(ids[rows], lens[rows], spk[rows]), t_mel)
+                packed = packed.cpu().numpy()
+                pcm, mel_lens = packed[:, :-1], packed[:, -1]
+                for g_row, row in enumerate(rows):
+                    idx = idxs[row]
+                    n = int(mel_lens[g_row]) * hop
+                    wavs[idx] = pcm[g_row, :n].astype(np.float32) / 32767.0
+                    durs[idx] = n / self.sample_rate
+        timing_log("tts_batch_synthesis", (time.perf_counter() - t0) * 1000)
+        return wavs, durs
+
+    def synthesize(self, text: str, voice: str = "zhitian_emo",
+                   cancelled=lambda: False) -> Optional[SynthesisResult]:
+        """Full job: split → batch synth → pause/crossfade concat.
+
+        `cancelled` is polled between stages (cooperative cancel); a
+        cancelled job returns None."""
+        segments = split_text_for_tts(text, self.cfg.seg_target,
+                                      self.cfg.seg_first, self.cfg.seg_hard_max)
+        if not segments:
+            return SynthesisResult(np.zeros(0, np.float32), self.sample_rate,
+                                   [], [], [], 0.0)
+        if cancelled():
+            return None
+        t0 = time.perf_counter()
+        seg_wavs: List[np.ndarray] = []
+        seg_durs: List[float] = []
+        seg_times: List[float] = []
+        bs = max(1, self.cfg.batch_size)
+        for i in range(0, len(segments), bs):
+            if cancelled():
+                return None
+            ts = time.perf_counter()
+            wavs, durs = self.synthesize_segments(segments[i:i + bs], voice)
+            dt = (time.perf_counter() - ts) * 1000 / max(len(wavs), 1)
+            seg_wavs += wavs
+            seg_durs += durs
+            seg_times += [dt] * len(wavs)
+        pauses = [pause_after(s, self.cfg.pause_soft_ms, self.cfg.pause_hard_ms)
+                  for s in segments[:-1]]
+        wav = concat_segments(seg_wavs, pauses, self.sample_rate,
+                              self.cfg.crossfade_ms)
+        proc_s = time.perf_counter() - t0
+        audio_s = len(wav) / self.sample_rate
+        rtf = self.rtf.record(proc_s, max(audio_s, 1e-6), label="tts_job")
+        return SynthesisResult(wav, self.sample_rate, segments,
+                               seg_times, seg_durs, rtf)
+
+    def synthesize_stream(self, text: str, voice: str = "zhitian_emo",
+                          cancelled=lambda: False):
+        """Streaming job: yield audio chunks as segments finish.
+
+        The first segment is synthesized alone (the cheapest first call),
+        the rest in batches of `batch_size`, through an incremental
+        crossfade/pause concatenator (`StreamingConcat`) that emits every
+        sample once the next boundary can no longer change it. All chunks
+        concatenated equal `synthesize()` exactly under per-segment
+        grouping (TTS_GROUP_BY_LENGTH=1 and TTS_MEL_GROUP=1); under
+        whole-batch grouping the first segment runs at its own padded
+        shape, which may change float low bits.
+
+        Yields dicts:
+          {"event": "chunk", "audio": float32[n], "segment_index": i,
+           "n_segments": N, "text": <segment>}        — per finished segment
+          {"event": "done", "audio": <held tail>, "rtf": …,
+           "duration_s": …, "segments": […], "seg_times_ms": […],
+           "seg_durations_s": […]}                    — exactly once, last
+        Returns early (no "done" event) when `cancelled()` turns true.
+        """
+        segments = split_text_for_tts(text, self.cfg.seg_target,
+                                      self.cfg.seg_first,
+                                      self.cfg.seg_hard_max)
+        if not segments:
+            yield {"event": "done", "audio": np.zeros(0, np.float32),
+                   "rtf": 0.0, "duration_s": 0.0, "segments": [],
+                   "seg_times_ms": [], "seg_durations_s": []}
+            return
+        pauses = [pause_after(s, self.cfg.pause_soft_ms,
+                              self.cfg.pause_hard_ms)
+                  for s in segments[:-1]]
+        stream = StreamingConcat(self.sample_rate, self.cfg.crossfade_ms)
+        t0 = time.perf_counter()
+        emitted = 0
+        seg_times: List[float] = []
+        seg_durs: List[float] = []
+        bs = max(1, self.cfg.batch_size)
+        batches = [[segments[0]]]
+        batches += [segments[i:i + bs] for i in range(1, len(segments), bs)]
+        done = 0
+        for batch in batches:
+            if cancelled():
+                return
+            ts = time.perf_counter()
+            wavs, durs = self.synthesize_segments(batch, voice)
+            dt = (time.perf_counter() - ts) * 1000 / max(len(wavs), 1)
+            seg_times += [dt] * len(wavs)
+            seg_durs += durs
+            for seg_text, w in zip(batch, wavs):
+                fed = stream.segments_fed
+                chunk = stream.feed(
+                    w, pauses[fed - 1] if fed >= 1 and fed - 1 < len(pauses)
+                    else 0)
+                idx = done
+                done += 1
+                if len(chunk):
+                    emitted += len(chunk)
+                    yield {"event": "chunk", "audio": chunk,
+                           "segment_index": idx, "n_segments": len(segments),
+                           "text": seg_text}
+        tail = stream.flush()
+        emitted += len(tail)
+        proc_s = time.perf_counter() - t0
+        audio_s = emitted / self.sample_rate
+        rtf = self.rtf.record(proc_s, max(audio_s, 1e-6), label="tts_job")
+        yield {"event": "done", "audio": tail, "rtf": rtf,
+               "duration_s": audio_s, "segments": segments,
+               "seg_times_ms": seg_times, "seg_durations_s": seg_durs}
