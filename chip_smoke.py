@@ -6,7 +6,8 @@
                                       # transcribe by CUDA kernel, the
                                       # card's busy time per streaming step,
                                       # over an S = 16 service run and over
-                                      # one TTS synthesize
+                                      # one TTS synthesize, and the stages
+                                      # of a Paraformer-large load
     python3 chip_smoke.py --sweep     # also: K1's device time per tile
 
 Phases (any failure exits non-zero and prints no result line):
@@ -83,9 +84,28 @@ Phases (any failure exits non-zero and prints no result line):
    /api/v1/tts/ws`, whose pcm16 must equal the job's WAV samples);
    `--profile` adds the card's busy time over one `synthesize` and the
    PNCA step's launches. No TPU kernel lies on this path;
-7. the `streaming`, `service`, `tts` and `kernels` JSON lines, then the
-   result line {"ok": true, "device": {"platform": "gpu", "kind": ...,
-   "count": ...}}.
+7. mounted checkpoints at full width (phase 8): the trees of phases 3, 6
+   and 7 written under a temporary root as one directory per family in
+   FunASR / KAN-TTS naming (`invert_to_state_dict`, `torch.save`, with
+   config.json, token lists and am.mvn; Sambert's postnet as BatchNorm,
+   HiFi-GAN as weight-norm pairs; the online Paraformer a symlink to the
+   offline one), then each family's `from_model_dir` on the card cold
+   (converting) and warm (from the port's cache), every tree bit-equal to
+   the one in memory; the loaded Paraformer-large transcribes phase 3's
+   batch with the token ids of an in-memory recognizer with the same
+   am.mvn (K1 66 and K2 1 per transcribe, 82 / 1 with hotwords, counters
+   zeroed just before and read just after); `build_engines(model_dir=
+   root)` behind `create_app` answers a REST request with the text and
+   speakers of an in-memory `Diarizer.diarize`; the loaded CAM++,
+   CT-Transformer and KWS give identical embeddings, punctuation ids and
+   scores; the loaded KAN-TTS package in PNCA mode gives phase 7's first
+   segment sample for sample as an in-memory synthesizer holding the
+   weights the package defines; the TTS app from the mount completes a
+   job; cold and warm load times, bytes written and start-up times;
+   `--profile` adds the stages of one Paraformer-large load;
+8. the `streaming`, `service`, `tts`, `checkpoints` and `kernels` JSON
+   lines, then the result line {"ok": true, "device": {"platform": "gpu",
+   "kind": ..., "count": ...}}.
 
 Needs one card, no network, and only the files of this repository.
 """
@@ -1652,7 +1672,7 @@ def service_path(torch, card, reco, profile: bool):
         server.stop()
     out["launches"] = service_launches(torch, sv, punc, kws)
     out["card_vs_cpu"] = service_card_vs_cpu(torch, sv, punc, kws)
-    return out
+    return out, models
 
 
 # ------------------------------------------------------ phase 7: TTS
@@ -2086,6 +2106,530 @@ def tts_path(torch, card, profile: bool):
         out["profile"] = profile_tts(torch, synth, one_shot["wall_ms"])
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"tts phase: {out['phase_s']:.1f} s", flush=True)
+    return out, synth
+
+
+# ------------------------------------------ phase 8: mounted checkpoints
+# Kaldi `am.mvn` of the mounted Paraformer: seeded vectors, fixed here so
+# the loaded and the in-memory recognizer normalize alike
+MVN_SEED = 8
+MOUNT_VOICE = "zhitian_emo"
+BN_EPS = 1e-5
+
+
+def save_state_dict(torch, sd, path: str) -> int:
+    """torch.save a numpy state dict (FunASR / KAN-TTS naming); its bytes."""
+    import numpy as np
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in sd.items()}, path)
+    return os.path.getsize(path)
+
+
+def write_json(path: str, obj) -> int:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(obj, f)
+    return os.path.getsize(path)
+
+
+def seeded_cmvn(dim: int):
+    import numpy as np
+    rng = np.random.default_rng(MVN_SEED)
+    return (-rng.uniform(4.0, 12.0, dim).astype(np.float32),
+            rng.uniform(0.15, 0.45, dim).astype(np.float32))
+
+
+def write_mvn(path: str, cmvn) -> int:
+    """Kaldi-nnet text form, values printed with 9 significant digits so
+    the float32 vectors read back exactly."""
+    dim = len(cmvn[0])
+    vec = lambda a: " ".join(f"{v:.9g}" for v in a)  # noqa: E731
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(f"<Nnet>\n<Splice> {dim} {dim}\n[ 0 ]\n"
+                f"<AddShift> {dim} {dim}\n<LearnRateCoef> 0 [ "
+                f"{vec(cmvn[0])} ]\n<Rescale> {dim} {dim}\n"
+                f"<LearnRateCoef> 0 [ {vec(cmvn[1])} ]\n</Nnet>\n")
+    return os.path.getsize(path)
+
+
+def bn_var_for_scale_2():
+    """A float32 running variance whose var + eps is exactly 4.0, so the
+    BatchNorm fold divides by exactly 2: the postnet written as BatchNorm
+    (weight 2·g, bias b, running mean 0) folds back to g and b bit for
+    bit."""
+    import numpy as np
+    v = np.float32(4.0 - BN_EPS)
+    for _ in range(64):
+        s = (np.array([v], np.float32) + BN_EPS)[0]
+        if s == np.float32(4.0):
+            return v
+        v = np.nextafter(v, np.float32(np.inf if s < 4.0 else -np.inf),
+                         dtype=np.float32)
+    raise PhaseError("no float32 variance folds to a scale of exactly 2")
+
+
+def weight_norm_fold(w):
+    """torch's weight_norm of one conv weight, folded back on the host
+    (g·v/‖v‖ with g = ‖v‖, the norm over every dim but 0), which rounds
+    the last bit of some weights: the vocoder the package defines."""
+    import numpy as np
+    v = np.asarray(w, np.float32)
+    norm = np.sqrt((v * v).sum(axis=tuple(range(1, v.ndim)), keepdims=True))
+    return (norm * v / np.maximum(norm, 1e-12)).astype(np.float32), norm
+
+
+def write_mount(torch, root: str, reco, cmvn, sv, punc, kws, vad_params,
+                synth):
+    """One directory per family under the registry's names, each holding
+    a full-width tree of the earlier phases in FunASR / KAN-TTS naming
+    (`invert_to_state_dict`, torch.save), with config.json (read without
+    PyYAML), token lists and am.mvn where the family reads them. The online Paraformer's directory is a symlink to the offline
+    one. Returns the bytes written per family and the vocoder tree the
+    package defines (its weight-norm pairs folded)."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.models.convert import tree_map
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import checkpoints as ckpt
+    from toolbox_for_asr_and_tts_tpu_torch.runtime.registry import MODELS
+    d = {k: os.path.join(root, MODELS[k].name) for k in MODELS}
+    n = {}
+    c = reco.cfg
+    n["paraformer_offline"] = save_state_dict(
+        torch, ckpt.invert_to_state_dict(reco.params, ckpt.paraformer_rules(
+            c.encoder_layers, c.decoder_layers)),
+        os.path.join(d["paraformer_offline"], "model.pt"))
+    n["paraformer_offline"] += write_json(
+        os.path.join(d["paraformer_offline"], "config.json"), {
+            "model": "Paraformer",
+            "encoder_conf": {"output_size": c.d_model,
+                             "attention_heads": c.n_heads,
+                             "linear_units": c.ffn_dim,
+                             "num_blocks": c.encoder_layers,
+                             "kernel_size": c.kernel_size,
+                             "sanm_shift": c.sanm_shift},
+            "decoder_conf": {"num_blocks": c.decoder_layers},
+            "predictor_conf": {"tail_threshold":
+                               c.predictor_tail_threshold},
+            "frontend_conf": {"n_mels": 80, "lfr_m": c.lfr_m,
+                              "lfr_n": c.lfr_n}})
+    n["paraformer_offline"] += write_json(
+        os.path.join(d["paraformer_offline"], "tokens.json"),
+        reco.tokenizer.tokens)
+    n["paraformer_offline"] += write_mvn(
+        os.path.join(d["paraformer_offline"], "am.mvn"), cmvn)
+    os.symlink(d["paraformer_offline"], d["paraformer_streaming"])
+
+    n["sv"] = save_state_dict(torch, ckpt.invert_to_state_dict(
+        sv.params, ckpt.campplus_rules(sv.cfg.block_layers)),
+        os.path.join(d["sv"], "model.pt"))
+
+    pc = punc.cfg
+    n["punc"] = save_state_dict(torch, ckpt.invert_to_state_dict(
+        punc.params, ckpt.ct_transformer_rules(pc.num_layers)),
+        os.path.join(d["punc"], "model.pt"))
+    n["punc"] += write_json(os.path.join(d["punc"], "config.json"), {
+        "encoder_conf": {"attention_heads": pc.n_heads,
+                         "linear_units": pc.ffn_dim,
+                         "num_blocks": pc.num_layers,
+                         "output_size": pc.d_model,
+                         "input_size": pc.embed_dim,
+                         "kernel_size": pc.kernel_size,
+                         "sanm_shift": pc.sanm_shift},
+        "model_conf": {"punc_list": list(pc.punc_list),
+                       "vocab_size": pc.vocab_size}})
+    n["punc"] += write_json(os.path.join(d["punc"], "tokens.json"),
+                            punc.vocab.tokens)
+
+    kc = kws.cfg
+    n["kws"] = save_state_dict(torch, ckpt.invert_to_state_dict(
+        kws.params, ckpt.kws_rules(kc.num_layers, kc.rorder)),
+        os.path.join(d["kws"], "model.pt"))
+    n["kws"] += write_json(os.path.join(d["kws"], "config.json"), {
+        "encoder_conf": {"input_dim": kc.input_dim,
+                         "input_affine_dim": kc.input_affine_dim,
+                         "linear_dim": kc.hidden_dim,
+                         "proj_dim": kc.proj_dim,
+                         "fsmn_layers": kc.num_layers, "lorder": kc.lorder,
+                         "rorder": kc.rorder,
+                         "output_affine_dim": kc.output_affine_dim,
+                         "output_dim": kc.vocab_size}})
+    # line i is token id i: the keyword's ids (小 1, 护 2) as in memory
+    toks = ["<blank>", "小", "护"] + [chr(0x4E00 + i)
+                                     for i in range(2, kc.vocab_size - 1)]
+    require([kws.char_to_id[ch] for ch in "小护"] == [1, 2],
+            "the in-memory spotter's keyword ids")
+    with open(os.path.join(d["kws"], "tokens.txt"), "w",
+              encoding="utf-8") as f:
+        f.write("".join(f"{t} {i}\n" for i, t in enumerate(toks)))
+    n["kws"] += os.path.getsize(os.path.join(d["kws"], "tokens.txt"))
+
+    from toolbox_for_asr_and_tts_tpu_torch.models.fsmn_vad import FsmnVadConfig
+    vc = FsmnVadConfig()
+    n["fsmn_vad"] = save_state_dict(torch, ckpt.invert_to_state_dict(
+        vad_params, ckpt.fsmn_vad_rules(vc.fsmn_layers)),
+        os.path.join(d["fsmn_vad"], "model.pt"))
+    n["fsmn_vad"] += write_json(os.path.join(d["fsmn_vad"], "config.json"), {
+        "encoder_conf": {"input_dim": vc.input_dim,
+                         "input_affine_dim": vc.input_affine_dim,
+                         "linear_dim": vc.linear_dim, "proj_dim": vc.proj_dim,
+                         "fsmn_layers": vc.fsmn_layers, "lorder": vc.lorder,
+                         "rorder": vc.rorder,
+                         "output_affine_dim": vc.output_affine_dim,
+                         "output_dim": vc.output_dim},
+        "model_conf": {"sil_pdf_ids": list(vc.sil_pdf_ids)}})
+
+    # the KAN-TTS package: Sambert's postnet as BatchNorm, HiFi-GAN as
+    # weight-norm pairs, so both folds run at load
+    a, v = synth.acfg, synth.vcfg
+    am = ckpt.invert_to_state_dict(synth.ap, ckpt.sambert_rules(
+        a.encoder_layers, a.pnca_layers, a.postnet_layers))
+    var = bn_var_for_scale_2()
+    for i in range(a.postnet_layers):
+        base = f"mel_postnet.conv_stack.{i}.norm."
+        g = am[base + "weight"]
+        am[base + "weight"] = (g * np.float32(2.0)).astype(np.float32)
+        am[base + "running_mean"] = np.zeros_like(g)
+        am[base + "running_var"] = np.full_like(g, var)
+    voc = ckpt.invert_to_state_dict(synth.vp, ckpt.hifigan_rules(
+        len(v.upsample_rates), len(v.resblock_kernels),
+        len(v.resblock_dilations[0])))
+    for name in [k for k in voc if k.endswith(".weight")
+                 and np.ndim(voc[k]) >= 2]:
+        w = np.asarray(voc.pop(name), np.float32)
+        voc[name[:-len("weight")] + "weight_v"] = w
+        voc[name[:-len("weight")] + "weight_g"] = weight_norm_fold(w)[1]
+    tts = d["tts"]
+    n["tts"] = save_state_dict(torch, am, os.path.join(
+        tts, f"voices/{MOUNT_VOICE}/am/ckpt/checkpoint_0.pth"))
+    n["tts"] += write_json(
+        os.path.join(tts, f"voices/{MOUNT_VOICE}/am/config.json"),
+        {"Model": {"KanTtsSAMBERT": {"params": {
+            "encoder_num_heads": a.n_heads,
+            "outputs_per_step": a.outputs_per_step}}}})
+    n["tts"] += save_state_dict(torch, voc, os.path.join(
+        tts, f"voices/{MOUNT_VOICE}/voc/ckpt/checkpoint_0.pth"))
+    n["tts"] += write_json(
+        os.path.join(tts, f"voices/{MOUNT_VOICE}/voc/config.json"),
+        {"Model": {"Generator": {"params": {
+            "upsample_rates": list(v.upsample_rates),
+            "resblock_dilation_sizes": [list(x) for x in
+                                        v.resblock_dilations]}}}})
+    vp_folded = tree_map(
+        lambda t: torch.from_numpy(weight_norm_fold(t.cpu().numpy())[0])
+        if t.dim() >= 2 else t.cpu(), synth.vp)
+    return d, n, vp_folded
+
+
+def cache_bytes(root: str) -> int:
+    total = 0
+    for dirpath, _, files in os.walk(root):
+        total += sum(os.path.getsize(os.path.join(dirpath, f)) for f in files
+                     if f.endswith((".torch.npz", ".torch.cfg.json"))
+                     or f == "torch_params.npz")
+    return total
+
+
+def timed_loads(torch, load):
+    """load() cold (converting, the cache written) and warm (from the
+    cache), each ending in a synchronize: (warm result, cold s, warm s)."""
+    times = []
+    for _ in range(2):
+        out = None          # the cold result is freed before the warm load
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = load()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, times[0], times[1]
+
+
+def trees_equal(a, b, what: str) -> int:
+    """Leaf for leaf, bit for bit; the number of leaves."""
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import checkpoints as ckpt
+    fa, fb = ckpt.flatten_params(a), ckpt.flatten_params(b)
+    require(sorted(fa) == sorted(fb), f"{what}: tree paths differ")
+    bad = [k for k in fa if fa[k].shape != fb[k].shape
+           or not (fa[k] == fb[k]).all()]
+    require(not bad, f"{what}: {len(bad)} leaves differ, e.g. {bad[:3]}")
+    return len(fa)
+
+
+def profile_load(torch, model_dir: str, cfg):
+    """--profile: the stages of one Paraformer-large conversion and one
+    cache read (host clock; the checkpoint is memory-mapped, so its reads
+    land in `convert`), into a cache file of its own that is removed."""
+    from toolbox_for_asr_and_tts_tpu_torch.models import paraformer
+    from toolbox_for_asr_and_tts_tpu_torch.models.convert import (
+        params_from_numpy)
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import checkpoints as ckpt
+    rules = ckpt.paraformer_rules(cfg.encoder_layers, cfg.decoder_layers)
+    template = ckpt.shape_template(lambda g: paraformer.init_params(cfg, g))
+    cache = os.path.join(model_dir, "profile_params.npz")
+    t = {}
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t[name] = time.perf_counter() - t0
+        return out
+    sd = stage("torch_load_mmap", lambda: ckpt.load_torch_state_dict(
+        ckpt.find_checkpoint(model_dir)))
+    params = stage("convert", lambda: ckpt.convert_state_dict(
+        sd, rules, template))
+    stage("cache_write", lambda: ckpt.save_converted(cache, params))
+    del sd, params
+    params = stage("cache_read", lambda: ckpt.load_converted(cache,
+                                                             template))
+    stage("to_card", lambda: params_from_numpy(params, "cuda"))
+    os.unlink(cache)
+    print("profile: Paraformer-large load stages " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in t.items()), flush=True)
+    return t
+
+
+def checkpoints_path(torch, card, reco, wavs, models, synth, profile: bool):
+    """Phase 8: every family written as a mounted checkpoint directory at
+    full width, then loaded from it (cold, converting; warm, from the
+    cache) and held against the same weights built in memory: the
+    recognizer's token ids and K1/K2 launches, the voice service from
+    `build_engines(model_dir=root)` behind `create_app` (REST text and
+    speakers, direct embeddings, punctuation and KWS scores), and PNCA
+    synthesis from the KAN-TTS package, sample for sample."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.asr.diarization import Diarizer
+    from toolbox_for_asr_and_tts_tpu_torch.asr.recognizer import Recognizer
+    from toolbox_for_asr_and_tts_tpu_torch.asr.speaker import SpeakerVerifier
+    from toolbox_for_asr_and_tts_tpu_torch.asr.corrections import (
+        apply_hard_corrections)
+    from toolbox_for_asr_and_tts_tpu_torch.models import fsmn_vad
+    from toolbox_for_asr_and_tts_tpu_torch.models.ct_transformer import (
+        Punctuator, split_words)
+    from toolbox_for_asr_and_tts_tpu_torch.models.kws_ctc import KeywordSpotter
+    from toolbox_for_asr_and_tts_tpu_torch.service import engines as E
+    from toolbox_for_asr_and_tts_tpu_torch.tts.synthesizer import Synthesizer
+    from toolbox_for_asr_and_tts_tpu_torch.utils.audio import base64_to_audio_np
+    _, sv, punc, kws = models
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="mounted-damo-")
+    out = {"card": card}
+    try:
+        cmvn = seeded_cmvn(reco.cfg.input_dim)
+        vad_params = fsmn_vad.init_params(             # as _vad_factory's
+            fsmn_vad.FsmnVadConfig(), torch.Generator().manual_seed(7))
+        t0 = time.perf_counter()
+        dirs, written, vp_folded = write_mount(
+            torch, root, reco, cmvn, sv, punc, kws, vad_params, synth)
+        out["write_s"] = time.perf_counter() - t0
+        out["bytes_written"] = written
+        print(f"checkpoints: mount of {sum(written.values()) / 1e9:.3f} GB "
+              f"written in {out['write_s']:.1f} s under a temporary root "
+              f"({', '.join(f'{k} {v / 1e6:.1f} MB' for k, v in written.items())})",
+              flush=True)
+
+        loads = {}
+        # the recognizer: cold, warm; ids and launches against memory
+        loaded, cold, warm = timed_loads(
+            torch, lambda: Recognizer.from_model_dir(
+                dirs["paraformer_offline"]))
+        loads["paraformer_offline"] = dict(cold_s=cold, warm_s=warm)
+        require(loaded.device == reco.device and loaded.cfg == reco.cfg
+                and not loaded.has_bicif, f"loaded cfg {loaded.cfg}")
+        n_leaves = trees_equal(loaded.params, reco.params,
+                               "Paraformer-large")
+        in_memory = Recognizer(reco.params, reco.cfg, reco.tokenizer,
+                               cmvn=cmvn)
+        for a, b in zip(loaded.cmvn, in_memory.cmvn):
+            require(torch.equal(a, b), "am.mvn read back inexactly")
+        got, k1, k2 = counted(torch, lambda: loaded.transcribe(wavs))
+        want = in_memory.transcribe(wavs)
+        check_results(got, wavs, reco.cfg)
+        require([r.token_ids for r in got] == [r.token_ids for r in want],
+                "loaded token ids differ from the in-memory recognizer's")
+        enc, dec = reco.cfg.encoder_layers, reco.cfg.decoder_layers
+        require(k1 == enc + dec and k2 == 1,
+                f"loaded transcribe: K1 {k1}, K2 {k2}")
+        hw = hotwords_for(loaded, got)
+        got_hw, k1_hw, k2_hw = counted(
+            torch, lambda: loaded.transcribe(wavs, hotwords=hw))
+        want_hw = in_memory.transcribe(wavs, hotwords=hw)
+        require([r.token_ids for r in got_hw]
+                == [r.token_ids for r in want_hw],
+                "loaded token ids with hotwords differ")
+        require(k1_hw == enc + 2 * dec and k2_hw == 1,
+                f"loaded transcribe with hotwords: K1 {k1_hw}, K2 {k2_hw}")
+        out["recognizer"] = dict(
+            leaves=n_leaves, rows=len(wavs),
+            tokens=sum(len(r.token_ids) for r in got), k1=k1, k2=k2,
+            k1_hotwords=k1_hw, k2_hotwords=k2_hw)
+        print(f"checkpoints: Recognizer.from_model_dir cold {cold:.2f} s, "
+              f"warm {warm:.2f} s; {n_leaves} leaves equal the in-memory "
+              f"tree; {len(wavs)} rows, {out['recognizer']['tokens']} token ids equal "
+              f"the in-memory recognizer's with the same am.mvn (and with "
+              f"hotwords); K1 {k1} / K2 {k2} per transcribe, {k1_hw} / "
+              f"{k2_hw} with rescoring", flush=True)
+        del loaded
+        if profile:
+            out["profile_paraformer_load"] = profile_load(
+                torch, dirs["paraformer_offline"], reco.cfg)
+
+        # the other voice families: cold, warm, trees equal
+        sv_l, cold, warm = timed_loads(
+            torch, lambda: SpeakerVerifier.from_model_dir(dirs["sv"]))
+        loads["sv"] = dict(cold_s=cold, warm_s=warm)
+        trees_equal(sv_l.params, sv.params, "CAM++")
+        punc_l, cold, warm = timed_loads(
+            torch, lambda: Punctuator.from_model_dir(dirs["punc"]))
+        loads["punc"] = dict(cold_s=cold, warm_s=warm)
+        require(punc_l.cfg == punc.cfg and
+                punc_l.vocab.tokens == punc.vocab.tokens, "punc cfg / vocab")
+        trees_equal(punc_l.params, punc.params, "CT-Transformer")
+        kws_l, cold, warm = timed_loads(
+            torch, lambda: KeywordSpotter.from_model_dir(
+                dirs["kws"], threshold=kws.threshold))
+        loads["kws"] = dict(cold_s=cold, warm_s=warm)
+        require(kws_l.cfg == kws.cfg, "KWS cfg")
+        trees_equal(kws_l.params, kws.params, "KWS")
+        (vad_l, vad_cfg, vad_cmvn), cold, warm = timed_loads(
+            torch, lambda: fsmn_vad.from_model_dir(dirs["fsmn_vad"]))
+        loads["fsmn_vad"] = dict(cold_s=cold, warm_s=warm)
+        require(vad_cfg == fsmn_vad.FsmnVadConfig() and vad_cmvn is None,
+                "FSMN-VAD cfg")
+        trees_equal(vad_l, vad_params, "FSMN-VAD")
+        del vad_l
+
+        # direct calls: identical outputs, launches as phase 6
+        rng = np.random.default_rng(7)
+        words = split_words("".join(chr(0x4E00 + int(c))
+                                    for c in rng.integers(0, 20000, 40)))
+        require((punc_l.classify(words) == punc.classify(words)).all(),
+                "loaded punctuation ids differ")
+        emb_wavs = [w[: int(s * SR)] for w, s in zip(wavs, (4.0, 2.5, 1.4))]
+        ea, eb = sv_l.embed(emb_wavs), sv.embed(emb_wavs)
+        require(np.array_equal(ea, eb), "loaded CAM++ embeddings differ")
+        windows = [w[:KWS_WINDOW] for w in session_audio(8, seed=700)]
+        sa = [s for _, s in kws_l.detect_audio_batch(windows)]
+        sb = [s for _, s in kws.detect_audio_batch(windows)]
+        require(sa == sb, f"loaded KWS scores {sa} vs {sb}")
+        out["direct"] = dict(punctuation_ids_equal=len(words),
+                             embeddings_equal=len(emb_wavs),
+                             kws_scores_equal=len(windows),
+                             **service_launches(torch, sv_l, punc_l, kws_l))
+        del sv_l, punc_l, kws_l
+
+        # the voice service from the mount: build_engines behind create_app
+        t0 = time.perf_counter()
+        engines = E.build_engines(model_dir=root)
+        t_built = time.perf_counter() - t0
+        server = Server(voice_app(engines))
+        try:
+            b64 = wav_b64(make_wavs()[5][: 8 * SR])
+            status, rest = http_json(
+                server.app.port, "POST", "/api/v1/voice/asr", json.dumps(
+                    {"audio_data": b64, "use_wake": False}).encode())
+            startup = time.perf_counter() - t0
+            require(status == 200 and rest.get("success"),
+                    f"REST from the mount: {status} {rest}")
+            diar = engines.diarizer.inner
+            require(diar.recognizer.cfg == reco.cfg
+                    and engines.streaming_factory.hub.ticker.cmvn is not None,
+                    "the served recognizers")
+            wav = base64_to_audio_np(b64)
+            mem = Diarizer(in_memory, sv, punctuator=punc).diarize(wav)
+            served = diar.diarize(wav)
+            direct = apply_hard_corrections("".join(s.text for s in mem))
+            require(rest["text"] == direct,
+                    f"REST text {rest['text']!r} vs in-memory {direct!r}")
+            spk = [(s.text, s.spk, s.start_ms, s.end_ms) for s in served]
+            require(spk == [(s.text, s.spk, s.start_ms, s.end_ms)
+                            for s in mem], "speaker results differ")
+        finally:
+            server.stop()
+        out["service"] = dict(build_engines_s=t_built,
+                              startup_to_first_answer_s=startup,
+                              chars=len(rest["text"]), sentences=len(mem),
+                              speakers=sorted({s.spk for s in mem}))
+        print(f"checkpoints: build_engines(model_dir=root) in {t_built:.1f} s "
+              f"(warm caches, the online partials on the symlinked dir); "
+              f"first REST answer {startup:.1f} s after the start, text of "
+              f"{len(rest['text'])} chars and {len(mem)} sentences with "
+              f"speakers {out['service']['speakers']} equal to the "
+              f"in-memory diarize on {card}", flush=True)
+        del engines
+
+        # TTS from the mount, PNCA, against the weights the package defines
+        segments = tts_segments(synth)
+        tts_l, cold, warm = timed_loads(
+            torch, lambda: Synthesizer.from_model_dir(dirs["tts"]))
+        loads["tts"] = dict(cold_s=cold, warm_s=warm)
+        require(tts_l.decoder_mode == "pnca", "a loaded package decodes PNCA")
+        require(tts_l.acfg == synth.acfg and tts_l.vcfg == synth.vcfg,
+                f"loaded TTS cfgs {tts_l.acfg} {tts_l.vcfg}")
+        tts_pin(tts_l, "pnca")
+        mem_tts = tts_pin(Synthesizer(synth.ap, synth.acfg, vp_folded,
+                                      synth.vcfg), "pnca")
+        (wa, da), n = tts_counted(torch, tts_l, lambda: tts_l.synthesize_segments(
+            segments[:1], MOUNT_VOICE))
+        wb, db = mem_tts.synthesize_segments(segments[:1], MOUNT_VOICE)
+        require(n["k1"] == 0 and n["k2"] == 0 and n["ar_steps"] > 0,
+                f"loaded PNCA programs {n}")
+        require(da == db and np.array_equal(pcm16(wa[0]), pcm16(wb[0])),
+                "loaded PNCA PCM differs from the in-memory synthesizer's")
+        tts_pin(synth, "pnca")
+        try:
+            wc, _ = synth.synthesize_segments(segments[:1], MOUNT_VOICE)
+        finally:
+            tts_pin(synth, "nar")
+        lsb = int(np.abs(pcm16(wa[0]) - pcm16(wc[0])).max())
+        require(len(wa[0]) == len(wc[0]) and lsb <= TTS_PCM_LSB,
+                f"against phase 7's unfolded vocoder: {lsb} LSB")
+        del tts_l, mem_tts
+        out["tts"] = dict(samples=len(wa[0]), ar_steps=n["ar_steps"],
+                          max_lsb_vs_unfolded_vocoder=lsb)
+        print(f"checkpoints: Synthesizer.from_model_dir (BatchNorm postnet "
+              f"and weight-norm vocoder folded) PNCA on segment 0: "
+              f"{len(wa[0])} samples equal the in-memory synthesizer's "
+              f"sample for sample, {n['ar_steps']} AR steps; {lsb} LSB from "
+              f"phase 7's vocoder before the weight-norm round trip",
+              flush=True)
+
+        # the TTS app from the mount: create_app → first answer
+        from toolbox_for_asr_and_tts_tpu_torch.runtime.config import TTSConfig
+        from toolbox_for_asr_and_tts_tpu_torch.service.tts_app import create_app
+        t0 = time.perf_counter()
+        tserver = Server(create_app(cfg=TTSConfig(model_dir=root)))
+        try:
+            status, job = http_json(tserver.app.port, "POST",
+                                    "/api/v1/tts/start", json.dumps(
+                                        {"text": segments[0]}).encode())
+            require(status == 200, f"TTS start: {status} {job}")
+            for _ in range(1200):
+                status, body = http_json(
+                    tserver.app.port, "GET",
+                    f"/api/v1/tts/result/{job['job_id']}")
+                if body["status"] in ("completed", "error"):
+                    break
+                time.sleep(0.02)
+            require(body["status"] == "completed", f"TTS job: {body}")
+            tts_startup = time.perf_counter() - t0
+        finally:
+            tserver.stop()
+        out["tts"]["app_startup_to_completed_s"] = tts_startup
+
+        out["loads"] = loads
+        out["cache_bytes"] = cache_bytes(root)
+        print(f"checkpoints: TTS app create_app(model_dir=root) to a "
+              f"completed job {tts_startup:.1f} s; caches "
+              f"{out['cache_bytes'] / 1e9:.3f} GB; loads (cold / warm s): "
+              + ", ".join(f"{k} {v['cold_s']:.2f} / {v['warm_s']:.2f}"
+                          for k, v in loads.items()) + f" on {card}",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"checkpoints phase: {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -2143,8 +2687,10 @@ def main(argv) -> int:
             torch, card, reco.params, profile)
         streaming["card_vs_cpu"] = compare_streaming(
             torch, reco.params, compare_ids, compare_audio)
-        service = service_path(torch, card, reco, profile)
-        tts = tts_path(torch, card, profile)
+        service, models = service_path(torch, card, reco, profile)
+        tts, synth = tts_path(torch, card, profile)
+        checkpoints = checkpoints_path(torch, card, reco, wavs, models,
+                                       synth, profile)
     except Exception:   # every phase failure ends the run without a result
         traceback.print_exc()
         return 1
@@ -2174,6 +2720,9 @@ def main(argv) -> int:
              launches_per_embed=service["launches"]["k1_per_embed"],
              launches_service={r: c["k1"] for r, c in served.items()},
              launches_tts=tts["launches"]["k1"],
+             launches_loaded=checkpoints["recognizer"]["k1"],
+             launches_loaded_with_rescoring=checkpoints["recognizer"][
+                 "k1_hotwords"],
              shapes=k1_rows + k1_stream + k1_service),
         dict(name="frame_window", route="cuda",
              source="toolbox_for_asr_and_tts_tpu_torch/csrc/frame_window.cu",
@@ -2189,12 +2738,14 @@ def main(argv) -> int:
              launches_per_embed=service["launches"]["k2_per_embed"],
              launches_service={r: c["k2"] for r, c in served.items()},
              launches_tts=tts["launches"]["k2"],
+             launches_loaded=checkpoints["recognizer"]["k2"],
              shapes=[k2_row] + k2_stream + k2_service),
     ]
     print(json.dumps({"rtf_batch8": rtf, "card": card}))
     print(json.dumps({"streaming": streaming, "card": card}))
     print(json.dumps({"service": service, "card": card}))
     print(json.dumps({"tts": tts, "card": card}))
+    print(json.dumps({"checkpoints": checkpoints}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

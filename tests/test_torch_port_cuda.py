@@ -477,3 +477,59 @@ def test_tts_entry_points_default_to_the_card(cuda):
         assert served.vcfg.upsample_initial_channel == 512   # full width
     finally:
         app.close_engines()
+
+
+def test_loaded_recognizer_on_card_matches_cpu(cuda, no_tf32, tmp_path):
+    """A tiny Paraformer directory (model.pt, config.json, tokens.json,
+    am.mvn) loaded by `Recognizer.from_model_dir` on the card (the default
+    device) and on the CPU: equal trees and CMVN, K1 once per layer and K2
+    once per transcribe, token ids and token counts equal, logits within
+    1e-4."""
+    import json
+    from toolbox_for_asr_and_tts_tpu_torch.asr.recognizer import Recognizer
+    from toolbox_for_asr_and_tts_tpu_torch.models import paraformer as pf
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import checkpoints as ckpt
+    cfg = pf.ParaformerConfig(d_model=32, n_heads=2, ffn_dim=64,
+                              encoder_layers=3, decoder_layers=2,
+                              vocab_size=64)
+    tree = pf.init_params(cfg, torch.Generator().manual_seed(0))
+    sd = ckpt.invert_to_state_dict(
+        tree, ckpt.paraformer_rules(cfg.encoder_layers, cfg.decoder_layers))
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in sd.items()}, tmp_path / "model.pt")
+    (tmp_path / "config.json").write_text(json.dumps({
+        "encoder_conf": {"output_size": 32, "attention_heads": 2,
+                         "linear_units": 64, "num_blocks": 3},
+        "decoder_conf": {"num_blocks": 2}}))
+    toks = ["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(60)]
+    (tmp_path / "tokens.json").write_text(json.dumps(toks + ["<unk>"]))
+    rng = np.random.default_rng(3)
+    vecs = [" ".join(f"{v:.5f}" for v in rng.uniform(lo, hi, 560))
+            for lo, hi in ((-12, -5), (0.1, 0.5))]
+    (tmp_path / "am.mvn").write_text(
+        f"<AddShift> 560 560\n[ {vecs[0]} ]\n<Rescale> 560 560\n"
+        f"[ {vecs[1]} ]\n")
+    card = Recognizer.from_model_dir(str(tmp_path))
+    cpu = Recognizer.from_model_dir(str(tmp_path), device="cpu")
+    assert card.device.type == "cuda" and card.cfg == cpu.cfg
+    assert card.cfg.vocab_size == 64 and card.cmvn[0].is_cuda
+    for a, b in zip(card.cmvn, cpu.cmvn):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0)
+    fa, fb = ckpt.flatten_params(card.params), ckpt.flatten_params(cpu.params)
+    assert sorted(fa) == sorted(fb)
+    for k in fa:
+        np.testing.assert_array_equal(fa[k], fb[k], err_msg=k)
+    t = np.arange(16000) / 16000
+    wavs = [(0.3 * np.sin(2 * np.pi * f * t[:n])
+             + 0.05 * rng.standard_normal(n)).astype(np.float32)
+            for f, n in ((220, 16000), (330, 11000))]
+    got, n1, n2 = _counted(lambda: card.transcribe(wavs))
+    assert (n1, n2) == (cfg.encoder_layers + cfg.decoder_layers, 1)
+    want = cpu.transcribe(wavs)
+    assert [r.token_ids for r in got] == [r.token_ids for r in want]
+    batch, lens = cpu.bucketer.pad_batch(wavs)
+    a = card.forward_padded(batch, lens)
+    b = cpu.forward_padded(batch, lens)
+    torch.testing.assert_close(a["token_count"].cpu(), b["token_count"])
+    torch.testing.assert_close(a["logits"].cpu(), b["logits"], rtol=1e-4,
+                               atol=1e-4)

@@ -72,7 +72,8 @@ def test_importing_every_module_loads_no_jax():
                  "service.schemas", "service.voice_app", "service.engines",
                  "models.sambert", "models.hifigan", "tts.synthesizer",
                  "tts.jobs", "tts.concat", "tts.text_frontend", "tts.prosody",
-                 "tts.break_stats", "service.tts_app"):
+                 "tts.break_stats", "service.tts_app", "runtime.checkpoints",
+                 "tools.convert_checkpoint", "tools.check_cache", "asr.itn"):
         assert f"toolbox_for_asr_and_tts_tpu_torch.{name}" in loaded, name
 
 
@@ -275,4 +276,123 @@ def test_tts_entry_points_run_on_explicit_cpu():
         assert synth.device == cpu, name
         leaves = []
         tree_map(leaves.append, (synth.ap, synth.vp))
+        assert leaves and all(a.device == cpu for a in leaves), name
+
+
+# the reference's mesh names, which wait for the multi-card slice
+MESH_NAMES = {"serving_mesh", "local_device_count", "shard_batch"}
+
+
+@pytest.mark.parametrize("sub", ["ops", "models", "runtime", "utils", "asr",
+                                 "tts", "service"])
+def test_subpackage_exports_match_the_reference(sub):
+    """Each subpackage exports the reference's names (less the mesh names),
+    and each name resolves."""
+    import importlib
+    ref = importlib.import_module(f"{REF}.{sub}")
+    ours = importlib.import_module(f"toolbox_for_asr_and_tts_tpu_torch.{sub}")
+    assert set(ours.__all__) == set(ref.__all__) - MESH_NAMES
+    for name in ours.__all__:
+        assert getattr(ours, name) is not None, name
+
+
+def test_export_imports_work():
+    from toolbox_for_asr_and_tts_tpu_torch.asr import apply_itn
+    from toolbox_for_asr_and_tts_tpu_torch.ops import compute_frontend, fbank
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import StageTimer
+    assert apply_itn("一百二十三") == "123"
+    x = torch.zeros(1, 4000)
+    cfg = pf.ParaformerConfig().frontend
+    feats = compute_frontend(x, cfg)
+    assert feats.shape == (1, 4, 560)
+    assert torch.equal(fbank(x, cfg)[:, :1], feats[:, :1, :80])
+    timer = StageTimer()
+    with timer.stage("s") as pending:
+        pending.append(feats)
+    assert "s" in timer.detailed()["stages_ms"]
+
+
+@pytest.fixture(scope="module")
+def model_dirs(tmp_path_factory):
+    """One tiny checkpoint directory per family."""
+    import test_torch_port_checkpoints as T
+    from test_torch_port_tts_checkpoints import (am_state_dict,
+                                                 voc_state_dict,
+                                                 write_package)
+    from toolbox_for_asr_and_tts_tpu_torch.models import (
+        campplus, ct_transformer, kws_ctc)
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import checkpoints as ckpt
+    root = tmp_path_factory.mktemp("damo")
+    g = torch.Generator().manual_seed(0)
+    pcfg = pf.ParaformerConfig(**T.PARA)
+    vcfg = fv.FsmnVadConfig(**T.VAD)
+    ccfg = ct_transformer.CTTransformerConfig(**T.PUNC)
+    kcfg = kws_ctc.KwsConfig(**T.KWS)
+    scfg = campplus.CampPlusConfig(**T.CAMPP)
+    sv = root / "sv"
+    T._save(ckpt.invert_to_state_dict(campplus.init_params(scfg, g),
+                                      ckpt.campplus_rules(scfg.block_layers)),
+            sv / "model.pt")
+    return {
+        "paraformer": T._paraformer_dir(root, ckpt.invert_to_state_dict(
+            pf.init_params(pcfg, g), ckpt.paraformer_rules(2, 1)), pcfg),
+        "fsmn_vad": T._vad_dir(root, ckpt.invert_to_state_dict(
+            fv.init_params(vcfg, g), ckpt.fsmn_vad_rules(2)), vcfg),
+        "punc": T._punc_dir(root, ckpt.invert_to_state_dict(
+            ct_transformer.init_params(ccfg, g),
+            ckpt.ct_transformer_rules(2)), ccfg),
+        "kws": T._kws_dir(root, ckpt.invert_to_state_dict(
+            kws_ctc.init_params(kcfg, g), ckpt.kws_rules(2, 1)), kcfg),
+        "sv": (str(sv), scfg),
+        "tts": write_package(root / "tts", am_state_dict("invert"),
+                             voc_state_dict()),
+    }
+
+
+def _loaders(dirs, device):
+    """Every `from_model_dir` of the port, on `dirs`, with `device`."""
+    from toolbox_for_asr_and_tts_tpu_torch.asr.speaker import SpeakerVerifier
+    from toolbox_for_asr_and_tts_tpu_torch.models.ct_transformer import (
+        Punctuator)
+    from toolbox_for_asr_and_tts_tpu_torch.models.kws_ctc import (
+        KeywordSpotter)
+    from toolbox_for_asr_and_tts_tpu_torch.tts.synthesizer import Synthesizer
+    kw = {} if device is None else {"device": device}
+    sv_dir, scfg = dirs["sv"]
+    return {
+        "Recognizer": lambda: Recognizer.from_model_dir(dirs["paraformer"],
+                                                        **kw),
+        "fsmn_vad": lambda: fv.from_model_dir(dirs["fsmn_vad"], **kw),
+        "Punctuator": lambda: Punctuator.from_model_dir(dirs["punc"], **kw),
+        "KeywordSpotter": lambda: KeywordSpotter.from_model_dir(dirs["kws"],
+                                                                **kw),
+        "SpeakerVerifier": lambda: SpeakerVerifier.from_model_dir(
+            sv_dir, cfg=scfg, **kw),
+        "Synthesizer": lambda: Synthesizer.from_model_dir(dirs["tts"], **kw),
+    }
+
+
+def test_from_model_dir_raises_without_a_card(model_dirs, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, load in _loaders(model_dirs, None).items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load()
+    for name, load in _loaders(model_dirs, "cuda").items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            load()
+
+
+def test_from_model_dir_runs_on_explicit_cpu(model_dirs):
+    cpu = torch.device("cpu")
+    for name, load in _loaders(model_dirs, "cpu").items():
+        obj = load()
+        if name == "fsmn_vad":
+            trees = obj[0]
+        elif name == "Synthesizer":
+            trees = (obj.ap, obj.vp)
+        else:
+            trees = obj.params
+            assert obj.device == cpu, name
+        leaves = []
+        tree_map(leaves.append, trees)
         assert leaves and all(a.device == cpu for a in leaves), name

@@ -26,7 +26,6 @@ from toolbox_for_asr_and_tts_tpu_torch.asr.corrections import (  # noqa: E402
     apply_hard_corrections)
 from toolbox_for_asr_and_tts_tpu_torch.models.convert import params_from_numpy  # noqa: E402
 from toolbox_for_asr_and_tts_tpu_torch.runtime import config as C  # noqa: E402
-from toolbox_for_asr_and_tts_tpu_torch.runtime.registry import CheckpointsNotPorted  # noqa: E402
 from toolbox_for_asr_and_tts_tpu_torch.service import engines as E  # noqa: E402
 from toolbox_for_asr_and_tts_tpu_torch.service import hub as H  # noqa: E402
 from toolbox_for_asr_and_tts_tpu_torch.service import schemas  # noqa: E402
@@ -639,10 +638,95 @@ def test_serving_options_give_the_same_final(monkeypatch, env):
 
 
 def test_build_engines_refuses_a_mounted_checkpoint(tmp_path):
-    """A resolvable checkpoint directory raises before any model or hub is
-    built: random weights never stand in for a mounted model."""
+    """A resolvable checkpoint directory that holds no checkpoint raises
+    FileNotFoundError before any hub is built: random weights never stand
+    in for a mounted model."""
     before = _hub_threads()
-    (tmp_path / "speech_campplus_sv_zh-cn_16k-common").mkdir()
-    with pytest.raises(CheckpointsNotPorted, match="checkpoints.py"):
+    (tmp_path / "speech_paraformer-large_asr_nat-zh-cn-16k-common-vocab8404"
+     ).mkdir()
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
         E.build_engines(str(tmp_path), device="cpu")
+    assert _hub_threads() == before
+
+
+def test_build_engines_serves_mounted_checkpoints(tmp_path, monkeypatch):
+    """Every family under a mounted root loads from its directory (the
+    partials from the online checkpoint, the VAD with its am.mvn), the app
+    serves a REST request on those weights, and closing it leaves no hub
+    thread."""
+    import test_torch_port_checkpoints as T
+    from toolbox_for_asr_and_tts_tpu_torch.models import (
+        campplus, ct_transformer, fsmn_vad, kws_ctc, paraformer)
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import checkpoints as ckpt
+    from toolbox_for_asr_and_tts_tpu_torch.service.voice_app import create_app
+    monkeypatch.setenv("VOICE_BATCH_CAPACITY", "4")
+    monkeypatch.setenv("VOICE_AOT_TICKS", "0")
+    before = _hub_threads()
+    g = lambda seed: torch.Generator().manual_seed(seed)  # noqa: E731
+    pcfg = paraformer.ParaformerConfig(**T.PARA)
+    prules = ckpt.paraformer_rules(pcfg.encoder_layers, pcfg.decoder_layers)
+    trees = {"offline": paraformer.init_params(pcfg, g(1)),
+             "online": paraformer.init_params(pcfg, g(2))}
+    T._paraformer_dir(tmp_path, ckpt.invert_to_state_dict(
+        trees["offline"], prules), pcfg)
+    T._paraformer_dir(tmp_path, ckpt.invert_to_state_dict(
+        trees["online"], prules), pcfg,
+        name="speech_paraformer-large_asr_nat-zh-cn-16k-common-vocab8404-"
+             "online")
+    vcfg = fsmn_vad.FsmnVadConfig(**T.VAD)
+    trees["vad"] = fsmn_vad.init_params(vcfg, g(3))
+    T._vad_dir(tmp_path, ckpt.invert_to_state_dict(
+        trees["vad"], ckpt.fsmn_vad_rules(vcfg.fsmn_layers)), vcfg)
+    ccfg = ct_transformer.CTTransformerConfig(**T.PUNC)
+    trees["punc"] = ct_transformer.init_params(ccfg, g(4))
+    T._punc_dir(tmp_path, ckpt.invert_to_state_dict(
+        trees["punc"], ckpt.ct_transformer_rules(ccfg.num_layers)), ccfg)
+    kcfg = kws_ctc.KwsConfig(**T.KWS)
+    trees["kws"] = kws_ctc.init_params(kcfg, g(5))
+    T._kws_dir(tmp_path, ckpt.invert_to_state_dict(
+        trees["kws"], ckpt.kws_rules(kcfg.num_layers, kcfg.rorder)), kcfg)
+    scfg = campplus.CampPlusConfig()     # the loader's default: full width
+    trees["sv"] = campplus.init_params(scfg, g(6))
+    T._save(ckpt.invert_to_state_dict(
+        trees["sv"], ckpt.campplus_rules(scfg.block_layers)),
+        tmp_path / "speech_campplus_sv_zh-cn_16k-common" / "model.pt")
+
+    engines = E.build_engines(str(tmp_path), device="cpu")
+    srv = None
+    try:
+        diar = engines.diarizer.inner
+        loaded = {"offline": diar.recognizer.params,
+                  "online": engines.streaming_factory.hub.ticker.params,
+                  "vad": engines.vad_factory.hub.ticker.params,
+                  "punc": diar.punctuator.params,
+                  "kws": engines.kws.inner.params,
+                  "sv": engines.verifier.params}
+        for name, tree in trees.items():
+            want, got = ckpt.flatten_params(tree), ckpt.flatten_params(
+                loaded[name])
+            assert sorted(got) == sorted(want), name
+            for k in want:
+                np.testing.assert_array_equal(got[k], want[k],
+                                              err_msg=f"{name} {k}")
+        assert engines.vad_factory.hub.ticker.cmvn is not None
+        assert diar.recognizer.cmvn is not None
+        assert diar.recognizer.tokenizer.tokens == T._tokens(pcfg.vocab_size)
+        srv = ServerThread(create_app(
+            engines=engines, cfg=C.VoiceConfig(disable_llm=True))).start()
+        wav = _speech(2, 10)
+        b64 = base64.b64encode(encode_wav_bytes(wav, SR)).decode()
+        status, out = _http(srv.app.port, "POST", "/api/v1/voice/asr",
+                            json.dumps({"audio_data": b64,
+                                        "use_wake": False}).encode())
+        assert status == 200 and out["success"], out
+        from toolbox_for_asr_and_tts_tpu_torch.utils.audio import (
+            base64_to_audio_np)
+        sents = diar.diarize(base64_to_audio_np(b64))
+        assert out["text"] == apply_hard_corrections(
+            "".join(s.text for s in sents))
+    finally:
+        if srv is not None:
+            srv.stop()
+        else:
+            engines.close()
     assert _hub_threads() == before

@@ -38,7 +38,6 @@ from toolbox_for_asr_and_tts_tpu_torch.models import hifigan as TH  # noqa: E402
 from toolbox_for_asr_and_tts_tpu_torch.models import sambert as TS  # noqa: E402
 from toolbox_for_asr_and_tts_tpu_torch.models.convert import params_from_numpy  # noqa: E402
 from toolbox_for_asr_and_tts_tpu_torch.runtime import config as C  # noqa: E402
-from toolbox_for_asr_and_tts_tpu_torch.runtime.registry import CheckpointsNotPorted  # noqa: E402
 from toolbox_for_asr_and_tts_tpu_torch.service import schemas  # noqa: E402
 from toolbox_for_asr_and_tts_tpu_torch.tts import text_frontend as TF  # noqa: E402
 from toolbox_for_asr_and_tts_tpu_torch.tts.jobs import TTSJobManager  # noqa: E402
@@ -500,12 +499,60 @@ def test_ws_stream_bad_request(tts_server, frame):
 
 
 def test_create_app_refuses_a_mounted_checkpoint(tmp_path):
-    """A resolvable `tts` checkpoint directory raises at `create_app`:
-    random weights never stand in for a mounted model."""
+    """A resolvable `tts` checkpoint directory without a checkpoint pair
+    raises FileNotFoundError at `create_app`, before any request or job
+    worker: random weights never stand in for a mounted model."""
     from toolbox_for_asr_and_tts_tpu_torch.service.tts_app import create_app
+    before = _job_threads()
     (tmp_path / "speech_sambert-hifigan_tts_zh-cn_16k").mkdir()
-    with pytest.raises(CheckpointsNotPorted, match="checkpoints.py"):
+    with pytest.raises(FileNotFoundError, match="no acoustic/vocoder"):
         create_app(cfg=C.TTSConfig(model_dir=str(tmp_path)))
+    assert _job_threads() == before
+
+
+def test_create_app_serves_a_mounted_checkpoint(tmp_path, monkeypatch):
+    """A mounted package (TTS_MODEL_DIR's root) loads once at `create_app`
+    and serves a REST job in PNCA mode whose WAV equals a direct
+    `synthesize` on the loaded weights."""
+    from test_torch_port_tts_checkpoints import (am_state_dict,
+                                                 voc_state_dict,
+                                                 write_package)
+    from toolbox_for_asr_and_tts_tpu_torch.service.tts_app import create_app
+    write_package(tmp_path / "speech_sambert-hifigan_tts_zh-cn_16k",
+                  am_state_dict("invert"), voc_state_dict())
+    for k in GROUPING_ENV:
+        monkeypatch.delenv(k, raising=False)
+    before = _job_threads()
+    calls = []
+    load = Synthesizer.from_model_dir.__func__
+    monkeypatch.setattr(Synthesizer, "from_model_dir", classmethod(
+        lambda cls, d, **kw: calls.append(d) or load(cls, d, device="cpu",
+                                                     **kw)))
+    app = create_app(cfg=C.TTSConfig(model_dir=str(tmp_path)))
+    assert calls == [str(tmp_path / "speech_sambert-hifigan_tts_zh-cn_16k")]
+    srv = ServerThread(app).start()
+    try:
+        synth = app.manager().synth
+        assert synth.decoder_mode == "pnca" and synth.acfg.d_model == 32
+        status, out = _json(srv.app.port, "POST", "/api/v1/tts/start",
+                            {"text": "今天天气很好。"})
+        assert status == 200, out
+        for _ in range(600):
+            _, body = _json(srv.app.port, "GET",
+                            f"/api/v1/tts/result/{out['job_id']}")
+            if body["status"] in ("completed", "error"):
+                break
+            time.sleep(0.05)
+        assert body["status"] == "completed", body
+        want = synth.synthesize("今天天气很好。").wav
+        got = _decode(body["audio_base64"])
+        assert len(got) == len(want) > 0
+        assert np.abs(np.round(got * 32768.0)
+                      - np.round(want * 32768.0)).max() <= 1
+    finally:
+        srv.stop()
+    assert calls == [str(tmp_path / "speech_sambert-hifigan_tts_zh-cn_16k")]
+    assert _job_threads() == before
 
 
 # --------------------------------------------- config and schema tables

@@ -96,6 +96,54 @@ class Recognizer:
         return cls(params, cfg, CharTokenizer.dummy(cfg.vocab_size),
                    device=device, **kw)
 
+    @classmethod
+    def from_model_dir(cls, model_dir: str,
+                       cfg: Optional[paraformer.ParaformerConfig] = None,
+                       device: DeviceLike = None, **kw) -> "Recognizer":
+        """Load a ModelScope Paraformer checkpoint directory (tokens, am.mvn,
+        model weights; see runtime/checkpoints.py) onto `device` (the card
+        unless "cpu" is passed). Geometry comes from the directory's config
+        and the vocab size from its own token list.
+
+        BiCIF auto-detect: the spk model (BiCifParaformer) carries the
+        upsampled timestamp predictor; plain vocab8404 checkpoints do not.
+        The bicif template is tried first, and the plain one when its
+        tensors are absent (KeyError) or shaped otherwise (ValueError)."""
+        import os
+        from ..models.convert import params_from_numpy
+        from ..runtime import checkpoints as ckpt
+        device = resolve_device(device)
+        tok_path = next((p for p in (os.path.join(model_dir, c) for c in
+                                     ("tokens.json", "tokens.txt"))
+                         if os.path.exists(p)), None)
+        tokenizer = CharTokenizer.load(tok_path) if tok_path else None
+        if cfg is None:
+            cfg = paraformer.ParaformerConfig.from_funasr(
+                ckpt.load_model_config(model_dir))
+            n_vocab = len(tokenizer.tokens) if tokenizer else 0
+            if n_vocab and n_vocab != cfg.vocab_size:
+                cfg = dataclasses.replace(cfg, vocab_size=n_vocab)
+
+        def convert(c: paraformer.ParaformerConfig):
+            return ckpt.convert_or_load_cached(
+                model_dir,
+                ckpt.shape_template(lambda g: paraformer.init_params(c, g)),
+                ckpt.paraformer_rules(c.encoder_layers, c.decoder_layers,
+                                      bicif=c.bicif))
+        try:
+            bcfg = dataclasses.replace(cfg, bicif=True)
+            params = convert(bcfg)
+            cfg = bcfg
+        except (KeyError, ValueError):
+            params = convert(cfg)
+        cmvn = None
+        mvn_path = os.path.join(model_dir, "am.mvn")
+        if os.path.exists(mvn_path):
+            cmvn = ckpt.parse_kaldi_cmvn(mvn_path)
+        return cls(params_from_numpy(params, device), cfg,
+                   tokenizer or CharTokenizer.dummy(cfg.vocab_size),
+                   cmvn=cmvn, device=device, **kw)
+
     # ----------------------------------------------------------- forward
     @torch.inference_mode()
     def forward_padded(self, batch: np.ndarray, lens: np.ndarray

@@ -55,6 +55,24 @@ class SpeakerVerifier:
         params = campplus.init_params(cfg, torch.Generator().manual_seed(seed))
         return cls(params, cfg, device=dev, **kw)
 
+    @classmethod
+    def from_model_dir(cls, model_dir: str,
+                       cfg: Optional[campplus.CampPlusConfig] = None,
+                       device: DeviceLike = None,
+                       **kw) -> "SpeakerVerifier":
+        """A `speech_campplus_sv_zh-cn_16k-common` checkpoint dir on `device`
+        (the card unless "cpu" is passed); BatchNorm statistics convert as
+        leaves of their own (`checkpoints.campplus_rules`)."""
+        from ..models.convert import params_from_numpy
+        from ..runtime import checkpoints as ckpt
+        dev = resolve_device(device)
+        cfg = cfg or campplus.CampPlusConfig()
+        params = ckpt.convert_or_load_cached(
+            model_dir,
+            ckpt.shape_template(lambda g: campplus.init_params(cfg, g)),
+            ckpt.campplus_rules(cfg.block_layers))
+        return cls(params_from_numpy(params, dev), cfg, device=dev, **kw)
+
     def _fn(self, b: int, n_samples: int):
         """The embed program of one (batch, samples) bucket; concurrent
         first calls build it once (double-checked under a lock)."""

@@ -48,7 +48,10 @@ def params_from_numpy(tree: Any, device: DeviceLike = None,
     dev = resolve_device(device)
 
     def leaf(a: Any) -> torch.Tensor:
-        arr = np.array(a)   # a writable copy
+        # writable and row-major, copied only where it is not: a
+        # converted checkpoint's leaves then have the layout (and the
+        # results) of a drawn tree
+        arr = np.require(a, requirements=("C", "W"))
         if arr.dtype == np.int8:
             raise NotImplementedError(
                 "int8-quantized trees have no path in the port yet")

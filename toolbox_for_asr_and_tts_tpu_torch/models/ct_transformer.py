@@ -217,6 +217,31 @@ class Punctuator:
         return cls(params, cfg, vocab or PuncVocab.dummy(cfg.vocab_size),
                    device=dev)
 
+    @classmethod
+    def from_model_dir(cls, model_dir: str,
+                       cfg: Optional[CTTransformerConfig] = None,
+                       device: DeviceLike = None) -> "Punctuator":
+        """A `punc_ct-transformer_...-large` checkpoint dir on `device` (the
+        card unless "cpu" is passed). With no explicit cfg, geometry comes
+        from the dir's own config."""
+        import os
+        from ..models.convert import params_from_numpy
+        from ..runtime import checkpoints as ckpt
+        dev = resolve_device(device)
+        cfg = cfg or CTTransformerConfig.from_funasr(
+            ckpt.load_model_config(model_dir))
+        params = ckpt.convert_or_load_cached(
+            model_dir, ckpt.shape_template(lambda g: init_params(cfg, g)),
+            ckpt.ct_transformer_rules(cfg.num_layers))
+        vocab = None
+        for cand in ("tokens.json", "tokens.txt"):
+            p = os.path.join(model_dir, cand)
+            if os.path.exists(p):
+                vocab = PuncVocab.load(p)
+                break
+        return cls(params_from_numpy(params, dev), cfg,
+                   vocab or PuncVocab.dummy(cfg.vocab_size), device=dev)
+
     def _fn(self, b: int, t: int):
         """The forward of one (batch, length) bucket with its constants
         built once; concurrent first calls build it once (double-checked

@@ -16,7 +16,6 @@ Both `apply` and `apply_streaming` run the FSMN blocks through kernel K1
 last lorder − 1 proj frames of each layer, held as ONE tensor
 [layers, B, lorder − 1, proj] (the reference keeps a list of per-layer
 arrays), so a ticker merges, moves or resets a row of every layer at once.
-`from_model_dir` waits for the port's own checkpoint converter.
 """
 from __future__ import annotations
 
@@ -71,6 +70,27 @@ class FsmnVadConfig:
             kw["sil_pdf_ids"] = tuple(mc["sil_pdf_ids"])
         kw.update(overrides)
         return cls(**kw)
+
+
+def from_model_dir(model_dir: str, cfg: FsmnVadConfig = None,
+                   device: DeviceLike = None):
+    """A `speech_fsmn_vad_zh-cn-16k-common` checkpoint dir → (params on
+    `device` (the card unless "cpu" is passed), cfg, cmvn). Geometry from
+    the dir's config, CMVN from am.mvn (FunASR applies it in the VAD
+    frontend)."""
+    import os
+    from ..runtime import checkpoints as ckpt
+    from .convert import params_from_numpy
+    device = resolve_device(device)
+    cfg = cfg or FsmnVadConfig.from_funasr(ckpt.load_model_config(model_dir))
+    params = ckpt.convert_or_load_cached(
+        model_dir, ckpt.shape_template(lambda g: init_params(cfg, g)),
+        ckpt.fsmn_vad_rules(cfg.fsmn_layers))
+    cmvn = None
+    mvn = os.path.join(model_dir, "am.mvn")
+    if os.path.exists(mvn):
+        cmvn = ckpt.parse_kaldi_cmvn(mvn)
+    return params_from_numpy(params, device), cfg, cmvn
 
 
 def init_params(cfg: FsmnVadConfig = FsmnVadConfig(),

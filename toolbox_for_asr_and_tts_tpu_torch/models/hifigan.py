@@ -11,8 +11,8 @@ The default upsample rates (5, 5, 4, 2) give hop 200 samples (12.5 ms at
 16 kHz), the Sambert mel frame rate; the wav length is T_mel × hop exactly.
 Every convolution is cuDNN's (`ops/nn.py::conv1d`, `conv_transpose1d`).
 
-Left to the checkpoints slice: `HifiGanConfig.from_config` (it reads the
-package's config through `runtime/checkpoints.py`, not ported yet).
+`HifiGanConfig.from_config` reads a mounted package's config through
+`runtime/checkpoints.py::search_config`.
 """
 from __future__ import annotations
 
@@ -44,6 +44,38 @@ class HifiGanConfig:
         for r in self.upsample_rates:
             h *= r
         return h
+
+    @classmethod
+    def from_config(cls, conf: dict, **overrides) -> "HifiGanConfig":
+        """Config from a mounted package's own config.yaml/json. Key names
+        follow the public HiFi-GAN/KAN-TTS generator config (upsample_rates,
+        upsample_kernel_sizes, resblock_kernel_sizes, …); shape-derivable
+        fields are later re-pinned from the state dict by
+        `config_from_state_dict` — only the upsample STRIDES truly need the
+        config (strides don't appear in weight shapes)."""
+        from ..runtime.checkpoints import search_config
+        alias = {
+            "n_mels": ("num_mels", "n_mels", "in_channels"),
+            "upsample_initial_channel": ("upsample_initial_channel",),
+            "upsample_rates": ("upsample_rates",),
+            "upsample_kernels": ("upsample_kernel_sizes", "upsample_kernels"),
+            "resblock_kernels": ("resblock_kernel_sizes", "resblock_kernels"),
+            "resblock_dilations": ("resblock_dilation_sizes",
+                                   "resblock_dilations"),
+        }
+        kw = {}
+        for field, names in alias.items():
+            v = search_config(conf or {}, names)
+            if v is None:
+                continue
+            if isinstance(v, (list, tuple)):
+                v = tuple(tuple(x) if isinstance(x, (list, tuple)) else int(x)
+                          for x in v)
+            else:
+                v = int(v)
+            kw[field] = v
+        kw.update(overrides)
+        return cls(**kw)
 
 
 def config_from_state_dict(sd, base: HifiGanConfig) -> HifiGanConfig:

@@ -209,6 +209,36 @@ class KeywordSpotter:
         chars.setdefault("护", 2)
         return cls(params, cfg, chars, keyword=keyword, device=dev, **kw)
 
+    @classmethod
+    def from_model_dir(cls, model_dir: str, cfg: Optional[KwsConfig] = None,
+                       keyword: str = "小护", device: DeviceLike = None,
+                       **kw) -> "KeywordSpotter":
+        """A `speech_charctc_kws_phone-xiaohu` checkpoint dir on `device`
+        (the card unless "cpu" is passed). With no explicit cfg, geometry
+        comes from the dir's own config; the token list from tokens.json,
+        tokens.txt or keywords.txt, the first found."""
+        import os
+        from ..runtime import checkpoints as ckpt
+        from .convert import params_from_numpy
+        dev = resolve_device(device)
+        cfg = cfg or KwsConfig.from_funasr(ckpt.load_model_config(model_dir))
+        params = ckpt.convert_or_load_cached(
+            model_dir, ckpt.shape_template(lambda g: init_params(cfg, g)),
+            ckpt.kws_rules(cfg.num_layers, cfg.rorder))
+        chars: Dict[str, int] = {}
+        for cand in ("tokens.json", "tokens.txt", "keywords.txt"):
+            p = os.path.join(model_dir, cand)
+            if os.path.exists(p):
+                with open(p, encoding="utf-8") as f:
+                    toks = [ln.rstrip("\n").split()[0] for ln in f
+                            if ln.strip()]
+                chars = {t: i for i, t in enumerate(toks)}
+                break
+        if not chars:
+            chars = {chr(0x4E00 + i): i + 1 for i in range(cfg.vocab_size - 1)}
+        return cls(params_from_numpy(params, dev), cfg, chars,
+                   keyword=keyword, device=dev, **kw)
+
     def set_keyword(self, keyword: str) -> None:
         """Refuses characters outside the vocabulary: aliasing them to the
         CTC blank would make the keyword unreachable."""

@@ -15,8 +15,8 @@ length-regulator stack:
   masks: attention spans all S steps (and all frames) under additive masks,
   so every reduction has the reference's length and order.
 
-Left to the checkpoints slice: `SambertConfig.from_kantts` (it reads the
-package's config through `runtime/checkpoints.py`, not ported yet).
+`SambertConfig.from_kantts` reads a mounted KAN-TTS package's config
+through `runtime/checkpoints.py::search_config`.
 """
 from __future__ import annotations
 
@@ -59,6 +59,47 @@ class SambertConfig:
     x_band: int = -1                # causal history band (-1 = unbounded)
     h_band: int = 20                # non-causal memory band (steps, ± around
                                     # the aligned position; -1 = full)
+
+    @classmethod
+    def from_kantts(cls, conf: dict, **overrides) -> "SambertConfig":
+        """Config from a mounted KAN-TTS package's own config.yaml/json.
+        Alias tuples absorb KAN-TTS naming drift; anything a sparse config
+        omits is later pinned from the state dict itself by
+        `config_from_state_dict` (shapes beat config files)."""
+        from ..runtime.checkpoints import search_config
+        alias = {
+            "d_model": ("embedding_dim", "encoder_num_units", "d_model"),
+            "n_heads": ("encoder_num_heads", "num_heads", "n_heads"),
+            "ffn_dim": ("encoder_ffn_inner_dim", "ffn_inner_dim", "ffn_dim"),
+            "encoder_layers": ("encoder_num_layers",),
+            "pnca_layers": ("decoder_num_layers",),
+            "n_mels": ("num_mels", "n_mels", "num_mel_bins"),
+            "outputs_per_step": ("outputs_per_step",),
+            "prenet_units": ("decoder_prenet_units", "prenet_units"),
+            "postnet_layers": ("postnet_num_layers", "postnet_n_convs"),
+            "postnet_channels": ("postnet_num_units", "postnet_embedding_dim",
+                                 "postnet_channels"),
+            "postnet_kernel": ("postnet_kernel_size", "postnet_kernel"),
+            "var_channels": ("predictor_num_units", "predictor_filter_size",
+                             "variance_predictor_filter_size"),
+            "var_kernel": ("predictor_kernel_size",
+                           "variance_predictor_kernel_size"),
+            "n_speakers": ("speaker_units", "num_speakers", "speaker_num",
+                           "n_speakers"),
+            "n_emotions": ("emotion_units", "num_emotions", "emotion_num",
+                           "n_emotions"),
+            "vocab_size": ("num_symbols", "n_symbols", "vocab_size"),
+        }
+        kw = {}
+        for field, names in alias.items():
+            v = search_config(conf or {}, names)
+            if v is None:
+                continue
+            if isinstance(v, (list, tuple)):  # e.g. prenet_units: [256, 256]
+                v = v[-1]
+            kw[field] = int(v)
+        kw.update(overrides)
+        return cls(**kw)
 
 
 def config_from_state_dict(sd, base: SambertConfig) -> SambertConfig:

@@ -189,6 +189,17 @@ def apply_cmvn(feats: torch.Tensor, means: torch.Tensor,
     return (feats + means) * istd
 
 
+def compute_frontend(x: torch.Tensor, cfg: FrontendConfig,
+                     cmvn: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                     ) -> torch.Tensor:
+    """wav [B, T] → LFR+CMVN features [B, T_lfr, lfr_m*n_mels]."""
+    f = fbank(x, cfg)
+    f = apply_lfr(f, cfg.lfr_m, cfg.lfr_n)
+    if cmvn is not None:
+        f = apply_cmvn(f, cmvn[0], cmvn[1])
+    return f
+
+
 def num_valid_fbank_frames(n_samples: torch.Tensor,
                            cfg: FrontendConfig) -> torch.Tensor:
     """[B] valid sample lengths → valid fbank frame counts (floor division,

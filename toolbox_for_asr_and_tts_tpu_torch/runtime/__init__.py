@@ -1,2 +1,20 @@
-"""Framework-free runtime pieces of the port: shape bucketing, RTF
-metrics, the voice service's config, the Prometheus and model registries."""
+"""Framework-free runtime pieces of the port: shape bucketing, the
+services' configs, stage timing and RTF metrics, the Prometheus and model
+registries, and the checkpoint converter (`checkpoints.py`). The
+reference's mesh names (`serving_mesh`, `local_device_count`,
+`shard_batch`) wait for the multi-card slice."""
+from .bucketing import Bucketer, DEFAULT_AUDIO_BUCKETS_S
+from .config import VoiceConfig, TTSConfig, load_voice_config, load_tts_config
+from .metrics import StageTimer, RTFMeter, timing_log
+
+__all__ = [
+    "Bucketer",
+    "DEFAULT_AUDIO_BUCKETS_S",
+    "VoiceConfig",
+    "TTSConfig",
+    "load_voice_config",
+    "load_tts_config",
+    "StageTimer",
+    "RTFMeter",
+    "timing_log",
+]

@@ -1,15 +1,21 @@
 """Per-stage timing log lines and real-time-factor accounting.
 
-Own copy of `RTFMeter` and `timing_log` from the reference's
+Own copy of `StageTimer`, `RTFMeter` and `timing_log` from the reference's
 `runtime/metrics.py`. Callers time work that ends in a host fetch (which
-waits for the device), so the recorded seconds include the device's time.
+waits for the device), so the recorded seconds include the device's time;
+`StageTimer` waits for the card itself at the end of a stage that names
+CUDA tensors.
 """
 from __future__ import annotations
 
 import logging
 import threading
+import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
+
+import torch
 
 logger = logging.getLogger("toolbox.metrics")
 
@@ -18,6 +24,56 @@ TIMING_PREFIX = "耗时统计 -"  # keep the reference's greppable convention
 
 def timing_log(step: str, ms: float) -> None:
     logger.info("%s %s: %.2f ms", TIMING_PREFIX, step, ms)
+
+
+def _wait_device(x: Any) -> None:
+    """Wait for the card's work on every CUDA tensor in `x` (a tensor or a
+    tree of dicts, lists and tuples): one synchronize per device named."""
+    devices = set()
+
+    def walk(t: Any) -> None:
+        if isinstance(t, torch.Tensor):
+            if t.is_cuda:
+                devices.add(t.device)
+        elif isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+    walk(x)
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+
+
+@dataclass
+class StageTimer:
+    """Collects named stage durations into a structured timing dict."""
+
+    stages: Dict[str, float] = field(default_factory=dict)
+    _t0: float = field(default_factory=time.perf_counter)
+
+    @contextmanager
+    def stage(self, name: str, block_on: Any = None):
+        """Time a stage. Yields a list the body can append device tensors
+        to (outputs that do not exist at entry); at exit the card finishes
+        the work on each of them, so device time is attributed to the stage
+        that spent it."""
+        t = time.perf_counter()
+        pending: list = [] if block_on is None else [block_on]
+        try:
+            yield pending
+        finally:
+            _wait_device(pending)
+            ms = (time.perf_counter() - t) * 1000.0
+            self.stages[name] = self.stages.get(name, 0.0) + ms
+            timing_log(name, ms)
+
+    def total_ms(self) -> float:
+        return (time.perf_counter() - self._t0) * 1000.0
+
+    def detailed(self) -> Dict[str, Any]:
+        return {"total_ms": self.total_ms(), "stages_ms": dict(self.stages)}
 
 
 class Tally:

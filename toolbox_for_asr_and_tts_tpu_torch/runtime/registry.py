@@ -10,10 +10,6 @@ ID+revision. The ModelScope leg runs only if the `modelscope` package is
 importable (it is not in the CI image); otherwise resolution stops at the
 filesystem, mirroring the reference's offline behavior with pre-mounted
 volumes.
-
-Beyond the copy: `refuse_checkpoint`, the port's one answer to a resolved
-directory while it cannot load checkpoints (its `runtime/checkpoints.py` is
-not ported). Both services call it before they serve random weights.
 """
 from __future__ import annotations
 
@@ -85,23 +81,3 @@ def resolve(key: str, model_root: Optional[str] = None) -> Optional[str]:
         logger.warning("model %s unresolved (no local dir, no modelscope)",
                        key)
         return None
-
-
-class CheckpointsNotPorted(RuntimeError):
-    """A checkpoint directory resolved, but the port cannot load it."""
-
-
-def refuse_checkpoint(key: str, model_dir: Optional[str], what: str) -> None:
-    """Raise where a checkpoint directory resolves: serving random weights in
-    place of a mounted model is never the answer."""
-    d = resolve(key, model_dir)
-    if d is not None:
-        raise CheckpointsNotPorted(
-            f"{what}: checkpoint directory {d} (registry key {key!r}) found, "
-            "but the port cannot load checkpoints yet — its "
-            "runtime/checkpoints.py is not ported; unmount the directory to "
-            "serve random weights")
-    logger.warning(
-        "NO %s checkpoint dir (registry key %r) — serving RANDOMLY "
-        "INITIALIZED weights: outputs are arbitrary until a real model is "
-        "mounted", what, key)

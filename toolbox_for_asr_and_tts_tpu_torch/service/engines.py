@@ -6,11 +6,12 @@ batched hubs (`service/hub.py`) unless VOICE_BATCH_SERVING=0.
 
 - `build_test_engines`: small random-weight engines (the reference's test
   geometry).
-- `build_engines`: the full-width engines. The port cannot load a mounted
-  checkpoint yet (its `runtime/checkpoints.py` is not ported), so a model
-  directory that `runtime/registry.resolve` finds makes it raise instead of
-  serving random weights in its place; with no directory it serves random
-  weights with the reference's loud warnings.
+- `build_engines`: the full-width engines. Each family whose checkpoint
+  directory `runtime/registry.resolve` finds is loaded from it
+  (`from_model_dir`); a failed load raises, where the reference falls back
+  to random weights. A family with no directory gets random weights with
+  the reference's loud warning. Every load runs before the first hub
+  thread starts.
 
 Hub capacity comes from VOICE_BATCH_CAPACITY, else 64 (the reference's
 TPU dispatch profile, `runtime/autotune.py`, is not ported).
@@ -22,7 +23,7 @@ import os
 from typing import Optional
 
 from ..device import DeviceLike, resolve_device
-from ..runtime.registry import refuse_checkpoint
+from ..runtime.registry import resolve
 
 logger = logging.getLogger("toolbox.engines")
 
@@ -72,20 +73,41 @@ def build_test_engines(device: DeviceLike = None):
                             reco, capacity=16, device=dev))
 
 
+def _load(key: str, model_dir: Optional[str], what: str, loader, fallback):
+    """The family `key` loaded from its resolved checkpoint directory
+    (`loader(dir)`; a failure raises), else `fallback()` with a loud
+    warning: random weights only where no directory resolves."""
+    d = resolve(key, model_dir)
+    if d is None:
+        logger.warning(
+            "NO %s checkpoint dir (registry key %r) — serving RANDOMLY "
+            "INITIALIZED weights: outputs are arbitrary until a real model "
+            "is mounted", what, key)
+        return fallback()
+    eng = loader(d)
+    logger.info("%s loaded from %s", what, d)
+    return eng
+
+
 def _vad_factory(model_dir: Optional[str] = None,
                  capacity: Optional[int] = None, device: DeviceLike = None):
-    """Per-session FSMN-VAD stepper factory over one weight tree (random:
-    the port loads no checkpoint). With batched serving every session's
+    """Per-session FSMN-VAD stepper factory over one weight tree: the
+    resolved `fsmn_vad` checkpoint (geometry and am.mvn CMVN from the dir
+    itself), else random weights. With batched serving every session's
     chunk joins one VadHub tick; a session past the hub's capacity gets its
     own stepper."""
     from ..asr.vad import StreamingVadStepper
     from ..models import fsmn_vad
     import torch
     dev = resolve_device(device)
-    refuse_checkpoint("fsmn_vad", model_dir, "FSMN-VAD")
-    cfg = fsmn_vad.FsmnVadConfig()
-    params = fsmn_vad.init_params(cfg, torch.Generator().manual_seed(7))
-    cmvn = None
+
+    def random_vad():
+        cfg = fsmn_vad.FsmnVadConfig()
+        return (fsmn_vad.init_params(cfg, torch.Generator().manual_seed(7)),
+                cfg, None)
+    params, cfg, cmvn = _load(
+        "fsmn_vad", model_dir, "FSMN-VAD",
+        lambda d: fsmn_vad.from_model_dir(d, device=dev), random_vad)
     # >1.0 keeps the model's decision False while the device work still runs
     threshold = float(os.getenv("VOICE_VAD_THRESHOLD", "0.5"))
 
@@ -120,19 +142,37 @@ def _vad_factory(model_dir: Optional[str] = None,
     return factory
 
 
-def _streaming_factory(reco, model_dir=None, capacity=None,
+def _partials_enabled() -> bool:
+    return os.getenv("VOICE_ENABLE_PARTIALS", "1") in ("1", "true")
+
+
+def _online_recognizer(reco, model_dir: Optional[str] = None,
                        device: DeviceLike = None):
-    """Per-session streaming recognizer factory (2-pass partials, on by
-    default; VOICE_ENABLE_PARTIALS=0 turns them off). The chunked online
-    Paraformer on the offline weights (the port loads no online
-    checkpoint); with batched serving every session's speech chunk joins
-    one ChunkedHub tick; VOICE_STREAMING_IMPL=windowed selects the windowed
-    re-encode recognizer."""
-    if os.getenv("VOICE_ENABLE_PARTIALS", "1") not in ("1", "true"):
+    """The recognizer whose weights the streaming partials use: the
+    separately trained online checkpoint (`paraformer_streaming`) where its
+    directory resolves, else the offline recognizer `reco`."""
+    from ..asr.recognizer import Recognizer
+    dev = resolve_device(device if device is not None else reco.device)
+    d = resolve("paraformer_streaming", model_dir)
+    if d is None:
+        logger.warning("no online (paraformer-zh-streaming) checkpoint dir —"
+                       " streaming partials reuse the offline ASR weights")
+        return reco
+    online = Recognizer.from_model_dir(d, device=dev)
+    logger.info("streaming partials use the online checkpoint %s", d)
+    return online
+
+
+def _streaming_factory(reco, capacity=None, device: DeviceLike = None):
+    """Per-session streaming recognizer factory over `reco`'s weights
+    (2-pass partials, on by default; VOICE_ENABLE_PARTIALS=0 turns them
+    off): the chunked online Paraformer; with batched serving every
+    session's speech chunk joins one ChunkedHub tick;
+    VOICE_STREAMING_IMPL=windowed selects the windowed re-encode
+    recognizer."""
+    if not _partials_enabled():
         return None
     dev = resolve_device(device if device is not None else reco.device)
-    refuse_checkpoint("paraformer_streaming", model_dir,
-                      "online ASR (paraformer-zh-streaming)")
     cmvn = None
     if reco.cmvn is not None:
         cmvn = tuple(c.cpu().numpy() for c in reco.cmvn)
@@ -183,32 +223,39 @@ def _streaming_factory(reco, model_dir=None, capacity=None,
 
 def build_engines(model_dir: Optional[str] = None,
                   device: DeviceLike = None):
-    """Full-width engines on `device`: Paraformer-large, CAM++,
-    CT-Transformer (large), KWS and FSMN-VAD, with random weights. A
-    checkpoint directory that resolves for any of them raises
-    `CheckpointsNotPorted`."""
+    """Full-width engines on `device`: Paraformer-large (offline, and the
+    online checkpoint for the partials), CAM++, CT-Transformer (large),
+    KWS and FSMN-VAD, each loaded from its checkpoint directory where one
+    resolves under `model_dir` (or the registry's default roots), else with
+    random weights. A failed load raises before any hub thread starts."""
     from ..asr.diarization import Diarizer
     from ..asr.recognizer import Recognizer
     from ..asr.session import VoiceEngines
     from ..asr.speaker import SpeakerVerifier
-    from ..models.ct_transformer import Punctuator
-    from ..models.kws_ctc import KeywordSpotter
+    from ..models.campplus import CampPlusConfig
+    from ..models.ct_transformer import CTTransformerConfig, Punctuator
+    from ..models.kws_ctc import KeywordSpotter, KwsConfig
 
     dev = resolve_device(device)
-    for key, what in (("paraformer_offline", "ASR (Paraformer-large)"),
-                      ("sv", "speaker verification (CAM++)"),
-                      ("punc", "punctuation (CT-Transformer)"),
-                      ("kws", "keyword spotting (charctc)")):
-        refuse_checkpoint(key, model_dir, what)
-    from ..models.campplus import CampPlusConfig
-    from ..models.ct_transformer import CTTransformerConfig
-    from ..models.kws_ctc import KwsConfig
-    reco = Recognizer.random(device=dev)
-    sv = SpeakerVerifier.random(CampPlusConfig(), device=dev)
-    punc = Punctuator.random(CTTransformerConfig(), device=dev)
-    kws = KeywordSpotter.random(
-        KwsConfig(), device=dev,
-        threshold=float(os.getenv("VOICE_KWS_THRESHOLD", "1e9")))
+    reco = _load("paraformer_offline", model_dir, "ASR (Paraformer-large)",
+                 lambda d: Recognizer.from_model_dir(d, device=dev),
+                 lambda: Recognizer.random(device=dev))
+    sv = _load("sv", model_dir, "speaker verification (CAM++)",
+               lambda d: SpeakerVerifier.from_model_dir(d, device=dev),
+               lambda: SpeakerVerifier.random(CampPlusConfig(), device=dev))
+    punc = _load("punc", model_dir, "punctuation (CT-Transformer)",
+                 lambda d: Punctuator.from_model_dir(d, device=dev),
+                 lambda: Punctuator.random(CTTransformerConfig(), device=dev))
+    # loaded with the default keyword; VOICE_KWS_KEYWORD applies after, so
+    # an out-of-vocabulary keyword keeps the loaded weights
+    kws_thr = dict(threshold=float(os.getenv("VOICE_KWS_THRESHOLD", "1e9")))
+    kws = _load("kws", model_dir, "keyword spotting (charctc)",
+                lambda d: KeywordSpotter.from_model_dir(d, device=dev,
+                                                        **kws_thr),
+                lambda: KeywordSpotter.random(KwsConfig(), device=dev,
+                                              **kws_thr))
+    online = (_online_recognizer(reco, model_dir, dev)
+              if _partials_enabled() else reco)
     want_kw = os.getenv("VOICE_KWS_KEYWORD", "小护")
     if want_kw != kws.keyword:
         try:
@@ -218,11 +265,14 @@ def build_engines(model_dir: Optional[str] = None,
             logger.exception("invalid VOICE_KWS_KEYWORD %r — keeping the "
                              "default keyword %r", want_kw, kws.keyword)
     diar = Diarizer(reco, sv, punctuator=punc)
+    # the VAD loads before its hub starts, the last load of the bundle;
+    # every other hub starts after it
+    vad_factory = _vad_factory(model_dir, device=dev)
     if _batch_serving():
         from .hub import FinalizeHub, KwsHub
         diar = FinalizeHub(diar)
         kws = KwsHub(kws)
     return VoiceEngines(diarizer=diar, kws=kws, verifier=sv,
-                        vad_factory=_vad_factory(model_dir, device=dev),
-                        streaming_factory=_streaming_factory(
-                            reco, model_dir, device=dev))
+                        vad_factory=vad_factory,
+                        streaming_factory=_streaming_factory(online,
+                                                             device=dev))

@@ -6,11 +6,13 @@ routes and wire format. Requests parse with the port's pydantic-free
 schemas (`service/schemas.py`); a body they refuse gets the same HTTP 422.
 Run on the card with `python -m toolbox_for_asr_and_tts_tpu_torch.service.tts_app`.
 
-Against the reference: where `runtime/registry.resolve("tts")` finds a
-checkpoint directory, `create_app` raises (`CheckpointsNotPorted`) instead
-of logging a failed conversion and serving random weights: the port cannot
-load checkpoints yet. With no directory it serves
-`Synthesizer.random(tiny=False)` on the card, with the reference's warning.
+Against the reference: where `runtime/registry.resolve("tts",
+cfg.model_dir)` finds a checkpoint directory (TTS_MODEL_DIR honoured; the
+reference resolves without it), `create_app` loads it with
+`Synthesizer.from_model_dir`, and a failed load raises there, before any
+request, where the reference logs it and serves random weights. With no
+directory it serves `Synthesizer.random(tiny=False)` on the card, with the
+reference's warning.
 
 Route for route the reference TTS API (tts-service/app/api/tts.py:27-133
 mounted at /api/v1/tts, plus app-level endpoints tts-service/app/main.py:
@@ -33,7 +35,7 @@ import time
 from typing import Optional
 
 from ..runtime.config import TTSConfig, load_tts_config
-from ..runtime.registry import refuse_checkpoint
+from ..runtime.registry import resolve
 from ..tts.jobs import TTSJobManager
 from .http import App, HTTPError, Request, Response
 from .schemas import CancelRequest, TTSRequest, ValidationError
@@ -44,8 +46,18 @@ logger = logging.getLogger("toolbox.tts.app")
 def create_app(synthesizer=None, cfg: Optional[TTSConfig] = None) -> App:
     cfg = cfg or load_tts_config()
     if synthesizer is None:
-        # raises where a checkpoint directory resolves, before any request
-        refuse_checkpoint("tts", cfg.model_dir, "TTS")
+        # a mounted package loads here, so a failed load raises before any
+        # request (and before the job manager's workers start)
+        d = resolve("tts", cfg.model_dir)
+        if d is not None:
+            from ..tts.synthesizer import Synthesizer
+            synthesizer = Synthesizer.from_model_dir(d, tts_cfg=cfg)
+            logger.info("TTS loaded from %s", d)
+        else:
+            logger.warning(
+                "NO TTS checkpoint dir (registry key 'tts') — serving "
+                "RANDOMLY INITIALIZED weights: the audio is arbitrary until "
+                "a real model is mounted")
     app = App("tts-service")
     state = {"manager": None, "started_at": time.time()}
     # WS streaming admission control: same bound as the job manager's pool

@@ -21,16 +21,24 @@ on a directly attached TPU; the port has no such profile and reads the
 environment alone, default off, which is what the reference's profile gives
 on every other platform.
 
-Left out against the reference: `from_model_dir` and `scan_tts_package`
-(they wait for the port's `runtime/checkpoints.py`), the mesh path
-(`use_mesh`), `param_dtype`, and the single-phase path (TTS_TWO_PHASE=0,
-which decodes and vocodes every row at the worst-case length). `_fn` and `_dur_fn` run their program directly: eager PyTorch
-builds nothing per shape, so there is no per-shape cache to keep.
+`Synthesizer.from_model_dir` loads a mounted KAN-TTS package
+(`scan_tts_package`), converting each checkpoint once into a
+`<ckpt>.torch.npz` cache beside it (with its config in
+`<ckpt>.torch.cfg.json`).
+
+Left out against the reference: the mesh path (`use_mesh`),
+`param_dtype`, and the single-phase path (TTS_TWO_PHASE=0, which decodes
+and vocodes every row at the worst-case length). `_fn` and `_dur_fn` run
+their program directly: eager PyTorch builds nothing per shape, so there is
+no per-shape cache to keep.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import logging
 import os
+import re
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -39,7 +47,8 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models import hifigan, sambert
-from ..models.convert import tree_to
+from ..models.convert import params_from_numpy, tree_to
+from ..runtime import checkpoints as ckpt
 from ..runtime.bucketing import Bucketer
 from ..runtime.config import TTSConfig
 from ..runtime.metrics import RTFMeter, Tally, timing_log
@@ -47,9 +56,122 @@ from .concat import StreamingConcat, concat_segments
 from .text_frontend import (G2P, LingVocab, pause_after, split_text_for_tts,
                             text_to_ling_ids)
 
+logger = logging.getLogger("toolbox.tts")
+
 PHONE_BUCKETS = (16, 32, 48, 64, 96, 128)
 
 VOICES = ("zhitian_emo", "zhizhe_emo", "zhiyan_emo", "zhibei_emo")
+
+CACHE_SUFFIX = ".torch.npz"          # converted tree beside a checkpoint
+CFG_SUFFIX = ".torch.cfg.json"       # its pinned config
+
+
+def scan_tts_package(model_dir: str, voice: str
+                     ) -> Tuple[Optional[str], Optional[str]]:
+    """Locate the (acoustic, vocoder) torch checkpoints in a mounted
+    ModelScope sambert-hifigan package.
+
+    KAN-TTS packages keep per-voice checkpoints under e.g.
+    `voices/<voice>/am/ckpt/checkpoint_*.pth` and `…/voc/ckpt/…`, with base
+    models under `basemodel_16k/{sambert,hifigan}` — the exact nesting
+    varies by package revision, so this scans by path tokens: a path segment
+    equal to `voc`/containing `hifigan|vocoder` marks the vocoder, one equal
+    to `am`/containing `sambert|acoustic` the acoustic model. Among
+    candidates, the requested voice's path wins, then the highest checkpoint
+    step number. A port cache (`<ckpt>.torch.npz`) whose checkpoint was
+    deleted stands for it; the reference's `.jax.npz` caches are ignored."""
+    am, voc = [], []
+    for root, _, files in os.walk(model_dir):
+        for f in files:
+            if f.endswith(CACHE_SUFFIX):
+                # converted cache without its source ckpt still loads:
+                # report the (deleted) source path the cache sits next to
+                f = f[:-len(CACHE_SUFFIX)]
+                if f in files:
+                    continue
+            elif not f.endswith((".pth", ".pt", ".bin")):
+                continue
+            p = os.path.join(root, f)
+            segs = [s.lower() for s in
+                    os.path.relpath(p, model_dir).split(os.sep)]
+            if any(s == "voc" or "hifigan" in s or "vocoder" in s
+                   for s in segs):
+                voc.append(p)
+            elif any(s == "am" or "sambert" in s or "acoustic" in s
+                     for s in segs):
+                am.append(p)
+
+    def pick(cands):
+        if not cands:
+            return None
+
+        def score(p):
+            nums = re.findall(r"(\d+)", os.path.basename(p))
+            return (voice.lower() in p.lower(),
+                    int(nums[-1]) if nums else -1)
+
+        return max(cands, key=score)
+
+    return pick(am), pick(voc)
+
+
+def _nearest_config(ckpt_path: str, model_dir: str) -> dict:
+    """The config file closest to a checkpoint, walking up to the package
+    root (KAN-TTS keeps `config.yaml` next to each ckpt dir)."""
+    d = os.path.dirname(os.path.abspath(ckpt_path))
+    top = os.path.abspath(model_dir)
+    while True:
+        conf = ckpt.load_model_config(d)
+        if conf:
+            return conf
+        if d == top:
+            return {}
+        parent = os.path.dirname(d)
+        if parent == d:
+            return {}
+        d = parent
+
+
+def _load_checkpoint(path: str, model_dir: str, cfg_cls, from_conf,
+                     pin_from_sd, init, rules_for, keep_missing: bool = False,
+                     pre_transform=None):
+    """One TTS checkpoint → (cfg, tree with numpy leaves): from its
+    `.torch.npz` cache when that exists and is not older than the
+    checkpoint, else converted (geometry from the nearest config, then
+    pinned from the state dict's shapes) and cached. `init(g, cfg)` builds
+    the family's tree; with keep_missing its leaves that the checkpoint
+    lacks keep a CPU draw of seed 0."""
+    cache, cfg_f = path + CACHE_SUFFIX, path + CFG_SUFFIX
+    fresh = os.path.exists(cache) and os.path.exists(cfg_f) and not (
+        os.path.exists(path)
+        and os.path.getmtime(path) > os.path.getmtime(cache))
+    if fresh:
+        with open(cfg_f, encoding="utf-8") as f:
+            raw = json.load(f)
+        fixed = {k: tuple(tuple(x) if isinstance(x, list) else x
+                          for x in v) if isinstance(v, list) else v
+                 for k, v in raw.items()}
+        cfg = cfg_cls(**fixed)
+        return cfg, ckpt.load_converted(
+            cache, ckpt.shape_template(lambda g: init(g, cfg)))
+    sd = ckpt.load_torch_state_dict(path)
+    if pre_transform is not None:
+        sd = pre_transform(sd)
+    cfg = pin_from_sd(sd, from_conf(_nearest_config(path, model_dir)))
+    if keep_missing:
+        template = init(torch.Generator().manual_seed(0), cfg)
+    else:
+        template = ckpt.shape_template(lambda g: init(g, cfg))
+    params = ckpt.convert_state_dict(sd, rules_for(cfg), template,
+                                     keep_missing=keep_missing)
+    del sd
+    try:
+        ckpt.save_converted(cache, params)
+        with open(cfg_f, "w", encoding="utf-8") as f:
+            json.dump(dataclasses.asdict(cfg), f)
+    except OSError:   # read-only package — conversion still works
+        logger.warning("could not cache converted TTS params at %s", cache)
+    return cfg, params
 
 
 def _env_flag(name: str, default: str) -> bool:
@@ -127,6 +249,59 @@ class Synthesizer:
         return cls(sambert.init_params(g, acfg), acfg,
                    hifigan.init_params(g, vcfg), vcfg, vocab=vocab,
                    device=dev, **kw)
+
+    @classmethod
+    def from_model_dir(cls, model_dir: str, voice: str = "zhitian_emo",
+                       device: DeviceLike = None, **kw) -> "Synthesizer":
+        """Load a mounted `speech_sambert-hifigan_tts_zh-cn_16k` package onto
+        `device` (the card unless "cpu" is passed): scan the KAN-TTS layout
+        for the voice's acoustic + vocoder checkpoints, pin geometry from
+        each checkpoint's own config file and its tensor shapes, convert
+        through the `runtime/checkpoints.py` name maps (Sambert's BatchNorm
+        postnet folded, its framework-only NAR decoder kept from a seed-0
+        draw; HiFi-GAN's weight norm folded), and default to the
+        weight-compatible PNCA decoder unless TTS_DECODER is set."""
+        am_path, voc_path = scan_tts_package(model_dir, voice)
+        if am_path is None or voc_path is None:
+            raise FileNotFoundError(
+                f"no acoustic/vocoder checkpoint pair under {model_dir} "
+                f"(am={am_path}, voc={voc_path})")
+        dev = resolve_device(device)
+        acfg, ap = _load_checkpoint(
+            am_path, model_dir, sambert.SambertConfig,
+            sambert.SambertConfig.from_kantts, sambert.config_from_state_dict,
+            sambert.init_params,
+            lambda c: ckpt.sambert_rules(c.encoder_layers, c.pnca_layers,
+                                         c.postnet_layers),
+            keep_missing=True,   # the NAR fast-mode decoder is framework-only
+            pre_transform=ckpt.fold_batch_norm)   # the real postnet is BN
+        ap = params_from_numpy(ap, dev)
+        vcfg, vp = _load_checkpoint(
+            voc_path, model_dir, hifigan.HifiGanConfig,
+            hifigan.HifiGanConfig.from_config, hifigan.config_from_state_dict,
+            hifigan.init_params,
+            lambda c: ckpt.hifigan_rules(len(c.upsample_rates),
+                                         len(c.resblock_kernels),
+                                         len(c.resblock_dilations[0])),
+            pre_transform=ckpt.fold_weight_norm)
+        vp = params_from_numpy(vp, dev)
+        logger.info("TTS checkpoints loaded: am=%s (%d phones, %dL enc/%dL "
+                    "pnca) voc=%s (hop %d)", am_path, acfg.vocab_size,
+                    acfg.encoder_layers, acfg.pnca_layers, voc_path,
+                    vcfg.hop_length)
+        synth = cls(ap, acfg, vp, vcfg, device=dev, **kw)
+        if len(synth.vocab) != acfg.vocab_size:
+            # the package's phone inventory and the front end's must be
+            # reconciled symbol by symbol; a size drift means ids would
+            # address the wrong embedding rows
+            logger.warning(
+                "frontend phone vocab (%d) != checkpoint embedding rows (%d)"
+                " — map the package's phone list onto tts/pinyin_data.py or "
+                "pass vocab= explicitly", len(synth.vocab), acfg.vocab_size)
+        if "TTS_DECODER" not in os.environ:
+            # real checkpoints only map onto the PNCA AR decoder
+            synth.decoder_mode = "pnca"
+        return synth
 
     # ------------------------------------------------------ device programs
     @torch.inference_mode()
