@@ -13,7 +13,8 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit (nvidia-smi); build the CUDA kernels
-   from `toolbox_for_asr_and_tts_tpu_torch/csrc/` (nvcc, sm_90a);
+   from `toolbox_for_asr_and_tts_tpu_torch/csrc/` (nvcc, sm_90a) and the
+   native libraries from `toolbox_for_asr_and_tts_tpu_torch/native/` (g++);
 2. each kernel against its plain PyTorch version at the main path's shapes
    (TF32 off): K1 in f32 (max|err| 0) and bf16 at the encoder and decoder
    shapes, in the encoder also on the strided V view of a qkv buffer that
@@ -103,9 +104,33 @@ Phases (any failure exits non-zero and prints no result line):
    weights the package defines; the TTS app from the mount completes a
    job; cold and warm load times, bytes written and start-up times;
    `--profile` adds the stages of one Paraformer-large load;
-8. the `streaming`, `service`, `tts`, `checkpoints` and `kernels` JSON
-   lines, then the result line {"ok": true, "device": {"platform": "gpu",
-   "kind": ..., "count": ...}}.
+8. the deployed entry points at full width (phase 9), over phase 8's
+   mount: (a) the port's native FunASR WebSocket server in-process
+   (`native/bridge.py::start_offline_asr_server` over the mount's engines)
+   answers 8 s of phase 6's REST audio in 60 ms s16le frames in modes
+   offline (sent at once), online and 2pass (real time); launches held to
+   the programs each request ran (counters zeroed just before it and read
+   just after); the offline and 2pass-offline texts equal a direct
+   `Diarizer.diarize` + ITN on the same samples, and come from the same
+   recognition as the REST answer (which takes the hard corrections
+   instead of ITN); no ChunkedHub row or streaming session stays in use
+   after the connections close; the time from `is_speaking: false` to the
+   final frame; (b) `launch_voice()` in a child process, started as the
+   deploy image starts it (VOICE_MODEL_DIR = the mount, free VOICE_PORT
+   and FUNASR_WS_PORT): one REST and one FunASR offline request answered
+   with (a)'s texts, start-up to the first answer and the child's own
+   logged `build_engines` time, then SIGTERM → exit 0 within 15 s; (c) the
+   CLI in child processes: `transcribe --itn` prints (a)'s text, `tts -o`
+   from the mounted package writes a WAV at least as long as phase 8's
+   PNCA segment; (d) the native epoll load generator
+   (`native/wsload_client.cpp`) against the mount's voice app: 16 streams,
+   2 cycles of real-time 0.4 s chunks with no extra frames, every stream
+   ok, result latency median and p95, launches accounted. The parts run
+   one at a time ((a), (d), then each child alone), so no time is taken
+   beside another part's load;
+9. the `streaming`, `service`, `tts`, `checkpoints`, `entry_points` and
+   `kernels` JSON lines, then the result line {"ok": true, "device":
+   {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs one card, no network, and only the files of this repository.
 """
@@ -113,6 +138,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1117,6 +1143,10 @@ class RawWS:
                 if op == 0x9:
                     self.send(0xA, payload)
                 elif op == 0x8:
+                    code = struct.unpack(">H", payload[:2])[0] if payload \
+                        else None
+                    self.error = ConnectionError(
+                        f"closed by the server (code {code})")
                     return
                 elif op == 0x1:
                     msg = json.loads(payload)
@@ -2388,16 +2418,17 @@ def profile_load(torch, model_dir: str, cfg):
     return t
 
 
-def checkpoints_path(torch, card, reco, wavs, models, synth, profile: bool):
+def checkpoints_path(torch, card, root, reco, wavs, models, synth,
+                     profile: bool):
     """Phase 8: every family written as a mounted checkpoint directory at
-    full width, then loaded from it (cold, converting; warm, from the
-    cache) and held against the same weights built in memory: the
-    recognizer's token ids and K1/K2 launches, the voice service from
-    `build_engines(model_dir=root)` behind `create_app` (REST text and
-    speakers, direct embeddings, punctuation and KWS scores), and PNCA
-    synthesis from the KAN-TTS package, sample for sample."""
-    import shutil
-    import tempfile
+    full width under `root` (the caller removes it), then loaded from it
+    (cold, converting; warm, from the cache) and held against the same
+    weights built in memory: the recognizer's token ids and K1/K2
+    launches, the voice service from `build_engines(model_dir=root)` behind
+    `create_app` (REST text and speakers, direct embeddings, punctuation
+    and KWS scores), and PNCA synthesis from the KAN-TTS package, sample
+    for sample. Returns (figures, the mounted voice app's Server and
+    engines, still serving for phase 9; the caller stops it)."""
     import numpy as np
     from toolbox_for_asr_and_tts_tpu_torch.asr.diarization import Diarizer
     from toolbox_for_asr_and_tts_tpu_torch.asr.recognizer import Recognizer
@@ -2413,8 +2444,8 @@ def checkpoints_path(torch, card, reco, wavs, models, synth, profile: bool):
     from toolbox_for_asr_and_tts_tpu_torch.utils.audio import base64_to_audio_np
     _, sv, punc, kws = models
     t_phase = time.perf_counter()
-    root = tempfile.mkdtemp(prefix="mounted-damo-")
     out = {"card": card}
+    server = None
     try:
         cmvn = seeded_cmvn(reco.cfg.input_dim)
         vad_params = fsmn_vad.init_params(             # as _vad_factory's
@@ -2524,29 +2555,26 @@ def checkpoints_path(torch, card, reco, wavs, models, synth, profile: bool):
         engines = E.build_engines(model_dir=root)
         t_built = time.perf_counter() - t0
         server = Server(voice_app(engines))
-        try:
-            b64 = wav_b64(make_wavs()[5][: 8 * SR])
-            status, rest = http_json(
-                server.app.port, "POST", "/api/v1/voice/asr", json.dumps(
-                    {"audio_data": b64, "use_wake": False}).encode())
-            startup = time.perf_counter() - t0
-            require(status == 200 and rest.get("success"),
-                    f"REST from the mount: {status} {rest}")
-            diar = engines.diarizer.inner
-            require(diar.recognizer.cfg == reco.cfg
-                    and engines.streaming_factory.hub.ticker.cmvn is not None,
-                    "the served recognizers")
-            wav = base64_to_audio_np(b64)
-            mem = Diarizer(in_memory, sv, punctuator=punc).diarize(wav)
-            served = diar.diarize(wav)
-            direct = apply_hard_corrections("".join(s.text for s in mem))
-            require(rest["text"] == direct,
-                    f"REST text {rest['text']!r} vs in-memory {direct!r}")
-            spk = [(s.text, s.spk, s.start_ms, s.end_ms) for s in served]
-            require(spk == [(s.text, s.spk, s.start_ms, s.end_ms)
-                            for s in mem], "speaker results differ")
-        finally:
-            server.stop()
+        b64 = wav_b64(make_wavs()[5][: 8 * SR])
+        status, rest = http_json(
+            server.app.port, "POST", "/api/v1/voice/asr", json.dumps(
+                {"audio_data": b64, "use_wake": False}).encode())
+        startup = time.perf_counter() - t0
+        require(status == 200 and rest.get("success"),
+                f"REST from the mount: {status} {rest}")
+        diar = engines.diarizer.inner
+        require(diar.recognizer.cfg == reco.cfg
+                and engines.streaming_factory.hub.ticker.cmvn is not None,
+                "the served recognizers")
+        wav = base64_to_audio_np(b64)
+        mem = Diarizer(in_memory, sv, punctuator=punc).diarize(wav)
+        served = diar.diarize(wav)
+        direct = apply_hard_corrections("".join(s.text for s in mem))
+        require(rest["text"] == direct,
+                f"REST text {rest['text']!r} vs in-memory {direct!r}")
+        spk = [(s.text, s.spk, s.start_ms, s.end_ms) for s in served]
+        require(spk == [(s.text, s.spk, s.start_ms, s.end_ms)
+                        for s in mem], "speaker results differ")
         out["service"] = dict(build_engines_s=t_built,
                               startup_to_first_answer_s=startup,
                               chars=len(rest["text"]), sentences=len(mem),
@@ -2557,7 +2585,6 @@ def checkpoints_path(torch, card, reco, wavs, models, synth, profile: bool):
               f"{len(rest['text'])} chars and {len(mem)} sentences with "
               f"speakers {out['service']['speakers']} equal to the "
               f"in-memory diarize on {card}", flush=True)
-        del engines
 
         # TTS from the mount, PNCA, against the weights the package defines
         segments = tts_segments(synth)
@@ -2626,15 +2653,415 @@ def checkpoints_path(torch, card, reco, wavs, models, synth, profile: bool):
               + ", ".join(f"{k} {v['cold_s']:.2f} / {v['warm_s']:.2f}"
                           for k, v in loads.items()) + f" on {card}",
               flush=True)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    except BaseException:
+        if server is not None:
+            server.stop()
+        raise
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"checkpoints phase: {out['phase_s']:.1f} s", flush=True)
+    return out, (server, engines)
+
+
+# ------------------------------------------------ phase 9: the entry points
+FUNASR_FRAME = 960            # samples per FunASR binary frame (60 ms)
+ENTRY_SECONDS = 8             # of phase 6's REST audio per request
+FUNASR_MODES = ("offline", "online", "2pass")
+WSLOAD_STREAMS, WSLOAD_CYCLES = 16, 2
+SIGTERM_LIMIT_S = 15.0
+CHILD_TIMEOUT_S = 300
+
+
+def entry_audio():
+    """Phase 6's REST audio, 8 s, as int16 PCM and as the float samples
+    that both the FunASR server (PCM / 32768) and the WAV decoder give."""
+    import numpy as np
+    x = make_wavs()[5][: ENTRY_SECONDS * SR]
+    pcm16 = np.clip(np.round(x * 32768.0), -32768, 32767).astype("<i2")
+    return pcm16, pcm16.astype(np.float32) / 32768.0
+
+
+def pcm_wav_bytes(pcm16) -> bytes:
+    """A 16 kHz mono 16-bit WAV holding exactly these samples."""
+    import struct
+    data = pcm16.tobytes()
+    return (b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVEfmt "
+            + struct.pack("<IHHIIHH", 16, 1, 1, SR, 2 * SR, 2, 16)
+            + b"data" + struct.pack("<I", len(data)) + data)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def funasr_request(port: int, mode: str, pcm16, paced: bool):
+    """One FunASR utterance on its own connection: the init frame, the PCM
+    in 60 ms binary frames (in real time when `paced`), then
+    {"is_speaking": false}. Returns (the replies [(t, msg)], the time the
+    end marker was sent); the server closing the connection (1011 on a
+    model error) fails the phase."""
+    ws = RawWS(port, path="/")
+    try:
+        ws.send(0x1, json.dumps({
+            "mode": mode, "wav_name": f"smoke-{mode}", "is_speaking": True,
+            "chunk_size": [5, 10, 5], "wav_format": "pcm",
+            "audio_fs": SR}).encode())
+        raw = pcm16.tobytes()
+        t0 = time.perf_counter()
+        for i, j in enumerate(range(0, len(raw), 2 * FUNASR_FRAME)):
+            delay = t0 + i * FUNASR_FRAME / SR - time.perf_counter()
+            if paced and delay > 0:
+                time.sleep(delay)
+            ws.send(0x2, raw[j:j + 2 * FUNASR_FRAME])
+        t_end = ws.send(0x1, b'{"is_speaking": false}')
+        ws.wait_for(lambda m: any(x.get("is_final") for _, x in m), 300)
+    finally:
+        ws.close()
+    return list(ws.messages), t_end
+
+
+def settled(ws_server, timeout: float = 30.0) -> None:
+    """Wait until the FunASR server holds no streaming session: every
+    finished utterance's finalize and close have returned."""
+    end = time.perf_counter() + timeout
+    while ws_server.sessions() and time.perf_counter() < end:
+        time.sleep(0.01)
+
+
+def start_child(argv, env_extra, cwd: str, name: str):
+    """A child process of this interpreter with the repository on its
+    path; its output goes to files under cwd. A thread notes when it
+    exits (`t_end`)."""
+    import threading
+    env = dict(os.environ, PYTHONPATH=ROOT, **env_extra)
+    out = open(os.path.join(cwd, f"{name}.out"), "w")
+    err = open(os.path.join(cwd, f"{name}.err"), "w")
+    proc = subprocess.Popen([sys.executable, *argv], cwd=cwd, env=env,
+                            stdout=out, stderr=err, text=True)
+    proc.files = (out, err)
+    proc.name = name
+    proc.t_start = time.perf_counter()
+    proc.t_end = None
+
+    def watch():
+        proc.wait()
+        proc.t_end = time.perf_counter()
+    threading.Thread(target=watch, daemon=True).start()
+    return proc
+
+
+def watch_health(proc, port: int) -> None:
+    """Note (`t_ready`) when the child's app first answers GET /health."""
+    import threading
+    proc.t_ready = None
+
+    def poll():
+        while proc.poll() is None:
+            try:
+                if http_json(port, "GET", "/health")[0] == 200:
+                    proc.t_ready = time.perf_counter()
+                    return
+            except OSError:
+                pass
+            time.sleep(0.1)
+    threading.Thread(target=poll, daemon=True).start()
+
+
+def child_output(proc):
+    for f in proc.files:
+        f.close()
+    with open(proc.files[0].name) as f:
+        out = f.read()
+    with open(proc.files[1].name) as f:
+        err = f.read()
+    return out, err
+
+
+def wait_child(proc, timeout: float = CHILD_TIMEOUT_S):
+    """Wait for a child; require exit 0. Returns (stdout, stderr)."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    while proc.t_end is None:   # the watcher thread notes the exit
+        time.sleep(0.01)
+    out, err = child_output(proc)
+    require(proc.returncode == 0,
+            f"{proc.name} exited {proc.returncode}: {err[-3000:]}")
+    return out, err
+
+
+def stop_children(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        for f in p.files:
+            f.close()
+
+
+def funasr_phase(torch, server, engines, models, pcm16, audio):
+    """(a): the port's FunASR server in-process over the mounted engines:
+    offline (sent at once), online and 2pass (in real time); launches
+    accounted around each request; the final texts against the REST
+    answer and a direct diarize + ITN on the same samples; ChunkedHub rows
+    and streaming sessions after the connections close."""
+    import base64
+    from toolbox_for_asr_and_tts_tpu_torch.asr.corrections import (
+        apply_hard_corrections)
+    from toolbox_for_asr_and_tts_tpu_torch.asr.itn import apply_itn
+    from toolbox_for_asr_and_tts_tpu_torch.native.bridge import (
+        start_offline_asr_server)
+    t0 = time.perf_counter()
+    ws_server = start_offline_asr_server(engines, port=0)
+    started = time.perf_counter() - t0
+    out = {"native_server_start_s": started}
+    try:
+        def request(mode):
+            got = funasr_request(ws_server.port, mode, pcm16,
+                                 paced=mode != "offline")
+            settled(ws_server)   # 2pass flushes its session after the final
+            return got
+
+        for mode in FUNASR_MODES:
+            (replies, t_end), launches = accounted(
+                torch, f"FunASR {mode}", engines, models,
+                lambda: request(mode))
+            final = [(t, m) for t, m in replies if m.get("is_final")]
+            partials = [m for _, m in replies if not m.get("is_final")]
+            require(len(final) == 1, f"FunASR {mode}: finals {final}")
+            t_final, msg = final[0]
+            want_mode = "2pass-offline" if mode == "2pass" else mode
+            require(msg["mode"] == want_mode
+                    and msg["wav_name"] == f"smoke-{mode}",
+                    f"FunASR {mode}: final {msg}")
+            if mode != "offline":
+                require(partials and all(
+                    m["mode"] == ("2pass-online" if mode == "2pass"
+                                  else "online") and m["text"]
+                    for m in partials), f"FunASR {mode}: partials {partials}")
+            out[mode] = dict(final_after_end_ms=(t_final - t_end) * 1e3,
+                             text=msg["text"], partials=len(partials),
+                             launches=launches)
+            print(f"entry points: FunASR {mode}: final {len(msg['text'])} "
+                  f"chars {(t_final - t_end) * 1e3:.1f} ms after "
+                  f"is_speaking false, {len(partials)} partials", flush=True)
+        # the same samples through REST and through a direct diarize
+        b64 = base64.b64encode(pcm_wav_bytes(pcm16)).decode()
+        status, rest = http_json(server.app.port, "POST",
+                                 "/api/v1/voice/asr", json.dumps(
+                                     {"audio_data": b64,
+                                      "use_wake": False}).encode())
+        require(status == 200 and rest.get("success"), f"REST {rest}")
+        raw = "".join(s.text for s in engines.diarizer.inner.diarize(audio))
+        require(raw, "the direct diarize gave no text")
+        for mode in ("offline", "2pass"):
+            require(out[mode]["text"] == apply_itn(raw),
+                    f"FunASR {mode} text {out[mode]['text']!r} vs diarize + "
+                    f"ITN {apply_itn(raw)!r}")
+        require(rest["text"] == apply_hard_corrections(raw),
+                f"REST text {rest['text']!r} vs diarize + corrections")
+        out["rest_text"] = rest["text"]
+        out["texts_equal_rest"] = out["offline"]["text"] == rest["text"]
+        # rows: every connection is closed; the hub must hold none
+        ticker = engines.streaming_factory.hub.ticker
+        settled(ws_server)
+        out["chunked_rows_in_use"] = ticker.n_live
+        out["streaming_sessions_open"] = ws_server.sessions()
+        require(ticker.n_live == 0 and ws_server.sessions() == 0,
+                f"{ticker.n_live} ChunkedHub rows, {ws_server.sessions()} "
+                f"sessions in use after the connections closed")
+    finally:
+        ws_server.stop()
+    print(f"entry points: FunASR offline and 2pass texts = diarize + ITN "
+          f"({len(out['offline']['text'])} chars; equal to the REST text, "
+          f"which takes the hard corrections instead: "
+          f"{out['texts_equal_rest']}); ChunkedHub rows in use after close "
+          f"{out['chunked_rows_in_use']}; native server started in "
+          f"{started * 1e3:.1f} ms", flush=True)
+    return out
+
+
+def launch_child_phase(proc, vport: int, wport: int, pcm16, funasr):
+    """(b): launch_voice() in a child, started as the deploy image starts
+    it: wait for /health, one REST /asr and one FunASR offline request
+    (the texts of (a)), then SIGTERM: exit 0 within the limit. The
+    start-up time runs from the child's start to its first /health
+    answer (`watch_health`)."""
+    import base64
+    import signal
+    end = time.perf_counter() + CHILD_TIMEOUT_S
+    while proc.t_ready is None:
+        require(proc.poll() is None, "launch_voice exited early: "
+                + child_output(proc)[1][-3000:])
+        require(time.perf_counter() < end, "launch_voice never answered")
+        time.sleep(0.1)
+    first_answer = proc.t_ready - proc.t_start
+    b64 = base64.b64encode(pcm_wav_bytes(pcm16)).decode()
+    status, rest = http_json(vport, "POST", "/api/v1/voice/asr", json.dumps(
+        {"audio_data": b64, "use_wake": False}).encode())
+    replies, _ = funasr_request(wport, "offline", pcm16, paced=False)
+    text = next(m for _, m in replies if m.get("is_final"))["text"]
+    require(status == 200 and rest["text"] == funasr["rest_text"],
+            f"launch_voice REST {rest} vs {funasr['rest_text']!r}")
+    require(text == funasr["offline"]["text"],
+            f"launch_voice FunASR {text!r} vs {funasr['offline']['text']!r}")
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(timeout=SIGTERM_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        raise PhaseError(f"launch_voice still running {SIGTERM_LIMIT_S} s "
+                         f"after SIGTERM")
+    stopped = time.perf_counter() - t0
+    _, err = child_output(proc)
+    require(proc.returncode == 0,
+            f"launch_voice exited {proc.returncode}: {err[-3000:]}")
+    built = re.search(r"engines built in ([0-9.]+) s", err)
+    require(built is not None, "launch_voice logged no build_engines time: "
+            + err[-3000:])
+    build_s = float(built.group(1))
+    print(f"entry points: launch_voice first answered {first_answer:.1f} s "
+          f"after its start, {build_s:.2f} s of it build_engines from the "
+          f"mount (the child's own log); its REST and FunASR texts equal "
+          f"(a)'s; SIGTERM → exit 0 in {stopped:.2f} s", flush=True)
+    return dict(startup_to_first_answer_s=first_answer, build_engines_s=build_s,
+                sigterm_exit_s=stopped, exit_code=proc.returncode)
+
+
+def cli_phase(procs, root: str, work: str, wav_path: str, tts_text: str,
+              funasr, tts_samples: int):
+    """(c): the CLI children, one after the other: `transcribe --itn`
+    prints (a)'s offline text; `tts -o` from the mounted package writes a
+    WAV at least as long as phase 8's PNCA segment."""
+    from toolbox_for_asr_and_tts_tpu_torch.utils.audio import read_wav
+    tts_out = os.path.join(work, "tts.wav")
+    transcribe = start_child(
+        ["-m", "toolbox_for_asr_and_tts_tpu_torch.cli", "transcribe",
+         wav_path, "--itn", "--model-dir", root], {}, work, "cli_transcribe")
+    procs.append(transcribe)
+    out, _ = wait_child(transcribe)
+    rows = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    require(len(rows) == 1 and rows[0]["file"] == wav_path,
+            f"cli transcribe printed {out[-2000:]}")
+    require(rows[0]["text"] == funasr["offline"]["text"],
+            f"cli transcribe {rows[0]['text']!r} vs "
+            f"{funasr['offline']['text']!r}")
+    t_transcribe = transcribe.t_end - transcribe.t_start
+    tts = start_child(
+        ["-m", "toolbox_for_asr_and_tts_tpu_torch.cli", "tts", tts_text,
+         "--model-dir", root, "-o", tts_out], {}, work, "cli_tts")
+    procs.append(tts)
+    out, _ = wait_child(tts)
+    rep = json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+    wav, sr = read_wav(tts_out)
+    require(sr == SR and len(wav) >= tts_samples and rep["output"] == tts_out,
+            f"cli tts wrote {len(wav)} samples at {sr} Hz (phase 8's PNCA "
+            f"segment: {tts_samples})")
+    t_tts = tts.t_end - tts.t_start
+    print(f"entry points: cli transcribe --itn printed (a)'s text (the "
+          f"process took {t_transcribe:.1f} s, the engines' load included); "
+          f"cli tts from the mount wrote {len(wav)} samples ({t_tts:.1f} s)",
+          flush=True)
+    return dict(transcribe_s=t_transcribe, tts_s=t_tts,
+                tts_samples=len(wav))
+
+
+def wsload_phase(torch, server, engines, models, work: str):
+    """(d): the port's epoll load generator against the mounted voice app: S
+    = 16 streams, 2 cycles (the first a grace cycle), real-time 0.4 s
+    chunks of 3 speech + 7 silence, no chunk_end frames; launches
+    accounted over the run."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.native.bridge import (
+        WSLOAD, build_library)
+    binary = build_library(WSLOAD)
+    speech = session_audio(1, seed=900)[0][:CHUNK]
+    with open(os.path.join(work, "speech.pcm"), "wb") as f:
+        f.write(pcm(speech))
+    with open(os.path.join(work, "silence.pcm"), "wb") as f:
+        f.write(np.zeros(CHUNK, "<i2").tobytes())
+    cmd = [binary, "--port", str(server.app.port), "--n",
+           str(WSLOAD_STREAMS), "--cycles", str(WSLOAD_CYCLES),
+           "--deadline", "10", "--hard-timeout", "60",
+           "--speech", os.path.join(work, "speech.pcm"),
+           "--silence", os.path.join(work, "silence.pcm")]
+    t0 = time.perf_counter()
+    proc, launches = accounted(
+        torch, f"wsload S={WSLOAD_STREAMS}", engines, models,
+        lambda: subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=240))
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"wsload_client: {proc.stderr[-2000:]}")
+    recs = [json.loads(x) for x in proc.stdout.splitlines() if x.strip()]
+    streams = [r for r in recs if "idx" in r]
+    summary = next(r["summary"] for r in recs if "summary" in r)
+    lat = [v for r in streams for v in r["lat"]]
+    require(summary.get("ok") == WSLOAD_STREAMS == len(streams)
+            and all(r["ok"] for r in streams) and lat,
+            f"wsload_client: {proc.stdout[-2000:]}")
+    row = dict(streams=len(streams), ok=summary["ok"],
+               ok_per_stream=[r["ok"] for r in streams],
+               result_latency=quantiles(lat), wall_s=wall,
+               launches=launches)
+    print(f"entry points: wsload_client {summary['ok']}/{len(streams)} "
+          f"streams ok; result latency median "
+          f"{row['result_latency']['median_ms']:.1f} ms, p95 "
+          f"{row['result_latency']['p95_ms']:.1f} ms ({len(lat)} results) "
+          f"in {wall:.1f} s", flush=True)
+    return row
+
+
+def entry_points_path(torch, card, root, mounted, tts_text: str,
+                      tts_samples: int):
+    """Phase 9: the deployed entry points at full width on the card, over
+    phase 8's mount. Each part runs with nothing else loading or serving
+    on the host or the card: (a) and (d) in this process, then the
+    children (launch_voice, the CLI's transcribe, its tts) one at a time,
+    so that each time is the layer's own."""
+    t_phase = time.perf_counter()
+    server, engines = mounted
+    diar = engines.diarizer.inner
+    models = (diar.recognizer, diar.verifier, diar.punctuator,
+              engines.kws.inner)
+    pcm16, audio = entry_audio()
+    work = os.path.join(root, "entry-points")
+    os.makedirs(work)
+    wav_path = os.path.join(work, "utterance.wav")
+    with open(wav_path, "wb") as f:
+        f.write(pcm_wav_bytes(pcm16))
+    procs = []
+    try:
+        out = {"card": card}
+        out["funasr"] = funasr_phase(torch, server, engines, models, pcm16,
+                                     audio)
+        out["wsload"] = wsload_phase(torch, server, engines, models, work)
+        vport, wport = free_port(), free_port()
+        procs.append(start_child(
+            ["-c", "from toolbox_for_asr_and_tts_tpu_torch.launch import "
+             "launch_voice; launch_voice()"],
+            dict(VOICE_MODEL_DIR=root, VOICE_HOST="127.0.0.1",
+                 VOICE_PORT=str(vport), FUNASR_WS_PORT=str(wport)),
+            work, "launch_voice"))
+        watch_health(procs[0], vport)
+        out["launch_voice"] = launch_child_phase(procs[0], vport, wport,
+                                                 pcm16, out["funasr"])
+        out["cli"] = cli_phase(procs, root, work, wav_path, tts_text,
+                               out["funasr"], tts_samples)
+    finally:
+        stop_children(procs)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"entry points phase: {out['phase_s']:.1f} s on {card}", flush=True)
     return out
 
 
 # ---------------------------------------------------------------- main
 def main(argv) -> int:
+    import shutil
+    import tempfile
     try:
         import torch
     except ImportError:
@@ -2668,6 +3095,12 @@ def main(argv) -> int:
         for line in str(info["log"]).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas: {line.strip()}")
+        from toolbox_for_asr_and_tts_tpu_torch.native import bridge
+        t0 = time.perf_counter()
+        bridge.build_library()
+        print(f"native libraries (g++, {', '.join(bridge.TARGETS)}) ready in "
+              f"{time.perf_counter() - t0:.1f} s -> "
+              f"{os.path.relpath(bridge.build_dir(), ROOT)}", flush=True)
 
         # off for every phase: the comparisons need full f32, and the main
         # path then runs as it is compared (the package sets neither flag)
@@ -2689,8 +3122,18 @@ def main(argv) -> int:
             torch, reco.params, compare_ids, compare_audio)
         service, models = service_path(torch, card, reco, profile)
         tts, synth = tts_path(torch, card, profile)
-        checkpoints = checkpoints_path(torch, card, reco, wavs, models,
-                                       synth, profile)
+        root = tempfile.mkdtemp(prefix="mounted-damo-")
+        mounted = None
+        try:
+            checkpoints, mounted = checkpoints_path(
+                torch, card, root, reco, wavs, models, synth, profile)
+            entry_points = entry_points_path(
+                torch, card, root, mounted, tts_segments(synth)[0],
+                checkpoints["tts"]["samples"])
+        finally:
+            if mounted is not None:
+                mounted[0].stop()
+            shutil.rmtree(root, ignore_errors=True)
     except Exception:   # every phase failure ends the run without a result
         traceback.print_exc()
         return 1
@@ -2702,6 +3145,12 @@ def main(argv) -> int:
                                                              "rest"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms")
+
+    def entry_launches(k):
+        runs = {f"funasr_{m}": entry_points["funasr"][m]["launches"]
+                for m in FUNASR_MODES}
+        runs["wsload"] = entry_points["wsload"]["launches"]
+        return {r: c[k] for r, c in runs.items()}
     kernels = [
         dict(name="fsmn_conv", route="cuda",
              source="toolbox_for_asr_and_tts_tpu_torch/csrc/fsmn_conv.cu",
@@ -2723,6 +3172,7 @@ def main(argv) -> int:
              launches_loaded=checkpoints["recognizer"]["k1"],
              launches_loaded_with_rescoring=checkpoints["recognizer"][
                  "k1_hotwords"],
+             launches_entry_points=entry_launches("k1"),
              shapes=k1_rows + k1_stream + k1_service),
         dict(name="frame_window", route="cuda",
              source="toolbox_for_asr_and_tts_tpu_torch/csrc/frame_window.cu",
@@ -2739,6 +3189,7 @@ def main(argv) -> int:
              launches_service={r: c["k2"] for r, c in served.items()},
              launches_tts=tts["launches"]["k2"],
              launches_loaded=checkpoints["recognizer"]["k2"],
+             launches_entry_points=entry_launches("k2"),
              shapes=[k2_row] + k2_stream + k2_service),
     ]
     print(json.dumps({"rtf_batch8": rtf, "card": card}))
@@ -2746,6 +3197,7 @@ def main(argv) -> int:
     print(json.dumps({"service": service, "card": card}))
     print(json.dumps({"tts": tts, "card": card}))
     print(json.dumps({"checkpoints": checkpoints}))
+    print(json.dumps({"entry_points": entry_points}, ensure_ascii=False))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

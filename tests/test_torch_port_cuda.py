@@ -533,3 +533,52 @@ def test_loaded_recognizer_on_card_matches_cpu(cuda, no_tf32, tmp_path):
     torch.testing.assert_close(a["token_count"].cpu(), b["token_count"])
     torch.testing.assert_close(a["logits"].cpu(), b["logits"], rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["offline", "2pass"])
+def test_funasr_request_on_card(cuda, no_tf32, mode):
+    """The port's FunASR server over the test engines built on the card
+    (the default device): an offline / 2pass utterance in 60 ms frames
+    gets the final text of a direct diarize + ITN on the same samples,
+    and launches K1 and K2 on the card as often as that diarize (2pass: and
+    once per layer of each chunked step, and K2 once per step); no
+    streaming session or ChunkedHub row stays in use."""
+    import time
+    from _torch_port_helpers import _speech, funasr_utterance
+    from toolbox_for_asr_and_tts_tpu_torch.asr.itn import apply_itn
+    from toolbox_for_asr_and_tts_tpu_torch.native.bridge import (
+        start_offline_asr_server)
+    from toolbox_for_asr_and_tts_tpu_torch.service import engines as E
+    engines = E.build_test_engines()
+    srv = start_offline_asr_server(engines, port=0)
+    try:
+        x = np.concatenate([_speech(7, 15), np.zeros(3200, np.float32)])
+        pcm = np.clip(np.round(x * 32768.0), -32768, 32767).astype("<i2")
+        ticker = engines.streaming_factory.hub.ticker
+        steps = ticker.steps
+        def request():
+            got = funasr_utterance(srv.port, mode, pcm.tobytes())
+            end = time.time() + 30   # 2pass flushes after its final
+            while srv.sessions() and time.time() < end:
+                time.sleep(0.01)
+            return got
+
+        replies, n1, n2 = _counted(request)
+        steps = ticker.steps - steps
+        reco = engines.diarizer.inner.recognizer
+        assert reco.device.type == "cuda"
+        sents, d1, d2 = _counted(lambda: engines.diarizer.diarize(
+            pcm.astype(np.float32) / 32768.0))
+        kind, final = replies[-1]
+        assert kind == "text" and final["is_final"]
+        assert final["mode"] == ("2pass-offline" if mode == "2pass"
+                                 else "offline")
+        text = "".join(s.text for s in sents)
+        assert text and final["text"] == apply_itn(text)
+        assert (mode == "2pass") == (steps > 0)
+        assert n1 == d1 + reco.cfg.encoder_layers * steps > 0
+        assert n2 == d2 + steps > 0
+        assert srv.sessions() == 0 and ticker.n_live == 0
+    finally:
+        srv.stop()
+        engines.close()

@@ -73,7 +73,10 @@ def test_importing_every_module_loads_no_jax():
                  "models.sambert", "models.hifigan", "tts.synthesizer",
                  "tts.jobs", "tts.concat", "tts.text_frontend", "tts.prosody",
                  "tts.break_stats", "service.tts_app", "runtime.checkpoints",
-                 "tools.convert_checkpoint", "tools.check_cache", "asr.itn"):
+                 "tools.convert_checkpoint", "tools.check_cache", "asr.itn",
+                 "native.bridge", "launch", "cli", "asr.batch",
+                 "demo.full_voice_demo", "tools.warmup", "tools.smoke_http",
+                 "tools.start_all"):
         assert f"toolbox_for_asr_and_tts_tpu_torch.{name}" in loaded, name
 
 
@@ -104,6 +107,92 @@ def test_no_source_imports_jax_or_the_reference():
                                           and path.endswith("chip_smoke.py"))]
     assert n >= 45
     assert not bad, bad
+
+
+def _code_strings(tree):
+    """The string constants of a module that are not docstrings."""
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                              ast.AsyncFunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def test_no_source_names_a_path_of_the_reference():
+    """No string in the port's code (docstrings aside) names the reference
+    package's directory, so no module can open a file under it (its
+    `native/` libraries included); the port's Makefile builds only its own
+    sources. `chip_smoke.py`'s `replaces` fields ("file:line" of a TPU
+    kernel) name a line, not a path to open."""
+    import re
+    n = 0
+    for path in _sources():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for value in _code_strings(tree):
+            n += 1
+            if re.fullmatch(REF + r"/[\w/]+\.py:\d+", value):
+                assert path.endswith("chip_smoke.py"), (path, value)
+                continue
+            assert not (value == REF or value.startswith((REF + "/",
+                                                          REF + "."))), \
+                (path, value)
+    assert n > 1000
+    with open(os.path.join(PKG_DIR, "native", "Makefile")) as f:
+        assert REF + "/" not in f.read()
+
+
+def test_native_libraries_load_from_the_port_build_only():
+    """The FunASR server and the WAV ingest, started through the port,
+    map their libraries from the port's `_native_build/` and nothing from
+    the reference's `native/` directory."""
+    code = (
+        "import json\n"
+        "from toolbox_for_asr_and_tts_tpu_torch.native import bridge\n"
+        "from toolbox_for_asr_and_tts_tpu_torch.utils import audio\n"
+        "srv = bridge.NativeWSServer(lambda a, h: '', port=0)\n"
+        "srv.start()\n"
+        "assert audio._native_audio() is not None\n"
+        "maps = [ln.split()[-1] for ln in open('/proc/self/maps')\n"
+        "        if ln.rstrip().endswith('.so')]\n"
+        "srv.stop()\n"
+        "print(json.dumps(sorted(set(maps))))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=180)
+    maps = json.loads(out.stdout.strip().splitlines()[-1])
+    ref_native = os.path.join(ROOT, REF, "native")
+    build = os.path.join(PKG_DIR, "_native_build")
+    assert not [m for m in maps if m.startswith(ref_native)]
+    ours = [m for m in maps if m.startswith(build)]
+    assert sorted(os.path.basename(m) for m in ours) == [
+        "libaudio_ingest.so", "libfunasr_ws.so"]
+
+
+def test_deployed_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """The CLI, the FunASR server, the batch API, the serving tools and the
+    demo build their engines on the card unless told otherwise: without a
+    card they raise."""
+    from toolbox_for_asr_and_tts_tpu_torch import cli
+    from toolbox_for_asr_and_tts_tpu_torch.asr import batch
+    from toolbox_for_asr_and_tts_tpu_torch.demo import full_voice_demo
+    from toolbox_for_asr_and_tts_tpu_torch.native import bridge
+    from toolbox_for_asr_and_tts_tpu_torch.tools import start_all, warmup
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(batch, "_ENGINES", None)
+    wav = str(tmp_path / "a.wav")
+    calls = [lambda: cli.main(["transcribe", wav]),
+             lambda: cli.main(["tts", "你好。", "--tiny",
+                               "-o", str(tmp_path / "o.wav")]),
+             lambda: bridge.start_offline_asr_server(port=0),
+             batch.get_engines, start_all.build_apps,
+             lambda: warmup.main(["--seconds", "1"]),
+             lambda: full_voice_demo.main([wav])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_service_modules_import_httpx_only_inside_calls():

@@ -292,6 +292,12 @@ class Recognizer:
             torch.zeros((batch,), **ints), k_b)
         out[0, 0, 0].item()   # tiny fetch: wait for the run
 
+    def transcribe_file(self, path: str) -> TranscribeResult:
+        from ..utils.audio import ensure_mono_16k, read_wav
+        x, sr = read_wav(path)
+        wav = ensure_mono_16k(x, sr, self.fe_cfg.sample_rate)
+        return self.transcribe([wav])[0]
+
     # --------------------------------------------------------- long audio
     def split_long(self, wav: np.ndarray) -> List[Tuple[int, np.ndarray]]:
         """Silence-aware split of arbitrary-length audio into pieces that

@@ -321,6 +321,7 @@ class App:
         self.on_startup: List[Callable[[], Awaitable[None]]] = []
         self._conn_tasks: set = set()
         self._server = None
+        self._stopping: Optional[asyncio.Task] = None   # runs shutdown()
         self._add_metrics_route()
 
     def _add_metrics_route(self) -> None:
@@ -538,12 +539,21 @@ class App:
                 # real task cancellation (shutdown not initiated) re-raises.
                 if self._server is not None:
                     raise
+                # return only once the task running shutdown() is done: a
+                # loop driven by this coroutine (a server thread's
+                # run_until_complete) would otherwise stop under it
+                stopping = self._stopping
+                if stopping is not None and \
+                        stopping is not asyncio.current_task():
+                    await asyncio.shield(stopping)
 
     async def shutdown(self) -> None:
         """Graceful stop: refuse new connections, cancel live connection
         tasks (their finally blocks release sessions/hub rows), and close
         the listener. Safe to call from the serving loop; from another
-        thread use asyncio.run_coroutine_threadsafe(app.shutdown(), loop)."""
+        thread use asyncio.run_coroutine_threadsafe(app.shutdown(), loop);
+        serve() returns after the task that called this has finished."""
+        self._stopping = asyncio.current_task()
         server, self._server = self._server, None
         if server is not None:
             server.close()   # refuse new connections immediately

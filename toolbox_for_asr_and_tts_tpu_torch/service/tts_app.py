@@ -34,6 +34,7 @@ import logging
 import time
 from typing import Optional
 
+from ..device import DeviceLike
 from ..runtime.config import TTSConfig, load_tts_config
 from ..runtime.registry import resolve
 from ..tts.jobs import TTSJobManager
@@ -43,15 +44,17 @@ from .schemas import CancelRequest, TTSRequest, ValidationError
 logger = logging.getLogger("toolbox.tts.app")
 
 
-def create_app(synthesizer=None, cfg: Optional[TTSConfig] = None) -> App:
+def create_app(synthesizer=None, cfg: Optional[TTSConfig] = None,
+               device: DeviceLike = None) -> App:
     cfg = cfg or load_tts_config()
+    on = {} if device is None else {"device": device}
     if synthesizer is None:
         # a mounted package loads here, so a failed load raises before any
         # request (and before the job manager's workers start)
         d = resolve("tts", cfg.model_dir)
         if d is not None:
             from ..tts.synthesizer import Synthesizer
-            synthesizer = Synthesizer.from_model_dir(d, tts_cfg=cfg)
+            synthesizer = Synthesizer.from_model_dir(d, tts_cfg=cfg, **on)
             logger.info("TTS loaded from %s", d)
         else:
             logger.warning(
@@ -73,7 +76,7 @@ def create_app(synthesizer=None, cfg: Optional[TTSConfig] = None) -> App:
             synth = synthesizer
             if synth is None:
                 from ..tts.synthesizer import Synthesizer
-                synth = Synthesizer.random(tiny=False, tts_cfg=cfg)
+                synth = Synthesizer.random(tiny=False, tts_cfg=cfg, **on)
             state["manager"] = TTSJobManager(synth,
                                              max_workers=cfg.max_concurrent_jobs)
         return state["manager"]
@@ -256,12 +259,13 @@ def create_app(synthesizer=None, cfg: Optional[TTSConfig] = None) -> App:
     return app
 
 
-def main() -> None:
+def main(device: DeviceLike = None) -> None:
     logging.basicConfig(level=logging.INFO, force=True)
     cfg = load_tts_config()
     from .http import ssl_context_for
-    create_app(cfg=cfg).run(cfg.server.host, cfg.server.port,
-                            ssl_context=ssl_context_for(cfg.ssl))
+    create_app(cfg=cfg, device=device).run(
+        cfg.server.host, cfg.server.port,
+        ssl_context=ssl_context_for(cfg.ssl))
 
 
 if __name__ == "__main__":

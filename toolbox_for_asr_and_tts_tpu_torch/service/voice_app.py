@@ -38,6 +38,7 @@ import numpy as np
 
 from ..asr import session as S
 from ..asr.corrections import apply_hard_corrections
+from ..device import DeviceLike
 from ..runtime import prom
 
 _FINALIZE_LAT = prom.histogram("toolbox_asr_finalize_seconds",
@@ -117,7 +118,10 @@ class VoiceService:
                 "sample_id": sample_id}
 
 
-def create_app(engines=None, cfg: Optional[VoiceConfig] = None) -> App:
+def create_app(engines=None, cfg: Optional[VoiceConfig] = None,
+               device: DeviceLike = None) -> App:
+    """The voice app over `engines`, or over `build_engines(cfg.model_dir,
+    device)` built at the first request."""
     cfg = cfg or load_voice_config()
     app = App("voice-service")
     state: Dict[str, Any] = {"service": None, "started_at": time.time()}
@@ -127,7 +131,7 @@ def create_app(engines=None, cfg: Optional[VoiceConfig] = None) -> App:
             eng = engines
             if eng is None:
                 from .engines import build_engines
-                eng = build_engines(cfg.model_dir)
+                eng = build_engines(cfg.model_dir, device=device)
             state["service"] = VoiceService(eng, cfg)
         return state["service"]
 
@@ -384,12 +388,13 @@ def create_app(engines=None, cfg: Optional[VoiceConfig] = None) -> App:
     return app
 
 
-def main() -> None:
+def main(device: DeviceLike = None) -> None:
     logging.basicConfig(level=logging.INFO, force=True)
     cfg = load_voice_config()
     from .http import ssl_context_for
-    create_app(cfg=cfg).run(cfg.server.host, cfg.server.port,
-                            ssl_context=ssl_context_for(cfg.ssl))
+    create_app(cfg=cfg, device=device).run(
+        cfg.server.host, cfg.server.port,
+        ssl_context=ssl_context_for(cfg.ssl))
 
 
 if __name__ == "__main__":

@@ -1,11 +1,14 @@
 """Host-side audio I/O: WAV codec, base64 decode, channel/bit-depth/rate
 normalization.
 
-Copy of `toolbox_for_asr_and_tts_tpu/utils/audio.py` for the port, on its
-pure-Python path: `decode_wav_bytes`, `encode_wav_bytes`, `read_wav`,
-`write_wav`, `resample_poly`, `ensure_mono_16k` and `base64_to_audio_np`
-(numpy WAV codec, then ffmpeg when installed). The native C++ ingest
-(`native/audio_ingest.cpp`) is not ported yet.
+Copy of `toolbox_for_asr_and_tts_tpu/utils/audio.py` for the port:
+`decode_wav_bytes`, `encode_wav_bytes`, `read_wav`, `write_wav`,
+`resample_poly`, `ensure_mono_16k` and `base64_to_audio_np`, whose decode
+ladder is the native C++ ingest (`native/audio_ingest.cpp`, built by
+`native/bridge.py::build_library`), then the numpy WAV codec, then ffmpeg
+when installed. Host code: the two decoders have the same semantics, and
+the numpy one serves when the library cannot be built or loaded (one
+warning says why) or TOOLBOX_NATIVE_AUDIO=0.
 """
 from __future__ import annotations
 
@@ -148,13 +151,62 @@ def ensure_mono_16k(x: np.ndarray, sr: int, target_sr: int = TARGET_SR) -> np.nd
     return np.ascontiguousarray(x, dtype=np.float32)
 
 
+# ----------------------------------------------------- native ingest (C++)
+_NATIVE_AUDIO = None        # ctypes lib, False (unavailable), or None (unset)
+
+
+def _native_audio():
+    """libaudio_ingest.so (native/audio_ingest.cpp): WAV decode + downmix +
+    Kaiser polyphase resample in C++, with utils/audio.py's semantics.
+    Built at first use; when it cannot be built or loaded, one warning says
+    why and the numpy path serves. TOOLBOX_NATIVE_AUDIO=0 turns it off."""
+    global _NATIVE_AUDIO
+    if _NATIVE_AUDIO is None:
+        import ctypes
+        import logging
+        import os
+        _NATIVE_AUDIO = False
+        if os.getenv("TOOLBOX_NATIVE_AUDIO", "1") != "0":
+            try:
+                from ..native.bridge import AUDIO_LIB, load_library
+                lib = load_library(AUDIO_LIB)
+                lib.wav_ingest.restype = ctypes.c_longlong
+                lib.wav_ingest.argtypes = [
+                    ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                    ctypes.POINTER(ctypes.c_float)]
+                _NATIVE_AUDIO = lib
+            except Exception as e:
+                logging.getLogger("toolbox.audio").warning(
+                    "native audio ingest unavailable (%s: %s) — the numpy "
+                    "decoder serves", type(e).__name__, e)
+    return _NATIVE_AUDIO or None
+
+
+def _ingest_native(data: bytes, target_sr: int) -> Optional[np.ndarray]:
+    lib = _native_audio()
+    if lib is None:
+        return None
+    import ctypes
+    n_out = lib.wav_ingest(data, len(data), target_sr, None)
+    if n_out < 0:
+        return None      # parse error → python/ffmpeg ladder decides
+    out = np.empty(int(n_out), np.float32)
+    got = lib.wav_ingest(data, len(data), target_sr,
+                         out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    if got != n_out:
+        return None
+    return out
+
+
 def base64_to_audio_np(b64: str, target_sr: int = TARGET_SR) -> np.ndarray:
     """base64 WAV string → float32 mono numpy at target_sr.
 
-    Decode ladder: numpy WAV codec → ffmpeg subprocess (the reference's
-    native C++ ingest is not ported).
+    Decode ladder: native C++ ingest → numpy WAV codec → ffmpeg subprocess.
     """
     data = base64.b64decode(b64)
+    native = _ingest_native(data, target_sr)
+    if native is not None:
+        return native
     try:
         x, sr = decode_wav_bytes(data)
     except ValueError:
