@@ -10,6 +10,11 @@
                                       # of a Paraformer-large load
     python3 chip_smoke.py --sweep     # also: K1's device time per tile
 
+Every model call of the port runs as a program (`runtime/graphs.py`): on
+the card one captured CUDA graph per shape bucket, replayed; K1 and K2 run
+inside the graphs, and each replay adds the launches its capture recorded
+to the kernels' counters, so every launch check below counts replays.
+
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit (nvidia-smi); build the CUDA kernels
@@ -33,8 +38,10 @@ Phases (any failure exits non-zero and prints no result line):
    (Paraformer-large: 50 + 16 layers, d 512, vocab 8404) transcribes a
    batch of 8 x up to 10 s of 16 kHz audio, with and without hotwords; the
    kernels' launch counters are zeroed just before each transcribe and read
-   just after; RTF of the batch; then the card's forward pass is held
-   against the same port on the CPU for 2 of the rows;
+   just after; RTF of the batch; the forward and rescoring programs'
+   replays bit-equal to their eager calls (TF32 off); with `--profile`, K1
+   and K2 per launch inside the replay; then the card's forward pass is
+   held against the same port on the CPU for 2 of the rows;
 4. the streaming path at full width: `BatchedChunkedASR(ParaformerConfig(),
    OnlineConfig(), capacity=64, partials=True)` on S = 1, 16 and 64 live
    sessions of 3.2-8 s each, fed in 0.4 s chunks and then finalized; per
@@ -48,7 +55,9 @@ Phases (any failure exits non-zero and prints no result line):
    and, through the ticker step's halves (`fused_encode`, `fused_decode`)
    and the streaming VAD, against the same on the CPU (fired counts equal,
    embeddings within 1e-3, ids equal where the top-2 logit gap exceeds
-   1e-3, VAD decisions equal, posteriors within 1e-4);
+   1e-3, VAD decisions equal, posteriors within 1e-4); the chunked step
+   at 1 and 64 rows and the VAD step at 64 rows replay bit-equal to their
+   eager calls, state updates included;
 5. the voice service at full width (phase 6): the engines wired as
    `service/engines.py::build_engines` wires them (FinalizeHub over the
    Diarizer with Paraformer-large, CAM++ and the large CT-Transformer;
@@ -56,7 +65,9 @@ Phases (any failure exits non-zero and prints no result line):
    seeds), served by the port's `create_app` on 127.0.0.1 and driven by a
    minimal RFC 6455 client (`RawWS`): S = 1 and 16 concurrent sessions of
    real-time 0.4 s PCM chunks (partial and finalize latency, median and
-   p95), one session through all four modes (wake → enrollment →
+   p95; S = 16 three times: pipelined, the CHUNKED_PIPELINE=1 default, with
+   the FinalizeHub's first captures, then unpipelined, then pipelined
+   again), one session through all four modes (wake → enrollment →
    start_asr → an utterance with SV), and the REST endpoint against a
    direct `Diarizer.diarize`. Around each of these runs the launch
    counters are zeroed just before and read just after, and each kernel's
@@ -65,7 +76,9 @@ Phases (any failure exits non-zero and prints no result line):
    forwards, embeds, KWS forwards, VAD steps); then the launches per
    punctuate forward, KWS batch and embed around direct calls, and
    CT-Transformer, CAM++ (random BatchNorm statistics) and KWS on the card
-   against the CPU; K1 and K2 at the service shapes join phase 2. Each
+   against the CPU; the punctuation, embed and KWS programs' replays
+   bit-equal to their eager calls; K1 and K2 at the service shapes join
+   phase 2. Each
    audio frame the client sends is followed by a `{"type": "chunk_end"}`
    text frame, answered MISSING_AUDIO_DATA, so that replies can be
    attributed to chunks: extra traffic that real clients do not send;
@@ -78,7 +91,9 @@ Phases (any failure exits non-zero and prints no result line):
    or K2 launch), `synthesize_stream` (time to the first chunk; its
    concatenation against the one-shot waveform within 1 LSB, equal
    lengths), one segment in PNCA mode (AR steps, and the cost of one step
-   from `forward_ar` at two mel lengths), card against CPU on 2 segments
+   from `forward_ar` at two mel lengths, eagerly and as a graph replay; the
+   PNCA synthesis program's replay bit-equal to its eager call), card
+   against CPU on 2 segments
    (probes, durations and mel lengths equal, mel within 1e-4 of its
    largest magnitude, PCM within 2 LSB), and the port's TTS app on
    127.0.0.1 (a REST job polled to `completed`, the same text over `WS
@@ -128,8 +143,10 @@ Phases (any failure exits non-zero and prints no result line):
    ok, result latency median and p95, launches accounted. The parts run
    one at a time ((a), (d), then each child alone), so no time is taken
    beside another part's load;
-9. the `streaming`, `service`, `tts`, `checkpoints`, `entry_points` and
-   `kernels` JSON lines, then the result line {"ok": true, "device":
+9. the `streaming`, `service`, `tts`, `checkpoints`, `entry_points`,
+   `graphs` (per program owner, as first seen by a phase: programs,
+   captures, capture seconds, replays, graph pool bytes at the phase's
+   end) and `kernels` JSON lines, then the result line {"ok": true, "device":
    {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs one card, no network, and only the files of this repository.
@@ -576,6 +593,76 @@ def counted(torch, fn):
     return out, k1.launches, k2.launches
 
 
+# ------------------------------------------- the program layer (graphs)
+GRAPHS = {}   # id(owner) → its stats at the last snapshot, and its phase
+
+
+def graph_snapshot(phase: str) -> None:
+    """Record every live program owner's captures, capture seconds,
+    replays and graph pool bytes (`runtime/graphs.py::report`); an owner
+    keeps the phase that first saw it."""
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import graphs
+    for row in graphs.report():
+        key = row.pop("id")
+        GRAPHS[key] = dict(row, phase=GRAPHS.get(key, {}).get("phase", phase))
+
+
+def graphs_line():
+    rows = sorted(GRAPHS.values(), key=lambda r: (r["phase"], r["owner"]))
+    return dict(owners=rows,
+                captures=sum(r["captures"] for r in rows),
+                capture_s=sum(r["capture_s"] for r in rows),
+                replays=sum(r["replays"] for r in rows),
+                pool_bytes=sum(r["pool_bytes"] or 0 for r in rows))
+
+
+def _flat(torch, tree):
+    from toolbox_for_asr_and_tts_tpu_torch.models.convert import tree_map
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def equal_outputs(torch, got, want, what: str) -> int:
+    """Every tensor of a replay's outputs bit-equal to the eager call's;
+    returns how many were compared."""
+    a, b = _flat(torch, got), _flat(torch, want)
+    require(len(a) == len(b) and a, f"{what}: {len(a)} outputs vs {len(b)}")
+    for i, (x, y) in enumerate(zip(a, b)):
+        require(x.shape == y.shape and x.dtype == y.dtype,
+                f"{what} output {i}: {x.dtype} {tuple(x.shape)} vs "
+                f"{y.dtype} {tuple(y.shape)}")
+        if not torch.equal(x, y):
+            d = (x.double() - y.double()).abs().max().item()
+            raise PhaseError(f"{what} output {i}: the replay differs from "
+                             f"the eager call (max |d| {d:.3g})")
+    return len(a)
+
+
+def replay_vs_eager(torch, prog, *inputs, what: str, state=()) -> int:
+    """A program's replay against its eager function on the same inputs,
+    bit for bit (TF32 off). `state`: tensors the program updates in place
+    (a ticker's rows): both runs start from the same values, the updates
+    must agree too, and the state is left as it was found."""
+    dev = prog.owner.device
+    require(prog.graph is not None, f"{what}: not a captured graph")
+    before = [t.clone() for t in state]
+    got = prog(*inputs)
+    after = [t.clone() for t in state]
+    with torch.inference_mode():
+        for t, b in zip(state, before):
+            t.copy_(b)
+        want = prog.fn(*[torch.as_tensor(a).to(dev, dt)
+                         for a, (_, dt) in zip(inputs, prog.specs)])
+        torch.cuda.synchronize()
+        n = equal_outputs(torch, got, want, what)
+        n += equal_outputs(torch, after, [t.clone() for t in state],
+                           what + " state") if state else 0
+        for t, b in zip(state, before):
+            t.copy_(b)
+    return n
+
+
 def check_results(res, wavs, cfg):
     import numpy as np
     require(len(res) == len(wavs), "one result per row")
@@ -647,11 +734,30 @@ def main_path(torch, card, profile: bool):
               f"{rtf[name]:.6f} (median of 5, "
               f"{statistics.median(times) * 1e3:.1f} ms) on {card}",
               flush=True)
+    batch, lens = reco.bucketer.pad_batch(wavs)
+    prog = reco._fn_for(*batch.shape)
+    n_out = replay_vs_eager(torch, prog, batch, lens,
+                            what="recognizer forward")
+    dev = prog(batch, lens)
+    t_lfr, _ = reco._bucket_shapes(batch.shape[1])
+    counts = dev["token_count"].cpu().numpy()
+    k_b = min(-(-int(counts.max()) // reco.K_BUCKET) * reco.K_BUCKET,
+              dev["embeds"].shape[1])
+    n_out += replay_vs_eager(
+        torch, reco._logits_fn(batch.shape[0], t_lfr, k_b),
+        *(dev[k] for k in reco._RESCORING_INPUTS), what="recognizer logits")
+    print(f"replay vs eager: the forward program (8 x 10 s) and the "
+          f"rescoring program (k_b {k_b}) bit-equal to their eager calls "
+          f"({n_out} outputs: ids, counts, fire frames, f32 enc and embeds, "
+          f"bf16 logits)", flush=True)
+    in_replay = {}
     if profile:
-        profile_transcribe(torch, reco, wavs, rtf["plain"] * audio_s * 1e3)
+        in_replay = profile_transcribe(torch, reco, wavs,
+                                       rtf["plain"] * audio_s * 1e3)
         time_rescoring(torch, reco, wavs)
+    graph_snapshot("main")
     return reco, wavs, {"K1": k1_n, "K2": k2_n, "K1_rescoring": k1_hw,
-                        "K2_rescoring": k2_hw}, rtf
+                        "K2_rescoring": k2_hw, "in_replay": in_replay}, rtf
 
 
 def profile_transcribe(torch, reco, wavs, wall_ms: float):
@@ -677,6 +783,25 @@ def profile_transcribe(torch, reco, wavs, wall_ms: float):
     for e in rows[:15]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms "
               f"{e.count:5d}x  {e.key[:90]}")
+    return kernels_in_replay(rows, "one transcribe's replay")
+
+
+def kernels_in_replay(rows, what: str):
+    """K1's and K2's mean device time per launch among a profile's kernels
+    (the launches of graph replays), in ms."""
+    out = {}
+    for name, sym in (("fsmn_conv", "fsmn_conv_kernel"),
+                      ("frame_window", "frame_window_kernel")):
+        hits = [e for e in rows if sym in e.key]
+        n = sum(e.count for e in hits)
+        if n:
+            out[name] = dict(
+                ms=sum(e.self_device_time_total for e in hits) / 1e3 / n,
+                launches=n)
+    print(f"profile: inside {what}: " + ", ".join(
+        f"{k} {v['ms'] * 1e3:.2f} us x {v['launches']}"
+        for k, v in out.items()), flush=True)
+    return out
 
 
 def time_rescoring(torch, reco, wavs):
@@ -853,7 +978,34 @@ def profile_steps(torch, asr, audios, n_ticks: int = 3):
     for e in rows[:10]:
         print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms "
               f"{e.count / n:7.1f}x  {e.key[:90]}")
-    return dict(busy_ms_per_step=busy, launches_per_step=launches, steps=n)
+    return dict(busy_ms_per_step=busy, launches_per_step=launches, steps=n,
+                in_replay=kernels_in_replay(
+                    rows, f"{len(audios)}-session steps' replays"))
+
+
+def tick_replay_checks(torch, asr, vad):
+    """The chunked step at prefix buckets 1 and 64 and the VAD step at 64
+    rows x 40 frames: each replay bit-equal to its eager function from the
+    same state, state updates included (state restored after)."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    n = 0
+    for b in (1, asr.capacity):
+        audio = (0.1 * rng.standard_normal((b, asr.chunk_samples))).astype(
+            np.float32)
+        n += replay_vs_eager(torch, asr._tick_fn(b), audio,
+                             np.ones((b,), np.float32),
+                             what=f"chunked step b{b}",
+                             state=list(asr.state.values()))
+    feats = rng.standard_normal((vad.capacity, 40, vad.cfg.input_dim)).astype(
+        np.float32)
+    n += replay_vs_eager(torch, vad._step_fn(vad.capacity, 40), feats,
+                         np.ones((vad.capacity,), bool),
+                         what="VAD step", state=[vad.cache])
+    print(f"replay vs eager: chunked steps at 1 and {asr.capacity} rows and "
+          f"the VAD step at {vad.capacity} rows bit-equal to their eager "
+          f"calls ({n} outputs and state leaves)", flush=True)
+    return n
 
 
 def streaming_path(torch, card, params, profile: bool):
@@ -867,7 +1019,7 @@ def streaming_path(torch, card, params, profile: bool):
     cfg, ocfg = ParaformerConfig(), OnlineConfig()
     t0 = time.perf_counter()
     asr = BatchedChunkedASR(params, cfg, ocfg, capacity=64, partials=True)
-    asr.warm()                         # every pow-2 prefix once, all masked
+    asr.warm()                 # every pow-2 prefix's program, and the tail
     torch.cuda.synchronize()
     print(f"streaming: BatchedChunkedASR(ParaformerConfig(), OnlineConfig(), "
           f"capacity=64, partials=True) on {asr.device}, warmed in "
@@ -915,7 +1067,9 @@ def streaming_path(torch, card, params, profile: bool):
         if n == 16:
             compare_ids = {i: ids[i] for i in COMPARE_SESSIONS}
             compare_audio = [audios[i] for i in COMPARE_SESSIONS]
-    out["vad"] = vad_path(torch, card)
+    out["vad"], vad = vad_path(torch, card)
+    out["replay_vs_eager_outputs"] = tick_replay_checks(torch, asr, vad)
+    graph_snapshot("streaming")
     return out, compare_ids, compare_audio
 
 
@@ -929,8 +1083,19 @@ def vad_path(torch, card):
     cfg = fv.FsmnVadConfig()
     vad = BatchedVadTicker(fv.init_params(cfg, torch.Generator().manual_seed(0)),
                            cfg, capacity=64)
+    vad.warm()          # every fbank and step program of 0.4 s chunks
     audios = session_audio(64, seed=164)
     slots = [vad.join() for _ in audios]
+
+    feats_s = []
+    batched_feats = vad._batched_feats
+
+    def timed_feats(slots_):
+        t0 = time.perf_counter()
+        out = batched_feats(slots_)
+        feats_s.append(time.perf_counter() - t0)
+        return out
+    vad._batched_feats = timed_feats   # the fbank replay and the LFR drain
 
     def run():
         walls, decisions = [], 0
@@ -944,19 +1109,24 @@ def vad_path(torch, card):
         return walls, decisions
 
     (walls, speech), k1_n, k2_n = counted(torch, run)
+    del vad._batched_feats
     n = len(walls)
     require(k1_n == cfg.fsmn_layers * n and k2_n == n,
             f"VAD: K1 {k1_n}, K2 {k2_n} in {n} ticks")
     rest = [w * 1e3 for w in walls[1:]]
+    feats_ms = [f * 1e3 for f in feats_s[1:]]
     row = dict(sessions=64, ticks=n, k1_per_tick=k1_n / n,
                k2_per_tick=k2_n / n, tick_median_ms=float(np.median(rest)),
                tick_p95_ms=float(np.percentile(rest, 95)),
+               features_median_ms=float(np.median(feats_ms)),
                speech_decisions=int(speech))
     print(f"streaming VAD S=64: {n} ticks, K1 {k1_n / n:g}/tick, K2 "
           f"{k2_n / n:g}/tick; tick wall median {row['tick_median_ms']:.2f} "
-          f"ms, p95 {row['tick_p95_ms']:.2f} ms; {speech} speech decisions "
+          f"ms, p95 {row['tick_p95_ms']:.2f} ms, of it the features (fbank "
+          f"replay, fetch, 64 host LFR drains) median "
+          f"{row['features_median_ms']:.2f} ms; {speech} speech decisions "
           f"on {card}", flush=True)
-    return row
+    return row, vad
 
 
 def run_direct(torch, device, params, audios):
@@ -1343,15 +1513,21 @@ def build_service(torch, reco):
                          CampPlusConfig())
     punc = Punctuator.random(CTTransformerConfig(), seed=0)
     kws = KeywordSpotter.random(KwsConfig(), seed=0, threshold=-1e9)
+    # as build_engines: the ticker hubs capture their programs before the
+    # gather hubs' threads start
+    vad_factory = E._vad_factory(capacity=64)
+    streaming_factory = E._streaming_factory(reco, capacity=64)
     engines = VoiceEngines(
         diarizer=H.FinalizeHub(Diarizer(reco, sv, punctuator=punc)),
-        kws=H.KwsHub(kws), verifier=sv,
-        vad_factory=E._vad_factory(capacity=64),
-        streaming_factory=E._streaming_factory(reco, capacity=64))
+        kws=H.KwsHub(kws), verifier=sv, vad_factory=vad_factory,
+        streaming_factory=streaming_factory)
     torch.cuda.synchronize()
     print(f"service: engines on {sv.device}, {punc.device}, {kws.device} "
-          f"built in {time.perf_counter() - t0:.1f} s (ChunkedHub warmed at "
-          f"every pow-2 occupancy to 64; CT-Transformer {punc.cfg.num_layers} "
+          f"built in {time.perf_counter() - t0:.1f} s (ChunkedHub and VadHub "
+          f"programs captured at every pow-2 occupancy to 64, the ChunkedHub "
+          f"pipelined: "
+          f"{engines.streaming_factory.hub.ticker.pipelined}; "
+          f"CT-Transformer {punc.cfg.num_layers} "
           f"layers d {punc.cfg.d_model}, vocab {punc.cfg.vocab_size}; CAM++ "
           f"blocks {sv.cfg.block_layers}; KWS {kws.cfg.num_layers} FSMN "
           f"layers, proj {kws.cfg.proj_dim})", flush=True)
@@ -1691,8 +1867,29 @@ def service_path(torch, card, reco, profile: bool):
     server = Server(voice_app(engines))
     try:
         port = server.app.port
-        out = {f"S{n}": sessions_run(torch, port, engines, models, n)
-               for n in SERVICE_SIZES}
+        out = {"S1": sessions_run(torch, port, engines, models, 1)}
+        # S = 16 under the serving default (CHUNKED_PIPELINE=1: the first
+        # run also captures the FinalizeHub's new batch buckets), then with
+        # the ticker's pipelined flag off (what CHUNKED_PIPELINE=0 sets),
+        # then pipelined again
+        ticker = engines.streaming_factory.hub.ticker
+        require(ticker.pipelined, "the ChunkedHub does not pipeline by "
+                "default")
+        try:
+            for run, piped in (("S16_first", True), ("S16_unpipelined", False),
+                               ("S16", True)):
+                ticker.pipelined = piped
+                out[run] = sessions_run(torch, port, engines, models, 16)
+                out[run]["pipelined"] = piped
+        finally:
+            ticker.pipelined = True
+        print("service S=16 partial latency median / p95: pipelined "
+              + ", ".join(f"{out[r]['partial']['median_ms']:.1f} / "
+                          f"{out[r]['partial']['p95_ms']:.1f} ms ({r})"
+                          for r in ("S16_first", "S16"))
+              + f"; unpipelined {out['S16_unpipelined']['partial']['median_ms']:.1f}"
+              f" / {out['S16_unpipelined']['partial']['p95_ms']:.1f} ms on "
+              f"{card}", flush=True)
         out["four_modes"] = four_mode_session(torch, port, engines, models)
         out["rest"] = rest_check(torch, port, engines, models)
         if profile:
@@ -1702,7 +1899,30 @@ def service_path(torch, card, reco, profile: bool):
         server.stop()
     out["launches"] = service_launches(torch, sv, punc, kws)
     out["card_vs_cpu"] = service_card_vs_cpu(torch, sv, punc, kws)
+    out["replay_vs_eager_outputs"] = service_replay_checks(torch, sv, punc,
+                                                           kws)
+    graph_snapshot("service")
     return out, models
+
+
+def service_replay_checks(torch, sv, punc, kws):
+    """The punctuation (8 x 64 words), embed (16 x 1 s) and KWS (64 x 1.6 s)
+    programs at full width: each replay bit-equal to its eager call."""
+    import numpy as np
+    rng = np.random.default_rng(8)
+    ids = rng.integers(0, punc.cfg.vocab_size, (8, 64)).astype(np.int32)
+    n = replay_vs_eager(torch, punc._fn(8, 64), ids,
+                        np.full((8,), 64, np.int32), what="punctuation")
+    wav = (0.1 * rng.standard_normal((16, SR))).astype(np.float32)
+    n += replay_vs_eager(torch, sv._fn(16, SR), wav,
+                         np.full((16,), SR, np.int64), what="embed")
+    win = (0.1 * rng.standard_normal((64, 25600))).astype(np.float32)
+    n += replay_vs_eager(torch, kws._batch_fn(64, 25600), win,
+                         what="KWS batch")
+    print(f"replay vs eager: punctuation (8 x 64), embed (16 x 1 s) and KWS "
+          f"(64 x 1.6 s) programs bit-equal to their eager calls ({n} "
+          f"outputs)", flush=True)
+    return n
 
 
 # ------------------------------------------------------ phase 7: TTS
@@ -1911,8 +2131,19 @@ def tts_pnca(torch, card, synth, segments, profile: bool):
     require(n["k1"] == 0 and n["k2"] == 0 and n["ar_steps"] > 0,
             f"pnca programs {n}")
     require(len(wavs[0]) > 0, "pnca gave no audio")
-    ids, lens, spk = (torch.from_numpy(a).to(synth.device)
-                      for a in tts_batch(synth, segments[:1]))
+    arrays = tts_batch(synth, segments[:1])
+    graph_step = pnca_graph_steps(torch, synth, arrays)
+    tts_pin(synth, "pnca")
+    try:
+        n_out = replay_vs_eager(
+            torch, synth._synth_prog(1, arrays[0].shape[1], PNCA_T_MELS[0]),
+            *arrays, what="PNCA synthesis")
+    finally:
+        tts_pin(synth, "nar")
+    print(f"replay vs eager: the PNCA synthesis program (t_mel "
+          f"{PNCA_T_MELS[0]}) bit-equal to its eager call ({n_out} output: "
+          f"int16 PCM and mel lengths)", flush=True)
+    ids, lens, spk = (torch.from_numpy(a).to(synth.device) for a in arrays)
 
     def ar(t_mel):
         with torch.inference_mode():
@@ -1936,7 +2167,8 @@ def tts_pnca(torch, card, synth, segments, profile: bool):
     out = dict(segment=segments[0], ar_steps=n["ar_steps"], wall_ms=wall,
                ms_per_step_in_call=wall / n["ar_steps"],
                forward_ar_ms={str(t): w for t, w in zip(PNCA_T_MELS, walls)},
-               ms_per_step=per_step)
+               ms_per_step=per_step, graph=graph_step,
+               replay_vs_eager_outputs=n_out)
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof_ctx
         launches = []
@@ -1951,11 +2183,44 @@ def tts_pnca(torch, card, synth, segments, profile: bool):
     print(f"tts pnca: one segment ({len(wavs[0]) / SR:.3f} s) in {wall:.1f} "
           f"ms, {n['ar_steps']} AR steps ({wall / n['ar_steps']:.3f} ms per "
           f"step of the call); forward_ar alone {out['forward_ar_ms']} ms at "
-          f"t_mel {PNCA_T_MELS}: {per_step:.3f} ms per step"
+          f"t_mel {PNCA_T_MELS}: {per_step:.3f} ms per step eagerly, "
+          f"{graph_step['ms_per_step']:.3f} ms per step in a graph replay "
+          f"({graph_step['replay_ms']} ms)"
           + (f", {out['launches_per_step']:.1f} launches per step "
              f"({out['launches']})" if profile else "") + f" on {card}",
           flush=True)
     return out
+
+
+def pnca_graph_steps(torch, synth, arrays):
+    """`forward_ar`'s mel captured as one graph per t_mel (the PNCA scan of
+    ⌈t_mel / r⌉ steps inside it, as in the synthesis program): the replay's
+    wall at PNCA_T_MELS (median of 5, host clock ending in a synchronize);
+    the difference over the extra steps is one step's cost."""
+    from toolbox_for_asr_and_tts_tpu_torch.models import sambert
+    from toolbox_for_asr_and_tts_tpu_torch.runtime.graphs import Programs
+    progs = Programs(synth.device, "pnca-measure")
+    specs = [(a.shape, torch.from_numpy(a).dtype) for a in arrays]
+    r = synth.acfg.outputs_per_step
+    walls, capture_s = [], []
+    for t in PNCA_T_MELS:
+        t0 = time.perf_counter()
+        prog = progs.get(t, lambda t=t: ((lambda i, n, s: sambert.forward_ar(
+            synth.ap, i, n, s, synth.acfg, t_mel=t)["mel"]), specs))
+        capture_s.append(time.perf_counter() - t0)
+        prog(*arrays, read=lambda m: None)
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prog(*arrays, read=lambda m: None)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        walls.append(statistics.median(ts))
+    steps = [-(-t // r) for t in PNCA_T_MELS]
+    return dict(replay_ms={str(t): w for t, w in zip(PNCA_T_MELS, walls)},
+                capture_s={str(t): c for t, c in zip(PNCA_T_MELS, capture_s)},
+                ms_per_step=(walls[1] - walls[0]) / (steps[1] - steps[0]))
 
 
 def tts_card_vs_cpu(torch, synth, segments):
@@ -2134,6 +2399,7 @@ def tts_path(torch, card, profile: bool):
                        + out["service"][k] for k in ("k1", "k2")}
     if profile:
         out["profile"] = profile_tts(torch, synth, one_shot["wall_ms"])
+    graph_snapshot("tts")
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"tts phase: {out['phase_s']:.1f} s", flush=True)
     return out, synth
@@ -2657,6 +2923,7 @@ def checkpoints_path(torch, card, root, reco, wavs, models, synth,
         if server is not None:
             server.stop()
         raise
+    graph_snapshot("checkpoints")
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"checkpoints phase: {out['phase_s']:.1f} s", flush=True)
     return out, (server, engines)
@@ -3053,6 +3320,7 @@ def entry_points_path(torch, card, root, mounted, tts_text: str,
                                out["funasr"], tts_samples)
     finally:
         stop_children(procs)
+    graph_snapshot("entry_points")
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"entry points phase: {out['phase_s']:.1f} s on {card}", flush=True)
     return out
@@ -3078,6 +3346,10 @@ def main(argv) -> int:
               file=sys.stderr)
         return 1
     profile = "--profile" in argv
+    t_start = time.perf_counter()
+
+    def at(what):
+        print(f"[{time.perf_counter() - t_start:.1f} s] {what}", flush=True)
     try:
         card = card_line()
         print(card, flush=True)       # name, power limit: as nvidia-smi says
@@ -3114,19 +3386,25 @@ def main(argv) -> int:
         k2_row = check_k2(torch, peaks)
         k1_stream, k2_stream = check_streaming_kernels(torch, peaks, floor_ms)
         k1_service, k2_service = check_service_kernels(torch, peaks, floor_ms)
+        at("phase 3: the main path")
         reco, wavs, launches, rtf = main_path(torch, card, profile)
         compare_cpu(torch, reco, wavs)
+        at("phase 4: the streaming path")
         streaming, compare_ids, compare_audio = streaming_path(
             torch, card, reco.params, profile)
         streaming["card_vs_cpu"] = compare_streaming(
             torch, reco.params, compare_ids, compare_audio)
+        at("phase 6: the voice service")
         service, models = service_path(torch, card, reco, profile)
+        at("phase 7: TTS")
         tts, synth = tts_path(torch, card, profile)
+        at("phase 8: mounted checkpoints")
         root = tempfile.mkdtemp(prefix="mounted-damo-")
         mounted = None
         try:
             checkpoints, mounted = checkpoints_path(
                 torch, card, root, reco, wavs, models, synth, profile)
+            at("phase 9: the entry points")
             entry_points = entry_points_path(
                 torch, card, root, mounted, tts_segments(synth)[0],
                 checkpoints["tts"]["samples"])
@@ -3137,12 +3415,14 @@ def main(argv) -> int:
     except Exception:   # every phase failure ends the run without a result
         traceback.print_exc()
         return 1
+    at("all phases passed")
 
     main_k1 = next(r for r in k1_rows
                    if r["site"] == "encoder" and r["dtype"] == "float32")
     served = {run: service[run]["launches"]
-              for run in [f"S{n}" for n in SERVICE_SIZES] + ["four_modes",
-                                                             "rest"]}
+              for run in ("S1", "S16_first", "S16_unpipelined", "S16",
+                          "four_modes", "rest")}
+    in_replay = launches["in_replay"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms")
 
@@ -3173,6 +3453,9 @@ def main(argv) -> int:
              launches_loaded_with_rescoring=checkpoints["recognizer"][
                  "k1_hotwords"],
              launches_entry_points=entry_launches("k1"),
+             ms_in_replay=in_replay.get("fsmn_conv"),
+             ms_in_step_replay=streaming["S64"].get("profile", {}).get(
+                 "in_replay", {}).get("fsmn_conv"),
              shapes=k1_rows + k1_stream + k1_service),
         dict(name="frame_window", route="cuda",
              source="toolbox_for_asr_and_tts_tpu_torch/csrc/frame_window.cu",
@@ -3190,14 +3473,19 @@ def main(argv) -> int:
              launches_tts=tts["launches"]["k2"],
              launches_loaded=checkpoints["recognizer"]["k2"],
              launches_entry_points=entry_launches("k2"),
+             ms_in_replay=in_replay.get("frame_window"),
+             ms_in_step_replay=streaming["S64"].get("profile", {}).get(
+                 "in_replay", {}).get("frame_window"),
              shapes=[k2_row] + k2_stream + k2_service),
     ]
+    graph_snapshot("end")
     print(json.dumps({"rtf_batch8": rtf, "card": card}))
     print(json.dumps({"streaming": streaming, "card": card}))
     print(json.dumps({"service": service, "card": card}))
     print(json.dumps({"tts": tts, "card": card}))
     print(json.dumps({"checkpoints": checkpoints}))
     print(json.dumps({"entry_points": entry_points}, ensure_ascii=False))
+    print(json.dumps({"graphs": graphs_line()}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -582,3 +582,234 @@ def test_funasr_request_on_card(cuda, no_tf32, mode):
     finally:
         srv.stop()
         engines.close()
+
+
+# ------------------------------------- the program layer (runtime/graphs.py)
+def _tiny_recognizer(device):
+    from toolbox_for_asr_and_tts_tpu_torch.asr.recognizer import Recognizer
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer import (
+        ParaformerConfig)
+    return Recognizer.random(
+        ParaformerConfig(input_dim=560, d_model=32, n_heads=2, ffn_dim=64,
+                         encoder_layers=2, decoder_layers=2, vocab_size=64),
+        device=device)
+
+
+def _equal_trees(got, want):
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            _equal_trees(got[k], want[k])
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            _equal_trees(a, b)
+    else:
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got, want)
+
+
+def _replay_vs_eager(prog, *inputs):
+    """A program's replay against its eager function on the same inputs:
+    equal bit for bit (TF32 off)."""
+    dev = prog.owner.device
+    with torch.inference_mode():
+        want = prog.fn(*[torch.as_tensor(a).to(dev, dt)
+                         for a, (_, dt) in zip(inputs, prog.specs)])
+    got = prog(*inputs)
+    torch.cuda.synchronize()
+    _equal_trees(got, want)
+
+
+def _wavs(seed, lengths):
+    rng = np.random.default_rng(seed)
+    return [(0.3 * rng.standard_normal(n)).astype(np.float32)
+            for n in lengths]
+
+
+def test_recognizer_replay_equals_eager(cuda, no_tf32):
+    """The forward and rescoring programs replay what their eager functions
+    compute; transcribe (with hotwords: rescoring) equals the CPU's ids."""
+    reco = _tiny_recognizer(cuda)
+    batch, lens = reco.bucketer.pad_batch(_wavs(20, (16000, 9000, 30000)))
+    prog = reco._fn_for(*batch.shape)
+    assert prog.graph is not None
+    _replay_vs_eager(prog, batch, lens)
+    out = prog(batch, lens)
+    t_lfr, _ = reco._bucket_shapes(batch.shape[1])
+    lp = reco._logits_fn(batch.shape[0], t_lfr, reco.K_BUCKET)
+    _replay_vs_eager(lp, *(out[k] for k in reco._RESCORING_INPUTS))
+    cpu = _tiny_recognizer("cpu")
+    wavs = _wavs(21, (16000, 30000))
+    for hw in (None, {"一": 2.0}):
+        got = [r.token_ids for r in reco.transcribe(wavs, hotwords=hw)]
+        assert got == [r.token_ids for r in cpu.transcribe(wavs, hotwords=hw)]
+
+
+def test_recognizer_four_threads_replay_one_program(cuda, no_tf32):
+    """Hub and REST threads share one recognizer: four threads replaying
+    its programs at once get the single-thread answers."""
+    import threading
+    reco = _tiny_recognizer(cuda)
+    batches = [_wavs(30 + i, (16000 + 3000 * i, 12000)) for i in range(4)]
+    want = [[r.token_ids for r in reco.transcribe(b, hotwords={"一": 1.0})]
+            for b in batches]
+    got = [None] * 4
+
+    def run(i):
+        for _ in range(5):
+            got[i] = [r.token_ids for r in
+                      reco.transcribe(batches[i], hotwords={"一": 1.0})]
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert got == want
+
+
+def test_tick_programs_replay_equals_eager(cuda, no_tf32):
+    """A chunked tick at two prefix buckets and a VAD tick: the tickers'
+    replays against the same programs' eager functions on a second pair
+    of tickers (state, fired ids and counts, VAD probabilities bit-equal)."""
+    asr_g, vad_g = _tickers_on(cuda, True)
+    asr_e, vad_e = _tickers_on(cuda, True)
+    rng = np.random.default_rng(22)
+    for t in (asr_g, asr_e):
+        for _ in range(3):
+            t.join()
+    for step in range(3):
+        audio = (0.2 * rng.standard_normal((4, 6400))).astype(np.float32)
+        for b in (2, 4):
+            active = np.ones((b,), np.float32)
+            prog = asr_g._tick_fn(b)
+            a_len = asr_g.chunk_samples
+            got = prog(audio[:b, :a_len], active)
+            with torch.inference_mode():
+                want = asr_e._tick_fn(b).fn(
+                    torch.from_numpy(audio[:b, :a_len]).to(cuda),
+                    torch.from_numpy(active).to(cuda))
+            _equal_trees(got, want)
+            _equal_trees(asr_g.state, asr_e.state)
+    for t in (vad_g, vad_e):
+        t.join()
+    feats = (rng.standard_normal((1, 40, vad_g.cfg.input_dim))
+             .astype(np.float32))
+    got = vad_g._step_fn(1, 40)(feats, np.ones((1,), bool))
+    with torch.inference_mode():
+        want = vad_e._step_fn(1, 40).fn(torch.from_numpy(feats).to(cuda),
+                                        torch.ones((1,), dtype=torch.bool,
+                                                   device=cuda))
+    _equal_trees(got, want)
+    assert torch.equal(vad_g.cache, vad_e.cache)
+
+
+def test_service_programs_replay_equals_eager(cuda, no_tf32):
+    """KWS batch, punctuation and embed programs against their eager
+    functions, bit for bit."""
+    from toolbox_for_asr_and_tts_tpu_torch.asr.speaker import SpeakerVerifier
+    from toolbox_for_asr_and_tts_tpu_torch.models import ct_transformer as ct
+    from toolbox_for_asr_and_tts_tpu_torch.models import kws_ctc
+    kws = kws_ctc.KeywordSpotter.random(device=cuda)
+    wins = np.stack(_wavs(23, (25600,) * 4))
+    _replay_vs_eager(kws._batch_fn(4, 25600), wins)
+    punc = ct.Punctuator.random(device=cuda)
+    ids = np.random.default_rng(24).integers(0, 4000, (2, 16)).astype(
+        np.int32)
+    _replay_vs_eager(punc._fn(2, 16), ids, np.array([16, 9], np.int32))
+    sv = SpeakerVerifier.random(device=cuda)
+    batch, lens = sv.bucketer.pad_batch(_wavs(25, (16000, 24000)))
+    _replay_vs_eager(sv._fn(*batch.shape), batch, lens)
+
+
+def test_replay_counts_the_captured_launches(cuda, no_tf32):
+    """A capture counts no launch; each replay adds the capture's tally
+    (K1 once per encoder and decoder layer, K2 once) to the counters."""
+    reco = _tiny_recognizer(cuda)
+    batch, lens = reco.bucketer.pad_batch(_wavs(26, (16000,)))
+    prog, n1, n2 = _counted(lambda: reco._fn_for(*batch.shape))
+    assert (n1, n2) == (0, 0) and prog.graph is not None
+    assert prog.tally == {"fsmn_conv": 4, "frame_window": 1}
+    for reps in (1, 3):
+        _, n1, n2 = _counted(lambda: [prog(batch, lens) for _ in range(reps)])
+        assert (n1, n2) == (4 * reps, reps)
+
+
+def test_session_programs_replay_equals_eager(cuda, no_tf32):
+    """The per-session programs: OnlineRecognizer's step and incremental
+    decode (ids equal the CPU's), the VAD stepper's step; each replay
+    bit-equal to its eager function."""
+    from toolbox_for_asr_and_tts_tpu_torch.asr.tokenizer import CharTokenizer
+    from toolbox_for_asr_and_tts_tpu_torch.asr.vad import StreamingVadStepper
+    from toolbox_for_asr_and_tts_tpu_torch.models import fsmn_vad as fv
+    from toolbox_for_asr_and_tts_tpu_torch.models import paraformer as pf
+    from toolbox_for_asr_and_tts_tpu_torch.models import paraformer_online as po
+    cfg = pf.ParaformerConfig(d_model=32, n_heads=2, ffn_dim=64,
+                              encoder_layers=4, decoder_layers=2,
+                              vocab_size=64)
+    p = pf.init_params(cfg, torch.Generator().manual_seed(0))
+    audio = _wavs(27, (6400 * 6,))[0]
+    ids = {}
+    for dev in (cuda, torch.device("cpu")):
+        reco = po.OnlineRecognizer(p, cfg, CharTokenizer.dummy(64),
+                                   partial_mode="incremental", device=dev)
+        for c in range(0, len(audio), 6400):
+            reco.push_audio(audio[c:c + 6400])
+        ids[dev.type] = list(reco._inc_ids)
+        if dev.type == "cuda":
+            keys = sorted(reco._state)
+            feats = np.random.default_rng(28).standard_normal(
+                (1, reco.ocfg.c1, cfg.input_dim)).astype(np.float32)
+            _replay_vs_eager(reco._step_fn(), feats,
+                             reco._active_mask(reco.ocfg.c1, False),
+                             *(reco._state[k] for k in keys))
+            emb = torch.randn(1, reco.ocfg.tokens_per_chunk, 32, device=cuda)
+            _replay_vs_eager(reco._inc_fn(), emb, np.array([2], np.int32),
+                             *(reco._dstate[k] for k in po.DECODER_KEYS))
+        reco.finalize()
+    assert ids["cuda"] == ids["cpu"] and ids["cpu"]
+    vcfg = fv.FsmnVadConfig(proj_dim=16, linear_dim=32, fsmn_layers=4)
+    step = StreamingVadStepper(
+        fv.init_params(vcfg, torch.Generator().manual_seed(0)), vcfg,
+        device=cuda)
+    for c in range(3):
+        step(audio[c * 6400:(c + 1) * 6400])
+    feats = np.random.default_rng(29).standard_normal(
+        (1, 40, vcfg.input_dim)).astype(np.float32)
+    _replay_vs_eager(step._step_fn(40), feats, step.cache)
+
+
+def test_pnca_synthesis_replay_equals_eager(cuda, no_tf32):
+    """The PNCA synthesis program (the whole AR scan in one graph) and the
+    duration probe against their eager functions, bit for bit."""
+    from toolbox_for_asr_and_tts_tpu_torch.tts.synthesizer import Synthesizer
+    synth = Synthesizer.random(tiny=True, device=cuda)
+    synth.decoder_mode = "pnca"
+    from toolbox_for_asr_and_tts_tpu_torch.tts.text_frontend import (
+        text_to_ling_ids)
+    seqs = [text_to_ling_ids(t, synth.g2p, synth.vocab)
+            for t in ("你好世界。", "今天天气很好。")]
+    ids = np.zeros((2, 16, 4), np.int32)
+    for i, q in enumerate(seqs):
+        ids[i, :len(q)] = q
+    lens = np.array([len(q) for q in seqs], np.int32)
+    spk = np.zeros((2,), np.int32)
+    _replay_vs_eager(synth._dur_prog(2, 16), ids, lens, spk)
+    _replay_vs_eager(synth._synth_prog(2, 16, 64), ids, lens, spk)
+
+
+def test_a_failing_capture_raises(cuda):
+    """A program whose function syncs with the host cannot be captured: the
+    build raises, and nothing runs it eagerly instead."""
+    from toolbox_for_asr_and_tts_tpu_torch.runtime.graphs import Programs
+    progs = Programs(cuda, "failing")
+    calls = []
+
+    def fn(x):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        return x * float(x.sum().item())
+    with pytest.raises(Exception):
+        progs.get("sync", lambda: (fn, [((4,), torch.float32)]))
+    assert "sync" not in progs
+    assert calls[-1] is True        # the last run was the capture's
+    torch.cuda.synchronize()

@@ -3,8 +3,9 @@ packages' test engines built from the same parameters, the port's app over
 its own `http.App` through a raw RFC 6455 client, the pydantic-free
 `VoiceConfig` / `ASRRequest` against the pydantic ones, and hub teardown.
 
-The reference's engines run with CHUNKED_PIPELINE=0 (partials fetched
-every tick, as the port's ChunkedHub always does) and VOICE_AOT_TICKS=0."""
+The session parity case runs both packages' engines under
+CHUNKED_PIPELINE=0 (partials fetched every tick) and =1 (the serving
+default: partials one tick late), with VOICE_AOT_TICKS=0."""
 import base64
 import json
 import threading
@@ -70,13 +71,15 @@ def _drive(sess_mod, engines):
     return events
 
 
-def test_session_four_modes_match_reference(monkeypatch):
+@pytest.mark.parametrize("pipeline", ["0", "1"])
+def test_session_four_modes_match_reference(monkeypatch, pipeline):
     """Wake (a KWS threshold that fires on the first full window) →
     enrollment → start_asr → an utterance with SV on → an utterance with
-    SV off: modes, intermediate texts, sentinels and final texts equal."""
+    SV off: modes, intermediate texts, sentinels and final texts equal,
+    with the chunked hubs of both packages unpipelined and pipelined."""
     from toolbox_for_asr_and_tts_tpu.asr import session as JS
     from toolbox_for_asr_and_tts_tpu.service import engines as JE
-    monkeypatch.setenv("CHUNKED_PIPELINE", "0")
+    monkeypatch.setenv("CHUNKED_PIPELINE", pipeline)
     monkeypatch.setenv("VOICE_AOT_TICKS", "0")
     jeng = JE.build_test_engines()
     jeng.kws.inner.threshold = -1e9

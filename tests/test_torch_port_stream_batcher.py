@@ -119,8 +119,9 @@ def test_batched_chunked_asr_matches_reference(asr_params, partials):
 
 def test_chunked_rows_move_reset_and_warm(asr_params):
     """leave() moves the last live row into the vacated one and zeroes the
-    tail; reset_slot zeroes a row; warm() steps every pow-2 prefix with all
-    rows masked and leaves the state as it was."""
+    tail; reset_slot zeroes a row; warm() builds the step program of every
+    pow-2 prefix and the finalize tail, runs no step and leaves the state as
+    it was."""
     p, _ = asr_params
     t = sb.BatchedChunkedASR(p, pf.ParaformerConfig(**TINY), po.OnlineConfig(),
                              capacity=3, partials=True, device="cpu")
@@ -131,7 +132,9 @@ def test_chunked_rows_move_reset_and_warm(asr_params):
     before = {k: v.clone() for k, v in t.state.items()}
     steps = t.steps
     t.warm()
-    assert t.steps == steps + 3                       # prefixes 1, 2, 3
+    assert t.steps == steps
+    assert sorted(t.programs) == [("tick", 1), ("tick", 2), ("tick", 3)]
+    assert ("tail",) in t.shared
     for k, v in t.state.items():
         assert torch.equal(v, before[k]), k
     row_c = {k: v.select(po.batch_dim(k), t.row_of(c)).clone()

@@ -1,4 +1,4 @@
-"""Offline ASR engine: wav → text on the card, eagerly in PyTorch.
+"""Offline ASR engine: wav → text on the card, one program per bucket.
 
 Port of `toolbox_for_asr_and_tts_tpu/asr/recognizer.py`. The chain
 
@@ -10,6 +10,12 @@ bucket (`runtime/bucketing.py`), and each row is held to its valid length
 by masks, so results match the reference row for row. Optional phase-2
 rescoring (hotwords, n-gram LM) re-decodes at a tight token bucket and
 takes a float64 log-softmax of the bf16-cast logits on the host.
+
+Each (batch, audio bucket) forward and each rescoring bucket is one program
+(`runtime/graphs.py`; the reference's `_fn_for` / `_logits_fn`): on the
+card a captured CUDA graph, replayed with the audio copied in from pinned
+memory and the packed per-token outputs fetched in one copy. Bucketing,
+that fetch, rescoring's log-softmax and the text stay on the host.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from ..models.convert import tree_to
 from ..ops import frontend as fe
 from ..ops import nn
 from ..runtime.bucketing import Bucketer
+from ..runtime.graphs import Program, Programs
 from ..runtime.metrics import RTFMeter, Tally, timing_log
 from .tokenizer import CharTokenizer
 
@@ -70,7 +77,10 @@ class Recognizer:
                                               device=self.device)
                               for c in cmvn)
         self.rtf = RTFMeter()
-        # device programs run (telemetry): forward_padded (K2 once, K1 in
+        # one program per (batch, audio bucket) forward and per rescoring
+        # bucket; on the card each is a captured graph
+        self._programs = Programs(self.device, "recognizer")
+        # device programs run (telemetry): forwards (K2 once, K1 in
         # every encoder and decoder layer) and the rescoring re-decode
         self.forwards = Tally()
         self.rescorings = Tally()
@@ -145,19 +155,16 @@ class Recognizer:
                    cmvn=cmvn, device=device, **kw)
 
     # ----------------------------------------------------------- forward
-    @torch.inference_mode()
-    def forward_padded(self, batch: np.ndarray, lens: np.ndarray
-                       ) -> Dict[str, torch.Tensor]:
-        """Padded audio [B, n_samples] (one bucket) and valid lengths [B] →
-        `paraformer.forward`'s outputs on the device, plus `feat_lens`."""
-        self.forwards.add()
-        n_samples = batch.shape[1]
+    def _forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+        """The eager forward of one bucket: padded audio [B, n_samples] f32
+        and valid lengths [B] int64 on the device → `paraformer.forward`'s
+        outputs plus `feat_lens`."""
+        n_samples = wavs.shape[1]
         fcfg = self.fe_cfg
         t_fb = fe.num_fbank_frames(n_samples, fcfg)
         t_lfr = fe.num_lfr_frames(t_fb, fcfg.lfr_n)
         k_max = paraformer.max_tokens_for(t_lfr)
-        wavs = torch.from_numpy(np.asarray(batch, np.float32)).to(self.device)
-        wav_lens = torch.from_numpy(np.asarray(lens, np.int64)).to(self.device)
         feats = fe.fbank(wavs, fcfg, t_frames=t_fb)
         # replicate-last LFR repeats the last VALID fbank frame, not frames
         # framed over the bucket's zero padding
@@ -172,17 +179,76 @@ class Recognizer:
         return out
 
     @torch.inference_mode()
-    def rescoring_logits(self, embeds: torch.Tensor, token_count: torch.Tensor,
-                         enc: torch.Tensor, feat_lens: torch.Tensor,
-                         k_b: int) -> torch.Tensor:
-        """Phase 2: re-decode the first `k_b` CIF embeds → bf16 logits
-        [B, k_b, V] (the cast the reference makes before its fetch)."""
-        self.rescorings.add()
+    def forward_padded(self, batch: np.ndarray, lens: np.ndarray
+                       ) -> Dict[str, torch.Tensor]:
+        """Padded audio [B, n_samples] (one bucket) and valid lengths [B] →
+        `paraformer.forward`'s outputs on the device, plus `feat_lens`: the
+        eager call, run directly (`transcribe` replays its program)."""
+        self.forwards.add()
+        return self._forward(
+            torch.from_numpy(np.asarray(batch, np.float32)).to(self.device),
+            torch.from_numpy(np.asarray(lens, np.int64)).to(self.device))
+
+    def _fn_for(self, batch: int, n_samples: int) -> Program:
+        """The forward program of one (batch, samples) bucket (ref
+        `_fn_for`): audio and lengths → every per-token output packed into
+        one f32 array [B, 1 + n·k_max] (one fetch), and the tensors the
+        rescoring pass re-decodes from (`enc`, `embeds`, `feat_lens`,
+        `token_count`), kept on the device."""
+        def build():
+            def run(wavs, wav_lens):
+                out = self._forward(wavs, wav_lens)
+                cols = [out["token_count"][:, None], out["tokens"],
+                        out["token_center"], out["token_start"],
+                        out["fire_frame"]]
+                if self.has_bicif:   # BiCIF 20 ms timestamp boundaries
+                    cols += [out["us_start"], out["us_end"]]
+                packed = torch.cat([c.float() for c in cols], dim=1)
+                return {"packed": packed,
+                        **{k: out[k] for k in self._RESCORING_INPUTS}}
+            return run, [((batch, n_samples), torch.float32),
+                         ((batch,), torch.int64)]
+        return self._programs.get(("forward", batch, n_samples), build)
+
+    _RESCORING_INPUTS = ("embeds", "token_count", "enc", "feat_lens")
+
+    def _rescore(self, embeds: torch.Tensor, token_count: torch.Tensor,
+                 enc: torch.Tensor, feat_lens: torch.Tensor,
+                 k_b: int) -> torch.Tensor:
         token_mask = nn.length_mask(torch.clamp_max(token_count, k_b), k_b)
         mem_mask = nn.length_mask(feat_lens, enc.shape[1])
         logits = paraformer.decode(self.params, embeds[:, :k_b], token_mask,
                                    enc, mem_mask, self.cfg)
         return logits.to(torch.bfloat16)
+
+    @torch.inference_mode()
+    def rescoring_logits(self, embeds: torch.Tensor, token_count: torch.Tensor,
+                         enc: torch.Tensor, feat_lens: torch.Tensor,
+                         k_b: int) -> torch.Tensor:
+        """Phase 2: re-decode the first `k_b` CIF embeds → bf16 logits
+        [B, k_b, V] (the cast the reference makes before its fetch): the
+        eager call, run directly (`transcribe` replays its program)."""
+        self.rescorings.add()
+        return self._rescore(embeds, token_count, enc, feat_lens, k_b)
+
+    def _logits_fn(self, batch: int, t_lfr: int, k_b: int) -> Program:
+        """The rescoring program of one (batch, t_lfr, k_b) bucket (ref
+        `_logits_fn`)."""
+        def build():
+            k_max = paraformer.max_tokens_for(t_lfr)
+            d = self.cfg.d_model
+            return (lambda e, n, m, f: self._rescore(e, n, m, f, k_b),
+                    [((batch, k_max, d), torch.float32),
+                     ((batch,), torch.int32),
+                     ((batch, t_lfr, d), torch.float32),
+                     ((batch,), torch.int64)])
+        return self._programs.get(("logits", batch, t_lfr, k_b), build)
+
+    def _bucket_shapes(self, n_samples: int) -> Tuple[int, int]:
+        """(t_lfr, k_max) of an audio bucket."""
+        t_fb = fe.num_fbank_frames(n_samples, self.fe_cfg)
+        t_lfr = fe.num_lfr_frames(t_fb, self.fe_cfg.lfr_n)
+        return t_lfr, paraformer.max_tokens_for(t_lfr)
 
     # ----------------------------------------------------------- public
     def transcribe(self, wavs: Sequence[np.ndarray],
@@ -196,14 +262,18 @@ class Recognizer:
         batch, lens = self.bucketer.pad_batch([np.asarray(w) for w in wavs])
         want_logits = bool(hotwords) or self.lm is not None
         t0 = time.perf_counter()
-        dev = self.forward_padded(batch, lens)
-        k_max = dev["embeds"].shape[1]
-        cols = [dev["token_count"][:, None], dev["tokens"],
-                dev["token_center"], dev["token_start"], dev["fire_frame"]]
-        if self.has_bicif:   # BiCIF 20 ms timestamp boundaries
-            cols += [dev["us_start"], dev["us_end"]]
-        # one small device → host fetch for all per-token outputs
-        packed = torch.cat([c.float() for c in cols], dim=1).cpu().numpy()
+        prog = self._fn_for(batch.shape[0], batch.shape[1])
+        t_lfr, k_max = self._bucket_shapes(batch.shape[1])
+
+        def fetch(dev):
+            # one small device → host fetch for all per-token outputs; the
+            # rescoring inputs are copied out on the device only when needed
+            kept = ({k: dev[k].clone() for k in self._RESCORING_INPUTS}
+                    if want_logits and dev["packed"].is_cuda else dev)
+            return dev["packed"].cpu().numpy(), kept
+
+        self.forwards.add()
+        packed, dev = prog(np.asarray(batch, np.float32), lens, read=fetch)
         out = {
             "token_count": packed[:, 0].astype(np.int32),
             "tokens": packed[:, 1: 1 + k_max].astype(np.int32),
@@ -218,9 +288,10 @@ class Recognizer:
         if want_logits and int(out["token_count"].max()) > 0:
             kb = self.K_BUCKET
             k_b = min(-(-int(out["token_count"].max()) // kb) * kb, k_max)
-            logits_np = self.rescoring_logits(
-                dev["embeds"], dev["token_count"], dev["enc"],
-                dev["feat_lens"], k_b).float().cpu().numpy()
+            self.rescorings.add()
+            logits_np = self._logits_fn(batch.shape[0], t_lfr, k_b)(
+                *(dev[k] for k in self._RESCORING_INPUTS),
+                read=lambda lg: lg.float().cpu().numpy())
         proc_s = time.perf_counter() - t0
         timing_log("offline_asr_batch", proc_s * 1000)
         sr = self.fe_cfg.sample_rate
@@ -274,23 +345,16 @@ class Recognizer:
 
     def warmup_rescoring(self, batch: int, n_samples: int,
                          k_b: Optional[int] = None) -> None:
-        """Run the phase-2 re-decode once with zeros at one bucket's shapes,
-        so the first live hotword/LM request finds the library handles and
-        plans for those shapes already made."""
-        n_samples = self.bucketer.bucket(n_samples)
-        t_fb = fe.num_fbank_frames(n_samples, self.fe_cfg)
-        t_lfr = fe.num_lfr_frames(t_fb, self.fe_cfg.lfr_n)
-        k_max = paraformer.max_tokens_for(t_lfr)
+        """Build the phase-2 re-decode program of one bucket and replay it
+        once on zeros, so the first live hotword/LM request finds it ready
+        (a trained predictor fires no token on the silence a warm-up
+        transcribes, so `transcribe` alone never reaches it)."""
+        t_lfr, k_max = self._bucket_shapes(self.bucketer.bucket(n_samples))
         k_b = min(k_b or self.K_BUCKET, k_max)
-        d = self.cfg.d_model
-        zeros = dict(dtype=torch.float32, device=self.device)
-        ints = dict(dtype=torch.int32, device=self.device)
-        out = self.rescoring_logits(
-            torch.zeros((batch, k_max, d), **zeros),
-            torch.zeros((batch,), **ints),
-            torch.zeros((batch, t_lfr, d), **zeros),
-            torch.zeros((batch,), **ints), k_b)
-        out[0, 0, 0].item()   # tiny fetch: wait for the run
+        prog = self._logits_fn(batch, t_lfr, k_b)
+        self.rescorings.add()
+        prog(*(torch.zeros(s, dtype=dt, device=self.device)
+               for s, dt in prog.specs), read=lambda lg: None)
 
     def transcribe_file(self, path: str) -> TranscribeResult:
         from ..utils.audio import ensure_mono_16k, read_wav

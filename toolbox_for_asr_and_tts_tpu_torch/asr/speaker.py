@@ -3,14 +3,14 @@
 Port of `toolbox_for_asr_and_tts_tpu/asr/speaker.py`. One `embed` call pads
 its waveforms to one audio bucket and runs, on the card unless "cpu" is
 passed: fbank (kernel K2, one launch) → per-utterance mean subtraction over
-the valid frames → CAM++. Enrollment needs ≥ 5 s of speech; verification
+the valid frames → CAM++, one program per (batch, audio bucket) (on the
+card a captured graph, `runtime/graphs.py`). Enrollment needs ≥ 5 s of speech; verification
 compares cosine scores with threshold 0.40.
 """
 from __future__ import annotations
 
 import logging
-import threading
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +20,7 @@ from ..models import campplus
 from ..models.convert import tree_to
 from ..ops import frontend as fe
 from ..runtime.bucketing import Bucketer
+from ..runtime.graphs import Program, Programs
 from ..runtime.metrics import Tally
 
 logger = logging.getLogger("toolbox.speaker")
@@ -39,8 +40,8 @@ class SpeakerVerifier:
         self.threshold = threshold
         self.fe_cfg = cfg.frontend
         self.bucketer = bucketer or Bucketer.for_audio()
-        self._fns: Dict[Tuple[int, int], object] = {}
-        self._fns_lock = threading.Lock()
+        # one embed program per (batch, samples) bucket; on the card a graph
+        self._fns = Programs(self.device, "speaker")
         self.forwards = Tally()   # telemetry: embed programs run (K2 once)
 
     @classmethod
@@ -73,45 +74,40 @@ class SpeakerVerifier:
             ckpt.campplus_rules(cfg.block_layers))
         return cls(params_from_numpy(params, dev), cfg, device=dev, **kw)
 
-    def _fn(self, b: int, n_samples: int):
-        """The embed program of one (batch, samples) bucket; concurrent
-        first calls build it once (double-checked under a lock)."""
-        key = (b, n_samples)
-        fn = self._fns.get(key)
-        if fn is not None:
-            return fn
-        with self._fns_lock:
-            fn = self._fns.get(key)
-            if fn is None:
-                fcfg, cfg = self.fe_cfg, self.cfg
-                t_fb = fe.num_fbank_frames(n_samples, fcfg)
-                frames = torch.arange(t_fb, device=self.device)
+    def _fn(self, b: int, n_samples: int) -> Program:
+        """The embed program of one (batch, samples) bucket: audio [b,
+        n_samples] f32 and lengths [b] int64 → embeddings. Concurrent first
+        calls build it once (`Programs.get`)."""
+        def build():
+            fcfg, cfg = self.fe_cfg, self.cfg
+            t_fb = fe.num_fbank_frames(n_samples, fcfg)
+            frames = torch.arange(t_fb, device=self.device)
 
-                @torch.inference_mode()
-                def fn(wavs: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
-                    feats = fe.fbank(wavs, fcfg, t_frames=t_fb)
-                    # per-utterance cepstral mean subtraction, valid frames
-                    t_valid = torch.clamp_min(
-                        1 + torch.div(lens - fcfg.frame_length,
-                                      fcfg.frame_shift, rounding_mode="floor"),
-                        1)
-                    fmask = (frames[None, :] < t_valid[:, None]).float()
-                    denom = torch.clamp_min(fmask.sum(dim=1, keepdim=True), 1)
-                    mean = (feats * fmask[..., None]).sum(
-                        dim=1, keepdim=True) / denom[..., None]
-                    feats = (feats - mean) * fmask[..., None]
-                    return campplus.forward(self.params, feats, t_valid, cfg)
-                self._fns[key] = fn
-        return fn
+            def run(wavs: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+                feats = fe.fbank(wavs, fcfg, t_frames=t_fb)
+                # per-utterance cepstral mean subtraction, valid frames
+                t_valid = torch.clamp_min(
+                    1 + torch.div(lens - fcfg.frame_length,
+                                  fcfg.frame_shift, rounding_mode="floor"),
+                    1)
+                fmask = (frames[None, :] < t_valid[:, None]).float()
+                denom = torch.clamp_min(fmask.sum(dim=1, keepdim=True), 1)
+                mean = (feats * fmask[..., None]).sum(
+                    dim=1, keepdim=True) / denom[..., None]
+                feats = (feats - mean) * fmask[..., None]
+                return campplus.forward(self.params, feats, t_valid, cfg)
+            return run, [((b, n_samples), torch.float32),
+                         ((b,), torch.int64)]
+        return self._fns.get((b, n_samples), build)
 
     def embed(self, wavs: List[np.ndarray]) -> np.ndarray:
         """float32 16 kHz waveforms → [N, embed_dim] embeddings."""
         batch, lens = self.bucketer.pad_batch([np.asarray(w) for w in wavs])
-        fn = self._fn(batch.shape[0], batch.shape[1])
         self.forwards.add()
-        out = fn(torch.from_numpy(np.asarray(batch, np.float32)).to(self.device),
-                 torch.from_numpy(lens.astype(np.int64)).to(self.device))
-        return out.cpu().numpy()[: len(wavs)]
+        out = self._fn(batch.shape[0], batch.shape[1])(
+            np.asarray(batch, np.float32), lens,
+            read=lambda e: e.cpu().numpy())
+        return out[: len(wavs)]
 
     def verify(self, enroll_wav: np.ndarray, test_wav: np.ndarray
                ) -> Tuple[bool, float]:

@@ -27,6 +27,7 @@ from ..device import DeviceLike, resolve_device
 from ..models import fsmn_vad
 from ..models.convert import tree_to
 from ..models.paraformer_streaming import StreamingFrontend
+from ..runtime.graphs import Program, Programs
 
 
 @dataclasses.dataclass
@@ -145,27 +146,41 @@ class StreamingVadStepper:
     The reference runs the VAD model on every chunk with a per-session
     cache. Here the cache is the FSMN conv state tensor plus the
     incremental frontend's buffers; the fbank and the model run on `device`
-    (the card unless "cpu" is passed)."""
+    (the card unless "cpu" is passed). The FSMN step is one program per
+    frame count (`runtime/graphs.py`; the reference's "step" fn): the cache
+    goes in by copy and comes back out, so sessions may share one
+    `Programs` owner (`programs=`)."""
 
     def __init__(self, params, cfg=None, threshold: float = 0.5, cmvn=None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 programs: Optional[Programs] = None):
         self.device = resolve_device(device)
         self.params = tree_to(params, self.device)
         self.cfg = cfg or fsmn_vad.FsmnVadConfig()
         self.threshold = threshold
         self.frontend = StreamingFrontend(self.cfg.frontend, cmvn, self.device)
         self.cache = fsmn_vad.init_cache(1, self.cfg, self.device)
+        self.programs = (programs if programs is not None
+                         else Programs(self.device, "vad-session"))
+
+    def _step_fn(self, n: int) -> Program:
+        """(feats [1, n, D], cache) → (P(speech) [1, n], cache')."""
+        def build():
+            def run(feats, cache):
+                post, new = fsmn_vad.apply_streaming(self.params, feats,
+                                                     cache, self.cfg)
+                return fsmn_vad.speech_prob(post, self.cfg), new
+            return run, [((1, n, self.cfg.input_dim), torch.float32),
+                         (tuple(self.cache.shape), self.cache.dtype)]
+        return self.programs.get(("step", n), build)
 
     @torch.inference_mode()
     def __call__(self, chunk: np.ndarray) -> bool:
         feats = self.frontend.push(np.asarray(chunk, np.float32))
         if len(feats) == 0:
             return False
-        post, self.cache = fsmn_vad.apply_streaming(
-            self.params, torch.from_numpy(feats[None]).to(self.device),
-            self.cache, self.cfg)
-        probs = fsmn_vad.speech_prob(post, self.cfg).cpu().numpy()[0]
-        return bool((probs > self.threshold).any())
+        probs, self.cache = self._step_fn(len(feats))(feats[None], self.cache)
+        return bool((probs.cpu().numpy()[0] > self.threshold).any())
 
     def reset(self) -> None:
         self.frontend.reset()

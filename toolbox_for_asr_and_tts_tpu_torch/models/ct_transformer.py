@@ -15,7 +15,6 @@ Classes follow FunASR: 0 <unk>, 1 _ (none), 2 ，, 3 。, 4 ？, 5 、.
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -25,6 +24,7 @@ from ..device import DeviceLike, resolve_device
 from ..models.convert import tree_to
 from ..ops import nn
 from ..runtime.bucketing import Bucketer
+from ..runtime.graphs import Program, Programs
 from ..runtime.metrics import Tally
 
 DEFAULT_PUNC_LIST = ("<unk>", "_", "，", "。", "？", "、")
@@ -199,8 +199,8 @@ class Punctuator:
         self.cfg = cfg
         self.vocab = vocab
         self.bucketer = Bucketer(tuple(buckets))
-        self._fns: Dict[Tuple[int, int], object] = {}
-        self._fns_lock = threading.Lock()
+        # one program per (batch, length) bucket; on the card a graph
+        self._fns = Programs(self.device, "punctuator")
         self.forwards = Tally()   # telemetry: forwards run (K1 per layer)
 
     @classmethod
@@ -242,33 +242,22 @@ class Punctuator:
         return cls(params_from_numpy(params, dev), cfg,
                    vocab or PuncVocab.dummy(cfg.vocab_size), device=dev)
 
-    def _fn(self, b: int, t: int):
-        """The forward of one (batch, length) bucket with its constants
-        built once; concurrent first calls build it once (double-checked
-        under a lock)."""
-        key = (b, t)
-        fn = self._fns.get(key)
-        if fn is None:
-            with self._fns_lock:
-                fn = self._fns.get(key)
-                if fn is None:
-                    consts = constants(t, self.cfg, self.device)
-
-                    @torch.inference_mode()
-                    def fn(ids: torch.Tensor, lens: torch.Tensor,
-                           consts=consts) -> torch.Tensor:
-                        return forward(self.params, ids, lens, self.cfg,
-                                       consts)
-                    self._fns[key] = fn
-        return fn
+    def _fn(self, b: int, t: int) -> Program:
+        """The forward program of one (batch, length) bucket, its constants
+        built with it: ids [b, t] int32 and lengths [b] int32 → logits.
+        Concurrent first calls build it once (`Programs.get`)."""
+        def build():
+            consts = constants(t, self.cfg, self.device)
+            return ((lambda ids, lens: forward(self.params, ids, lens,
+                                               self.cfg, consts)),
+                    [((b, t), torch.int32), ((b,), torch.int32)])
+        return self._fns.get((b, t), build)
 
     def _classes(self, arr: np.ndarray, lens: np.ndarray) -> np.ndarray:
         """[B, T] ids and [B] lengths → [B, T] argmax classes on the host."""
-        dev = self.device
         self.forwards.add()
-        logits = self._fn(*arr.shape)(
-            torch.from_numpy(arr).to(dev), torch.from_numpy(lens).to(dev))
-        return logits.argmax(dim=-1).cpu().numpy()
+        return self._fn(*arr.shape)(
+            arr, lens, read=lambda lg: lg.argmax(dim=-1).cpu().numpy())
 
     def classify(self, words: Sequence[str]) -> np.ndarray:
         """Per-word punctuation class ids (0 <unk>, 1 none, 2 ，, 3 。, …),

@@ -137,7 +137,10 @@ def apply(params: nn.Params, feats: torch.Tensor,
 def speech_prob(posteriors: torch.Tensor,
                 cfg: FsmnVadConfig = FsmnVadConfig()) -> torch.Tensor:
     """[B, T, 248] → P(speech) [B, T] = 1 − Σ P(sil pdfs)."""
-    sil = posteriors[..., list(cfg.sil_pdf_ids)].sum(dim=-1)
+    # basic slices, no index tensor: a list index would be copied to the
+    # card on every call, which a graph capture refuses
+    sil = torch.stack([posteriors[..., i] for i in cfg.sil_pdf_ids],
+                      dim=-1).sum(dim=-1)
     return 1.0 - sil
 
 

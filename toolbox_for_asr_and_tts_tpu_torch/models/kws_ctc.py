@@ -17,7 +17,6 @@ the CTC forward recursion — a loop over frames, vectorised over the batch
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -28,6 +27,7 @@ from ..models.convert import tree_to
 from ..ops import frontend as fe
 from ..ops import nn
 from ..ops.frontend import FrontendConfig
+from ..runtime.graphs import Program, Programs
 from ..runtime.metrics import Tally
 
 NEG = -1e30   # log-zero of the CTC recursion, as the reference
@@ -188,8 +188,8 @@ class KeywordSpotter:
         self.char_to_id = char_to_id
         self.threshold = threshold
         self.max_label_len = max_label_len
-        self._fns: Dict[tuple, object] = {}
-        self._fns_lock = threading.Lock()
+        # one program per (pow-2 batch, window, keyword); on the card a graph
+        self.programs = Programs(self.device, "kws")
         # telemetry: DFSMN forwards run (K1 per layer) and fbanks (K2 once)
         self.forwards = Tally()
         self.fbanks = Tally()
@@ -255,12 +255,16 @@ class KeywordSpotter:
         self._labels = torch.from_numpy(arr).to(self.device)
         self._label_len = min(len(ids), self.max_label_len)
 
+    def _score(self, feats: torch.Tensor, frame_len, labels: torch.Tensor,
+               label_len: int) -> torch.Tensor:
+        logp = forward(self.params, feats, self.cfg)
+        return kws_score(logp, labels, label_len, frame_len,
+                         self.cfg.blank_id)
+
     @torch.inference_mode()
     def _score_feats(self, feats: torch.Tensor, frame_len) -> torch.Tensor:
         self.forwards.add()
-        logp = forward(self.params, feats, self.cfg)
-        return kws_score(logp, self._labels, self._label_len, frame_len,
-                         self.cfg.blank_id)
+        return self._score(feats, frame_len, self._labels, self._label_len)
 
     def detect_feats(self, feats: np.ndarray, valid_frames: int
                      ) -> Tuple[bool, float]:
@@ -269,32 +273,28 @@ class KeywordSpotter:
         score = float(self._score_feats(x, valid_frames)[0])
         return score > self.threshold, score
 
-    def _batch_fn(self, nb: int, window_len: int):
-        """The scorer of one (pow-2 batch, window length) group: [nb,
-        window_len] audio → [nb] keyword log-odds through fbank (one K2
-        launch) → LFR → the DFSMN (one K1 launch per layer) → CTC. Built
-        once per group, double-checked under a lock: hub workers may race
-        to the first call."""
-        key = ("audio_batch", nb, window_len)
-        fn = self._fns.get(key)
-        if fn is not None:
-            return fn
-        with self._fns_lock:
-            fn = self._fns.get(key)
-            if fn is None:
-                fcfg = self.cfg.frontend
-                t_fb = fe.num_fbank_frames(window_len, fcfg)
-                t_lfr = fe.num_lfr_frames(t_fb, fcfg.lfr_n)
+    def _batch_fn(self, nb: int, window_len: int) -> Program:
+        """The scorer of one (pow-2 batch, window length) group and the
+        current keyword (ref `_fn`): [nb, window_len] audio → [nb] keyword
+        log-odds through fbank (one K2 launch) → LFR → the DFSMN (one K1
+        launch per layer) → CTC. Concurrent first calls build it once
+        (`Programs.get`)."""
+        def build():
+            fcfg = self.cfg.frontend
+            t_fb = fe.num_fbank_frames(window_len, fcfg)
+            t_lfr = fe.num_lfr_frames(t_fb, fcfg.lfr_n)
+            labels, label_len = self._labels, self._label_len
+            frame_len = torch.full((1,), t_lfr, dtype=torch.long,
+                                   device=self.device)
 
-                @torch.inference_mode()
-                def fn(wavs: torch.Tensor) -> torch.Tensor:
-                    self.fbanks.add()
-                    feats = fe.fbank(wavs, fcfg, t_frames=t_fb)
-                    feats = fe.apply_lfr(feats, fcfg.lfr_m, fcfg.lfr_n,
-                                         t_out=t_lfr)
-                    return self._score_feats(feats, t_lfr)
-                self._fns[key] = fn
-        return fn
+            def run(wavs: torch.Tensor) -> torch.Tensor:
+                feats = fe.fbank(wavs, fcfg, t_frames=t_fb)
+                feats = fe.apply_lfr(feats, fcfg.lfr_m, fcfg.lfr_n,
+                                     t_out=t_lfr)
+                return self._score(feats, frame_len, labels, label_len)
+            return run, [((nb, window_len), torch.float32)]
+        return self.programs.get(("audio_batch", nb, window_len,
+                                  self.keyword), build)
 
     def detect_audio(self, window: np.ndarray) -> Tuple[bool, float]:
         """Raw 16 kHz window → (detected, score): the batched scorer on a
@@ -315,8 +315,10 @@ class KeywordSpotter:
             batch = np.zeros((nb, length), np.float32)
             for j, i in enumerate(idxs):
                 batch[j] = windows[i]
+            self.fbanks.add()
+            self.forwards.add()
             scores = self._batch_fn(nb, length)(
-                torch.from_numpy(batch).to(self.device)).cpu().numpy()
+                batch, read=lambda t: t.cpu().numpy())
             for j, i in enumerate(idxs):
                 s = float(scores[j])
                 out[i] = (s > self.threshold, s)
@@ -324,10 +326,10 @@ class KeywordSpotter:
 
     def warm(self, max_batch: int = 64,
              window_len: int = int(1.6 * 16000)) -> None:
-        """Run every pow-2 batch of the standard 1600 ms window once, so no
-        wake-mode tick makes the first library plans of its shape."""
+        """Build the program of every pow-2 batch of the standard 1600 ms
+        window (on the card: capture it), so no wake-mode tick waits on a
+        build."""
         nb = 1
         while nb <= max_batch:
-            self._batch_fn(nb, window_len)(
-                torch.zeros((nb, window_len), device=self.device))
+            self._batch_fn(nb, window_len)
             nb *= 2

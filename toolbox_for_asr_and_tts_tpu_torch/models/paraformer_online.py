@@ -38,6 +38,7 @@ from ..device import DeviceLike, resolve_device
 from ..models.convert import tree_to
 from ..ops import frontend as fe
 from ..ops import nn
+from ..runtime.graphs import Program, Programs
 from . import paraformer
 from .paraformer_streaming import StreamingFrontend, cif_step, nar_redecode
 
@@ -425,17 +426,25 @@ def flush_tail(state: State, tail_threshold: float
 # ------------------------------------------------------------- recognizer
 class OnlineRecognizer:
     """Incremental wav → partial/final text with FunASR streaming
-    mechanics, one session, on the card unless `device="cpu"`."""
+    mechanics, one session, on the card unless `device="cpu"`.
+
+    The encoder + CIF step and the incremental decode are programs
+    (`runtime/graphs.py`; the reference's `_step_fn` / `_inc_fn`): the
+    session's state goes in by copy and comes back out, so one `Programs`
+    owner (`programs=`) can serve many sessions, as the reference's shared
+    `fns` dict does for the hub's overflow sessions."""
 
     def __init__(self, params, cfg: paraformer.ParaformerConfig, tokenizer,
                  ocfg: OnlineConfig = OnlineConfig(),
                  cmvn: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-                 partial_mode: str = "redecode", device: DeviceLike = None):
+                 partial_mode: str = "redecode", device: DeviceLike = None,
+                 programs: Optional[Programs] = None):
         """partial_mode: "redecode" (NAR re-decode of all fired tokens over
         the bounded memory, O(K²) per utterance, converges) or "incremental"
         (FunASR-style fsmn-cached `decode_chunk`, each token decoded once
         with its chunk-time context). params: a Paraformer tensor tree,
-        moved to `device`."""
+        moved to `device`. programs: a program cache shared by sessions
+        over the same weights and geometry (a new one otherwise)."""
         if partial_mode not in ("redecode", "incremental"):
             raise ValueError(f"unknown partial_mode {partial_mode!r}")
         self.device = resolve_device(device)
@@ -445,7 +454,47 @@ class OnlineRecognizer:
         self.tokenizer = tokenizer
         self.partial_mode = partial_mode
         self.frontend = StreamingFrontend(cfg.frontend, cmvn, self.device)
+        self.programs = (programs if programs is not None
+                         else Programs(self.device, "online"))
         self.reset()
+
+    # ---------------------------------------------------------- programs
+    def _step_fn(self) -> Program:
+        """Encoder + CIF over one chunk: (feats [1, c1, D], active [1, W],
+        state leaves) → (state leaves', enc window, embeds, n_fired)."""
+        keys = sorted(self._state)
+
+        def build():
+            k_cap = self.ocfg.tokens_per_chunk
+
+            def run(feats, active, *leaves):
+                state, enc = encode_chunk(self.params,
+                                          dict(zip(keys, leaves)), feats,
+                                          self.cfg, self.ocfg)
+                state, embeds, n = predictor_chunk(self.params, enc, active,
+                                                   state, self.cfg, k_cap)
+                return [state[k] for k in keys], enc, embeds, n
+            return run, ([((1, self.ocfg.c1, self.cfg.input_dim),
+                           torch.float32),
+                          ((1, self.ocfg.window), torch.float32)]
+                         + [(tuple(self._state[k].shape), self._state[k].dtype)
+                            for k in keys])
+        return self.programs.get(("step", tuple(keys)), build)
+
+    def _inc_fn(self) -> Program:
+        """The incremental decode: (embeds [1, k_cap, d], n [1], decoder
+        state leaves) → (decoder state leaves', ids [1, k_cap])."""
+        def build():
+            def run(embeds, n, *leaves):
+                d, ids = decode_chunk(self.params,
+                                      dict(zip(DECODER_KEYS, leaves)),
+                                      embeds, n, self.cfg)
+                return [d[k] for k in DECODER_KEYS], ids
+            return run, ([((1, self.ocfg.tokens_per_chunk, self.cfg.d_model),
+                           torch.float32), ((1,), torch.int32)]
+                         + [(tuple(self._dstate[k].shape),
+                             self._dstate[k].dtype) for k in DECODER_KEYS])
+        return self.programs.get(("inc",), build)
 
     # ------------------------------------------------------------ public
     @torch.inference_mode()
@@ -460,9 +509,9 @@ class OnlineRecognizer:
             self._run_chunk(chunk, n_valid=c1, final=False)
         return self.partial_text()
 
-    def _active_mask(self, n_valid: int, final: bool) -> torch.Tensor:
+    def _active_mask(self, n_valid: int, final: bool) -> np.ndarray:
         ocfg = self.ocfg
-        active = torch.zeros((1, ocfg.window), device=self.device)
+        active = np.zeros((1, ocfg.window), np.float32)
         if final:
             # drain: the cached lookahead frames + all valid new frames
             active[0, ocfg.c0: ocfg.c0 + ocfg.c2 + n_valid] = 1.0
@@ -475,12 +524,11 @@ class OnlineRecognizer:
         ocfg = self.ocfg
         padded = np.zeros((1, ocfg.c1, self.cfg.input_dim), np.float32)
         padded[0, :len(chunk)] = chunk
-        self._state, enc = encode_chunk(
-            self.params, self._state, torch.from_numpy(padded).to(self.device),
-            self.cfg, ocfg)
-        self._state, embeds, n_fired = predictor_chunk(
-            self.params, enc, self._active_mask(n_valid, final), self._state,
-            self.cfg, ocfg.tokens_per_chunk)
+        keys = sorted(self._state)
+        leaves, enc, embeds, n_fired = self._step_fn()(
+            padded, self._active_mask(n_valid, final),
+            *(self._state[k] for k in keys))
+        self._state = dict(zip(keys, leaves))
         n = int(n_fired[0])
         if n > 0:
             self._embeds.extend(embeds[0, :n].cpu().numpy())
@@ -494,16 +542,17 @@ class OnlineRecognizer:
         if self.partial_mode == "incremental":
             self._dstate = decoder_push_memory(
                 self._dstate, settled,
-                torch.tensor([settled.shape[1]], dtype=torch.int32,
-                             device=self.device))
+                torch.full((1,), settled.shape[1], dtype=torch.int32,
+                           device=self.device))
             if n > 0:
                 self._decode_incremental(embeds, n)
 
     @torch.inference_mode()
     def _decode_incremental(self, embeds: torch.Tensor, n: int) -> None:
-        self._dstate, ids = decode_chunk(
-            self.params, self._dstate, embeds,
-            torch.tensor([n], dtype=torch.int32, device=self.device), self.cfg)
+        leaves, ids = self._inc_fn()(
+            embeds, np.array([n], np.int32),
+            *(self._dstate[k] for k in DECODER_KEYS))
+        self._dstate = dict(zip(DECODER_KEYS, leaves))
         self._inc_ids.extend(ids[0, :n].tolist())
 
     def _decode_current(self) -> List[int]:

@@ -9,6 +9,7 @@ loads at once. Only the package's own sources are built.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -127,6 +128,34 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+_tally = threading.local()
+
+
+@contextlib.contextmanager
+def tallied():
+    """Within the block, the kernel launches this thread makes count into
+    the yielded dict (kernel module name → launches) instead of the
+    modules' `launches`: they are a program's warm-up or capture
+    (`runtime/graphs.py`), not runs. A replay adds the capture's tally."""
+    prev = getattr(_tally, "counts", None)
+    counts: Dict[str, int] = {}
+    _tally.counts = counts
+    try:
+        yield counts
+    finally:
+        _tally.counts = prev
+
+
+def count_launch(name: str) -> bool:
+    """Record one launch of kernel `name` in the open `tallied()` block of
+    this thread; False when there is none (the launch is a run)."""
+    counts = getattr(_tally, "counts", None)
+    if counts is None:
+        return False
+    counts[name] = counts.get(name, 0) + 1
+    return True
 
 
 def check(err: int, name: str) -> None:

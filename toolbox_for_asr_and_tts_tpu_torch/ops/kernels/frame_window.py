@@ -23,8 +23,16 @@ import torch.nn.functional as F
 
 from . import _build
 
-launches = 0   # +1 per kernel launch; chip_smoke.py reads it
+launches = 0   # +1 per kernel run (a launch, or one in a graph replay);
+               # chip_smoke.py reads it
 _launches_lock = threading.Lock()   # serving hubs launch from several threads
+
+
+def add_launches(n: int = 1) -> None:
+    """Count n runs of the kernel: a launch, or a replay's tally."""
+    global launches
+    with _launches_lock:
+        launches += n
 
 _ENTRY = "frame_window_f32"
 
@@ -69,7 +77,6 @@ def frame_window(audio: torch.Tensor, window: torch.Tensor, t_frames: int,
                  preemphasis: float = 0.97, remove_dc: bool = True
                  ) -> torch.Tensor:
     """audio [B, n] f32 → framed + windowed [B, t_frames, n_fft] f32."""
-    global launches
     _check(audio, window, t_frames, frame_len, frame_shift, n_fft)
     if audio.device.type == "cpu":
         return frame_window_plain(audio, window, t_frames, frame_len,
@@ -91,6 +98,6 @@ def frame_window(audio: torch.Tensor, window: torch.Tensor, t_frames: int,
             t_frames, frame_len, frame_shift, n_fft, float(preemphasis),
             int(bool(remove_dc)), stream)
     _build.check(err, _ENTRY)
-    with _launches_lock:
-        launches += 1
+    if not _build.count_launch("frame_window"):
+        add_launches()
     return out

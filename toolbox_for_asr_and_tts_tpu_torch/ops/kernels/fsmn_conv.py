@@ -28,8 +28,16 @@ import torch.nn.functional as F
 
 from . import _build
 
-launches = 0   # +1 per kernel launch; chip_smoke.py reads it
+launches = 0   # +1 per kernel run (a launch, or one in a graph replay);
+               # chip_smoke.py reads it
 _launches_lock = threading.Lock()   # serving hubs launch from several threads
+
+
+def add_launches(n: int = 1) -> None:
+    """Count n runs of the kernel: a launch, or a replay's tally."""
+    global launches
+    with _launches_lock:
+        launches += n
 
 _ENTRY = {torch.float32: "fsmn_conv_f32", torch.bfloat16: "fsmn_conv_bf16"}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # channels in 16 bytes
@@ -190,7 +198,6 @@ def launch(x: torch.Tensor, w: torch.Tensor, pad_l: int,
     """One launch of the kernel with the given tile, on inputs that
     `fsmn_depthwise` has checked (w contiguous, 16-byte aligned, in x's
     dtype). The tile sweep of `chip_smoke.py` calls it directly."""
-    global launches
     b, t, d = x.shape
     y = torch.empty((b, t, d), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
@@ -211,6 +218,6 @@ def launch(x: torch.Tensor, w: torch.Tensor, pad_l: int,
         with torch.cuda.device(index):
             err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     _build.check(err, name)
-    with _launches_lock:
-        launches += 1
+    if not _build.count_launch("fsmn_conv"):
+        add_launches()
     return y

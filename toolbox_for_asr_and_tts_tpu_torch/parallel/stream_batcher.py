@@ -1,23 +1,36 @@
 """Batched multi-session streaming: many connections, one step per tick.
 
 Port of `toolbox_for_asr_and_tts_tpu/parallel/stream_batcher.py`, in its
-single-card form. Session states are stacked tensors ([S, …] rows, the
-stacked caches [layers, S, …]); live sessions occupy the contiguous row
+single-card, fused form. Session states are stacked tensors ([S, …] rows,
+the stacked caches [layers, S, …]); live sessions occupy the contiguous row
 prefix [0, n_live) — `leave` moves the last live row into the vacated one —
 so a tick steps the pow-2 prefix that covers its highest ready row and
 writes the result back into the state in place, masked to the rows that had
 a chunk (`torch.where(..., out=)` into the prefix view; the reference's
 donated `dynamic_update_slice`).
 
-Left out against the reference: the mesh path, `pipelined` dispatch,
-`exec_cache` sharing and the compile lock (JAX compile mechanics), the int16
-upload (a knob for the TPU's host link) and the unfused `fused=False` path.
+Each prefix bucket's step is one program (`runtime/graphs.py`; the
+reference's AOT-compiled `_prefix_exec` / `_exec`): on the card a captured
+CUDA graph that binds the bucket's prefix views of the state, whose
+addresses never change. `warm()` builds every bucket.
+
+`exec_cache` shares programs between tickers of one `LanedHub` as the
+reference does, behind the same kind of signature (plus a CMVN and a
+weights fingerprint). A reference executable takes the state as an
+argument, so every lane reuses every program; a graph binds its own lane's
+state buffers, so here each lane keeps its own tick programs and shares
+only the programs that read no state of their own: the chunked finalize's
+"tail" decode (the row's decoder state is copied in) and the VAD fbank.
+
+Left out against the reference: the mesh path, the int16 upload (a knob for
+the TPU's host link) and the unfused `fused=False` path.
 """
 from __future__ import annotations
 
+import hashlib
 import logging
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +42,7 @@ from ..models import paraformer_online as po
 from ..models.convert import tree_to
 from ..models.paraformer_streaming import StreamingFrontend
 from ..ops import frontend as fe
+from ..runtime.graphs import Programs
 
 logger = logging.getLogger("toolbox.stream_batcher")
 
@@ -38,6 +52,50 @@ def _pow2(n: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def _fingerprint(arrays) -> Optional[str]:
+    """A digest of CMVN vectors (None without CMVN)."""
+    if arrays is None:
+        return None
+    h = hashlib.sha1()
+    for a in arrays:
+        a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a
+        h.update(np.ascontiguousarray(np.asarray(a, np.float32)).tobytes())
+    return h.hexdigest()
+
+
+def _weights_id(params) -> str:
+    """A digest of the weights' buffer addresses: a graph reads the weights
+    where they lie, so only tickers over the same buffers share programs."""
+    ptrs: List[int] = []
+
+    def walk(t):
+        if isinstance(t, torch.Tensor):
+            ptrs.append(t.data_ptr())
+        elif isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+    walk(params)
+    return hashlib.sha1(np.asarray(ptrs, np.int64).tobytes()).hexdigest()
+
+
+def _share(exec_cache: Optional[dict], sig: tuple, device,
+           name: str) -> Programs:
+    """The programs shared through `exec_cache` (a fresh owner without
+    one); a cache already holding another signature raises."""
+    if exec_cache is None:
+        return Programs(device, name)
+    if exec_cache.setdefault("signature", sig) != sig:
+        raise ValueError(
+            "exec_cache shared across differently-configured tickers: "
+            f"{exec_cache['signature']} vs {sig}")
+    if "shared" not in exec_cache:
+        exec_cache["shared"] = Programs(device, name)
+    return exec_cache["shared"]
 
 
 class AtCapacity(RuntimeError):
@@ -108,12 +166,29 @@ class BatchedChunkedASR:
     in every layer) → CIF (→ incremental decode with `partials=True`). Rows
     without a full chunk this tick are masked out of the merge, so joining,
     leaving or starved sessions never touch their state.
+
+    pipelined=True: double-buffered tick dispatch (the reference's serving
+    default, parsed from CHUNKED_PIPELINE by the hub): a step's fired
+    outputs go by an async copy into one of two pinned host buffers, and
+    the host reads them at the next dispatch (or at `leave`, `reset_slot`,
+    `finalize_slot`), so the copy and the host work overlap the next step.
+    Results lag one step; the finalize drain runs unpipelined and returns
+    everything.
+
+    exec_cache: a dict shared by identically configured tickers (the lanes
+    of one `LanedHub`). The signature holds capacity, partials, both
+    configs, a CMVN fingerprint, the device and the weights' buffers; a
+    mismatch raises ValueError. Each lane's tick programs bind its own
+    state rows and are its own; the finalize "tail" decode, which copies
+    its row's decoder state in, is shared.
     """
 
     def __init__(self, params, cfg: Optional[pf.ParaformerConfig] = None,
                  ocfg: Optional[po.OnlineConfig] = None, capacity: int = 16,
                  cmvn: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-                 partials: bool = False, device: DeviceLike = None):
+                 partials: bool = False, pipelined: bool = False,
+                 exec_cache: Optional[dict] = None,
+                 device: DeviceLike = None):
         """params: a Paraformer tensor tree (moved to `device`, the card
         unless "cpu" is passed). partials=True also decodes the fired
         tokens in the same step; `tick` then returns per-slot token ids
@@ -123,6 +198,7 @@ class BatchedChunkedASR:
         self.ocfg = ocfg or po.OnlineConfig()
         self.capacity = capacity
         self.partials = partials
+        self.pipelined = pipelined
         self.params = tree_to(params, self.device)
         self.cmvn = None
         if cmvn is not None:
@@ -137,6 +213,26 @@ class BatchedChunkedASR:
         self._rows = _PackedRows(capacity, "chunked-ASR")
         self._audio: Dict[int, np.ndarray] = {}
         self.steps = 0            # device steps run (one fused_step each)
+        self.programs = Programs(self.device, "chunked-tick")
+        sig = ("chunked", capacity, partials, self.cfg, self.ocfg,
+               _fingerprint(self.cmvn), str(self.device),
+               _weights_id(self.params))
+        self.shared = _share(exec_cache, sig, self.device, "chunked-shared")
+        # the step's fired outputs, copied out per dispatch into one of two
+        # host buffers (pinned on the card)
+        k_cap = self.ocfg.tokens_per_chunk
+        pin = self.device.type == "cuda"
+        out_shape = ((capacity, k_cap) if partials
+                     else (capacity, k_cap, self.cfg.d_model))
+        out_dtype = torch.int32 if partials else torch.float32
+        self._host = [(torch.empty(out_shape, dtype=out_dtype,
+                                   pin_memory=pin),
+                       torch.empty((capacity,), dtype=torch.int32,
+                                   pin_memory=pin)) for _ in range(2)]
+        self._flip = 0
+        # (slot → row of the dispatch, (outputs, counts, event))
+        self._inflight: Optional[Tuple[Dict[int, int], tuple]] = None
+        self._carry: Dict[int, list] = {}
 
     # ------------------------------------------------------------ rows
     @property
@@ -186,7 +282,15 @@ class BatchedChunkedASR:
         else:
             self._move_row(last, row)
 
+    def _drop_results(self, slot: int) -> None:
+        """Read the in-flight step and drop this slot's results (the other
+        rows' carried results flow out with the next tick)."""
+        if self._inflight is not None or self._carry:
+            self._harvest()
+            self._carry.pop(slot, None)
+
     def leave(self, slot: int) -> None:
+        self._drop_results(slot)
         with self._rows.lock:
             self._audio.pop(slot, None)
             self._release_row_locked(slot)
@@ -198,43 +302,103 @@ class BatchedChunkedASR:
     def reset_slot(self, slot: int) -> None:
         """Session reset: the device state row and the host audio
         remainder."""
+        self._drop_results(slot)
         self._reset_slot(slot)
         self._audio[slot] = np.zeros(0, np.float32)
 
     def warm(self) -> None:
-        """Run one all-masked step at every pow-2 prefix up to capacity,
-        so the first tick at each occupancy finds the kernels built and the
-        library plans made. The state is unchanged."""
+        """Build the step program of every pow-2 prefix up to capacity, and
+        the finalize tail, so no tick waits on a build (on the card: a
+        capture, which runs all-masked steps and leaves the state as it
+        was)."""
         b = 1
         while True:
             b = min(b, self.capacity)
-            self._step(np.zeros((b, self.chunk_samples), np.float32),
-                       np.zeros((b,), np.float32))
+            self._tick_fn(b)
             if b == self.capacity:
-                return
+                break
             b *= 2
+        if self.partials:
+            self._tail_fn()
 
     # ------------------------------------------------------------ step
-    @torch.inference_mode()
-    def _step(self, batch: np.ndarray, row_active: np.ndarray):
-        """One fused_step over the prefix of len(batch) rows, merged into
-        the state in place for the active rows. Returns the host copies of
-        (embeds f32 or ids, n_fired)."""
+    def _tick_fn(self, b: int):
+        """The step program of the prefix of b rows (ref `_prefix_exec`):
+        audio [b, chunk] and row activity [b] → (fired ids [b, k_cap] int32
+        or embeddings [b, k_cap, d] f32, fired counts [b] int32), the state
+        prefix merged in place for the active rows."""
+        def build():
+            sub = {k: a.narrow(po.batch_dim(k), 0, b)
+                   for k, a in self.state.items()}
+
+            def run(audio, active):
+                res = po.fused_step(self.params, sub, audio, self.cfg,
+                                    self.ocfg, cmvn=self.cmvn,
+                                    k_cap=self.ocfg.tokens_per_chunk,
+                                    decode_partials=self.partials)
+                keep = active.bool()
+                for key, new in res[0].items():
+                    _masked_merge(sub[key], new, keep, po.batch_dim(key))
+                n = res[2].int() * active.int()
+                out = res[3].int() if self.partials else res[1].float()
+                return out, n
+            return run, [((b, self.chunk_samples), torch.float32),
+                         ((b,), torch.float32)]
+        return self.programs.get(("tick", b), build)
+
+    def _tail_fn(self):
+        """The finalize tail (ref "tail"): one CIF embedding [1, 1, d] and
+        a row's decoder state (copied in) → its greedy id [1, 1]."""
+        def build():
+            shapes = []
+            for k in po.DECODER_KEYS:
+                a = self.state[k]
+                shape = list(a.shape)
+                shape[po.batch_dim(k)] = 1
+                shapes.append((tuple(shape), a.dtype))
+
+            def run(embed, *dstate):
+                one = torch.ones((1,), dtype=torch.int32, device=embed.device)
+                return po.decode_chunk(self.params,
+                                       dict(zip(po.DECODER_KEYS, dstate)),
+                                       embed, one, self.cfg)[1]
+            return run, [((1, 1, self.cfg.d_model), torch.float32)] + shapes
+        return self.shared.get(("tail",), build)
+
+    def _dispatch(self, batch: np.ndarray, row_active: np.ndarray) -> tuple:
+        """Run one step over the prefix of len(batch) rows; its fired
+        outputs are copied toward the host (async on the card)."""
         b = batch.shape[0]
-        dev = self.device
-        audio = torch.from_numpy(batch).to(dev)
-        active = torch.from_numpy(row_active).to(dev)
-        sub = {k: a.narrow(po.batch_dim(k), 0, b) for k, a in self.state.items()}
-        res = po.fused_step(self.params, sub, audio, self.cfg, self.ocfg,
-                            cmvn=self.cmvn, k_cap=self.ocfg.tokens_per_chunk,
-                            decode_partials=self.partials)
-        keep = active.bool()
-        for key, new in res[0].items():
-            _masked_merge(sub[key], new, keep, po.batch_dim(key))
-        n = res[2] * active.int()
+        host_out, host_n = self._host[self._flip]
+        self._flip ^= 1
+
+        def read(outs):
+            out, n = outs
+            if not out.is_cuda:
+                return out.numpy(), n.numpy(), None
+            host_out[:b].copy_(out, non_blocking=True)
+            host_n[:b].copy_(n, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            return host_out[:b].numpy(), host_n[:b].numpy(), done
+        res = self._tick_fn(b)(batch, row_active, read=read)
         self.steps += 1
-        out = res[3] if self.partials else res[1].float()
-        return out.cpu().numpy(), n.cpu().numpy()
+        return res
+
+    def _harvest(self) -> None:
+        """Read the in-flight step's fired outputs into the carry."""
+        if self._inflight is None:
+            return
+        pos, (out, n, done) = self._inflight
+        self._inflight = None
+        if done is not None:
+            done.synchronize()
+        for s, r in pos.items():
+            k = int(n[r])
+            if k > 0:
+                got = out[r, :k]
+                self._carry.setdefault(s, []).extend(
+                    got.tolist() if self.partials else list(got.copy()))
 
     # ------------------------------------------------------------ finalize
     @torch.inference_mode()
@@ -242,25 +406,30 @@ class BatchedChunkedASR:
         """Drain a slot for its final result (FunASR is_final semantics):
         pad its audio remainder to whole chunks plus two silence chunks
         (2·c1 ≥ c2, so every real frame passes the encoder lookahead into
-        the CIF active region), run the steps, then apply the host-side
-        tail-threshold fire. Returns slot → new ids (or embeddings when
-        partials=False) for every row the drain advanced. The slot's state
-        is not reset here; callers follow with reset_slot or leave."""
+        the CIF active region), run the steps unpipelined, then apply the
+        host-side tail-threshold fire. Returns slot → new ids (or
+        embeddings when partials=False) for every row the drain advanced,
+        carried results of earlier steps first. The slot's state is not
+        reset here; callers follow with reset_slot or leave."""
         a_len = self.chunk_samples
         rem = len(self._audio.get(slot, ()))
         pad = (-rem) % a_len + 2 * a_len
-        fired = self.tick({slot: np.zeros(pad, np.float32)})
+        self._harvest()
+        pipelined, self.pipelined = self.pipelined, False
+        try:
+            fired = self.tick({slot: np.zeros(pad, np.float32)})
+        finally:
+            self.pipelined = pipelined
         row = self.row_of(slot)
         mass = float(self.state["cif_mass"][row])
         frac = mass - np.floor(mass)
         if frac > 0 and frac + self.cfg.predictor_tail_threshold >= 1.0:
             acc = self.state["cif_acc"][row]
             if self.partials:
-                dstate = {k: self.state[k].narrow(po.batch_dim(k), row, 1)
-                          for k in po.DECODER_KEYS}
-                one = torch.ones((1,), dtype=torch.int32, device=self.device)
-                _, ids = po.decode_chunk(self.params, dstate,
-                                         acc[None, None, :], one, self.cfg)
+                dstate = [self.state[k].narrow(po.batch_dim(k), row, 1)
+                          for k in po.DECODER_KEYS]
+                ids = self._tail_fn()(acc.float()[None, None, :], *dstate,
+                                      read=lambda t: t.cpu().numpy())
                 fired.setdefault(slot, []).append(int(ids[0, 0]))
             else:
                 fired.setdefault(slot, []).append(acc.float().cpu().numpy())
@@ -269,8 +438,9 @@ class BatchedChunkedASR:
     # ------------------------------------------------------------ tick
     def tick(self, chunks: Dict[int, np.ndarray]) -> Dict[int, list]:
         """chunks: slot → new audio. Returns slot → the CIF-fired token
-        embeddings (or token ids with partials=True) of this tick, which may
-        run several steps."""
+        embeddings (or token ids with partials=True) that became available
+        this tick, which may run several steps; pipelined, a step's results
+        arrive one dispatch later."""
         for slot, audio in chunks.items():
             self._audio[slot] = np.concatenate(
                 [self._audio.get(slot, np.zeros(0, np.float32)),
@@ -280,35 +450,44 @@ class BatchedChunkedASR:
         while True:
             slots = [s for s, a in self._audio.items() if len(a) >= a_len]
             if not slots:
-                return fired
+                break
             # the pow-2 cover of the highest ready row (≤ n_live); rows in
             # the prefix without a chunk ride along masked
             bucket = self._rows.cover(slots)
             batch = np.zeros((bucket, a_len), np.float32)
             row_active = np.zeros((bucket,), np.float32)
+            pos = {}
             for s in slots:
                 r = self.row_of(s)
                 batch[r] = self._audio[s][:a_len]
                 self._audio[s] = self._audio[s][a_len:]
                 row_active[r] = 1.0
-            out, n = self._step(batch, row_active)
-            for s in slots:
-                r = self.row_of(s)
-                if n[r] > 0:
-                    got = out[r, : n[r]]
-                    fired.setdefault(s, []).extend(
-                        got.tolist() if self.partials else list(got))
+                pos[s] = r
+            res = self._dispatch(batch, row_active)
+            self._harvest()                 # the previous dispatch's outputs
+            self._inflight = (pos, res)
+            if not self.pipelined:
+                self._harvest()             # this dispatch's, now
+        if self._carry:
+            for s, v in self._carry.items():
+                # carried results are older than this tick's
+                fired[s] = v + fired.get(s, [])
+            self._carry.clear()
+        return fired
 
 
 class BatchedVadTicker:
     """Fixed-capacity batched FSMN-VAD stepper over live sessions.
 
     Sessions submit chunks each tick; `tick()` computes the fbank of all of
-    them in one call per length bucket (kernel K2), drains LFR per session
-    on the host, and runs `fsmn_vad.apply_streaming` (K1 in each of its
-    layers) once per group of rows that emitted the same number of frames.
-    The conv caches are one tensor [layers, capacity, lorder − 1, proj],
-    packed like BatchedChunkedASR's rows.
+    them in one program run per length bucket (kernel K2), drains LFR per
+    session on the host, and runs `fsmn_vad.apply_streaming` (K1 in each of
+    its layers) once per group of rows that emitted the same number of
+    frames. The conv caches are one tensor [layers, capacity, lorder − 1,
+    proj], packed like BatchedChunkedASR's rows. Each (pow-2 rows, frames)
+    step is a program bound to its prefix of the cache; each (pow-2 rows,
+    length bucket) fbank is a program that reads no state, shared through
+    `exec_cache` (signature: capacity, config, CMVN fingerprint, device).
     """
 
     LEN_QUANTUM = 1600       # 0.1 s buckets of buffered length
@@ -316,6 +495,7 @@ class BatchedVadTicker:
 
     def __init__(self, params, cfg: Optional[fsmn_vad.FsmnVadConfig] = None,
                  capacity: int = 16, threshold: float = 0.5, cmvn=None,
+                 exec_cache: Optional[dict] = None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.cfg = cfg or fsmn_vad.FsmnVadConfig()
@@ -330,6 +510,10 @@ class BatchedVadTicker:
         self._audio: Dict[int, np.ndarray] = {}   # per-slot raw-sample tails
         self.fbanks = 0   # fbank passes run (one K2 each)
         self.steps = 0    # FSMN steps run (K1 in each layer)
+        self.programs = Programs(self.device, "vad-step")
+        sig = ("vad", capacity, self.cfg, _fingerprint(cmvn),
+               str(self.device))
+        self.shared = _share(exec_cache, sig, self.device, "vad-fbank")
 
     # ------------------------------------------------------------ rows
     @property
@@ -387,8 +571,63 @@ class BatchedVadTicker:
         if fe_ is not None:
             fe_.reset()
 
+    # ------------------------------------------------------------ programs
+    def _fbank_fn(self, nb: int, lb: int):
+        """The fbank of nb rows of lb samples (ref ("fb", nb, lb))."""
+        def build():
+            fcfg = self.cfg.frontend
+            t = fe.num_fbank_frames(lb, fcfg)
+            return ((lambda a: fe.fbank(a, fcfg, t_frames=t)),
+                    [((nb, lb), torch.float32)])
+        return self.shared.get(("fb", nb, lb), build)
+
+    def _step_fn(self, nb: int, n: int):
+        """The FSMN step of the cache prefix of nb rows over n frames (ref
+        ("p", nb, n)): features [nb, n, D] and group membership [nb] →
+        P(speech) [nb, n], the cache prefix merged in place for the rows
+        in the group."""
+        def build():
+            sub = self.cache[:, :nb]
+
+            def run(feats, in_group):
+                post, new = fsmn_vad.apply_streaming(self.params, feats, sub,
+                                                     self.cfg)
+                _masked_merge(sub, new, in_group, 1)
+                return fsmn_vad.speech_prob(post, self.cfg)
+            return run, [((nb, n, self.cfg.input_dim), torch.float32),
+                         ((nb,), torch.bool)]
+        return self.programs.get(("p", nb, n), build)
+
+    def warm(self, chunk_samples: int = 6400, ticks: int = 4) -> None:
+        """Build every program that `ticks` ticks of uniform chunks of
+        `chunk_samples` reach at every pow-2 row count up to capacity (the
+        first ticks' fbank lengths and frame counts differ from the steady
+        state's), so sessions at a new occupancy wait on no build."""
+        fcfg = self.cfg.frontend
+        q = self.LEN_QUANTUM
+        frontend = StreamingFrontend(fcfg, None, torch.device("cpu"))
+        plan = set()
+        rem = 0
+        for _ in range(ticks):
+            length = min(rem + chunk_samples, self.MAX_PASS)
+            n_fb = fe.num_fbank_frames(length, fcfg)
+            lb = min(-(-length // q) * q, self.MAX_PASS)
+            rem = length - n_fb * fcfg.frame_shift
+            n = len(frontend.push_fbank(np.zeros((n_fb, fcfg.n_mels),
+                                                 np.float32)))
+            plan.add((lb, n))
+        nb = 1
+        while True:
+            nb = min(nb, self.capacity)
+            for lb, n in sorted(plan):
+                self._fbank_fn(nb, lb)
+                if n > 0:
+                    self._step_fn(nb, n)
+            if nb == self.capacity:
+                return
+            nb *= 2
+
     # ------------------------------------------------------------ features
-    @torch.inference_mode()
     def _batched_feats(self, slots) -> Dict[int, np.ndarray]:
         """One fbank call per LENGTH BUCKET (a uniform chunk cadence gives
         exactly one): buffered lengths pad up to LEN_QUANTUM buckets, rows
@@ -416,10 +655,9 @@ class BatchedVadTicker:
                 batch = np.zeros((nb, lb), np.float32)
                 for i, (s, length) in enumerate(rows):
                     batch[i, :length] = self._audio[s][:length]
-                fb = fe.fbank(torch.from_numpy(batch).to(self.device), fcfg,
-                              t_frames=fe.num_fbank_frames(lb, fcfg))
+                fb = self._fbank_fn(nb, lb)(
+                    batch, read=lambda t: t.cpu().numpy())
                 self.fbanks += 1
-                fb = fb.cpu().numpy()
                 for i, (s, length) in enumerate(rows):
                     n = fe.num_fbank_frames(length, fcfg)
                     self._audio[s] = self._audio[s][n * fcfg.frame_shift:]
@@ -430,7 +668,6 @@ class BatchedVadTicker:
                 for s, p in parts.items()}
 
     # ------------------------------------------------------------ tick
-    @torch.inference_mode()
     def tick(self, chunks: Dict[int, np.ndarray]) -> Dict[int, bool]:
         """chunks: slot → audio chunk → slot → speech in this chunk. One
         batched fbank and one batched FSMN step per distinct size (with
@@ -455,14 +692,9 @@ class BatchedVadTicker:
             for s in slots:
                 batch[self.row_of(s)] = feats[s]
                 in_group[self.row_of(s)] = True
-            sub = self.cache[:, :nb]
-            post, new = fsmn_vad.apply_streaming(
-                self.params, torch.from_numpy(batch).to(self.device), sub,
-                self.cfg)
+            probs = self._step_fn(nb, n)(batch, in_group,
+                                         read=lambda t: t.cpu().numpy())
             self.steps += 1
-            _masked_merge(sub, new, torch.from_numpy(in_group).to(self.device),
-                          1)
-            probs = fsmn_vad.speech_prob(post, self.cfg).cpu().numpy()
             for s in slots:
                 out[s] = bool((probs[self.row_of(s)] > self.threshold).any())
         return out

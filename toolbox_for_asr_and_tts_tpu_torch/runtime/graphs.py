@@ -1,0 +1,305 @@
+"""One captured CUDA graph per program bucket.
+
+The port's counterpart of the reference's `jax.jit(run).lower(...).compile()`
+per shape. A model call that the reference compiles once per shape bucket
+(a recognizer forward, a streaming tick, a KWS batch, ...) is a `Program`
+here: on the card, one `torch.cuda.CUDAGraph` captured from the eager
+function at the bucket's shapes and replayed with static input and output
+buffers; on the CPU, the eager function itself, with no capture. Both run
+behind the same cache, keys and locks, so the CPU tests exercise them.
+
+`Programs` is one owner's cache (one recognizer, one ticker, one spotter):
+- a double-checked lookup by bucket key; the build runs under the
+  process-wide `COMPILE_LOCK` (`runtime/compile_lock.py`);
+- a build makes the static inputs, runs the function eagerly on the
+  capture's side stream (so cuBLAS, cuFFT and cuDNN make their handles,
+  plans and workspaces outside the capture, as PyTorch's CUDA-graph notes
+  require), then captures it there with `capture_error_mode=
+  "thread_local"`: other threads may go on launching and fetching on
+  their own streams during a capture, which only the capturing thread's
+  calls can invalidate;
+- every program of one owner allocates from one graph memory pool, and the
+  owner's replays are serialized by one lock (`Programs.lock`), held from
+  the copy into the static inputs through the copy out of the static
+  outputs: a graph's static buffers make it non-reentrant, where a compiled
+  XLA executable is reentrant. The pool then holds about the largest
+  program's working set plus every program's static outputs, not the sum
+  of their peaks;
+- inputs given as numpy arrays go through pinned host staging buffers
+  (`copy_(..., non_blocking=True)`); inputs given as tensors on the card
+  are copied on the card. Buffers a program binds for good (a ticker's
+  state rows, the weights) are not inputs: the graph reads and writes them
+  where they are;
+- K1 and K2 launched while a program is warmed or captured are not counted
+  as runs (`ops/kernels/_build.tallied`); the capture's launches become the
+  program's tally, which every replay adds to the kernels' `launches`
+  counters, so a replay counts what the eager call would have counted.
+
+A capture that fails raises; nothing falls back to an eager run on the
+card, and there is no switch that turns graphs off there.
+"""
+from __future__ import annotations
+
+import gc
+import threading
+import time
+import weakref
+from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..models.convert import tree_map
+from ..ops.kernels import _build, frame_window, fsmn_conv
+from .compile_lock import COMPILE_LOCK
+
+WARMUP_RUNS = 1     # eager runs on the capture stream before each capture
+
+Spec = Tuple[Tuple[int, ...], torch.dtype]
+# kernel module name → its counter (what a replay adds its tally to)
+_COUNTERS = {"fsmn_conv": fsmn_conv.add_launches,
+             "frame_window": frame_window.add_launches}
+_OWNERS: "weakref.WeakSet[Programs]" = weakref.WeakSet()
+_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The side stream every warm-up and capture on `device` runs on (one
+    at a time: captures hold COMPILE_LOCK), so the library workspaces the
+    warm-up makes are the capture's."""
+    stream = _STREAMS.get(device)
+    if stream is None:
+        stream = _STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
+def owners() -> List["Programs"]:
+    """Every live program cache, in no fixed order (for telemetry)."""
+    return list(_OWNERS)
+
+
+class Program:
+    """One bucket's program: `prog(*inputs, read=None)`.
+
+    `read(outputs)` runs under the owner's lock right after the run and its
+    result is returned: on the card it must copy out what it keeps (a
+    `.cpu()` fetch, a `.clone()`, an async copy into a host buffer), since
+    the next replay overwrites the static outputs. Without `read`, the card
+    returns a clone of every output and the CPU the eager outputs."""
+
+    def __init__(self, owner: "Programs", key: Hashable,
+                 fn: Callable[..., Any], specs: Sequence[Spec]):
+        self.owner = owner
+        self.key = key
+        self.fn = fn
+        self.specs = [(tuple(int(n) for n in s), dt) for s, dt in specs]
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.tally: Dict[str, int] = {}   # K1 / K2 launches per replay
+        self.replays = 0
+        self._static_in: List[torch.Tensor] = []
+        self._static_out: Any = None
+        self._staging: List[Optional[torch.Tensor]] = []
+        self._staged: Optional[torch.cuda.Event] = None
+        if owner.on_card:
+            self._capture()
+
+    # ------------------------------------------------------------ build
+    def _capture(self) -> None:
+        dev = self.owner.device
+        t0 = time.perf_counter()
+        with self.owner.lock, torch.inference_mode():
+            self._static_in = [torch.zeros(s, dtype=dt, device=dev)
+                               for s, dt in self.specs]
+            self._staging = [None] * len(self.specs)
+            side = _capture_stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            graph = torch.cuda.CUDAGraph()
+            # no collection inside the capture window: a finalizer that
+            # touched the card would land in this graph
+            was_enabled = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.stream(side):
+                    with _build.tallied():
+                        for _ in range(WARMUP_RUNS):
+                            self.fn(*self._static_in)
+                    # torch.cuda.graph's own entry would synchronize the
+                    # card and empty the allocator's cache per capture;
+                    # neither is needed, and both are slow between many
+                    # captures
+                    graph.capture_begin(pool=self.owner.pool(),
+                                        capture_error_mode="thread_local")
+                    try:
+                        with _build.tallied() as tally:
+                            out = self.fn(*self._static_in)
+                    finally:
+                        graph.capture_end()
+            finally:
+                if was_enabled:
+                    gc.enable()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph, self._static_out, self.tally = graph, out, dict(tally)
+        self.owner._count_capture(time.perf_counter() - t0)
+
+    # ------------------------------------------------------------- run
+    def _fill(self, args: Sequence[Any]) -> None:
+        if len(args) != len(self._static_in):
+            raise ValueError(f"program {self.key!r} takes "
+                             f"{len(self._static_in)} inputs, got {len(args)}")
+        if self._staged is not None:
+            # the last copies from the staging buffers have finished
+            self._staged.synchronize()
+        for i, (dst, a) in enumerate(zip(self._static_in, args)):
+            shape = tuple(a.shape)
+            if shape != tuple(dst.shape):
+                raise ValueError(f"program {self.key!r} input {i}: shape "
+                                 f"{shape}, captured {tuple(dst.shape)}")
+            if isinstance(a, torch.Tensor):
+                dst.copy_(a, non_blocking=True)
+                continue
+            stage = self._staging[i]
+            if stage is None:
+                stage = torch.empty(dst.shape, dtype=dst.dtype,
+                                    pin_memory=True)
+                self._staging[i] = stage
+            stage.numpy()[...] = a
+            dst.copy_(stage, non_blocking=True)
+        self._staged = torch.cuda.Event()
+        self._staged.record()
+
+    def _eager_inputs(self, args: Sequence[Any]) -> List[torch.Tensor]:
+        """The CPU's inputs: checked and cast as a capture's static inputs
+        would hold them."""
+        if len(args) != len(self.specs):
+            raise ValueError(f"program {self.key!r} takes {len(self.specs)} "
+                             f"inputs, got {len(args)}")
+        out = []
+        for i, (a, (shape, dt)) in enumerate(zip(args, self.specs)):
+            if tuple(a.shape) != shape:
+                raise ValueError(f"program {self.key!r} input {i}: shape "
+                                 f"{tuple(a.shape)}, built for {shape}")
+            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+                np.asarray(a))
+            out.append(t.to(device=self.owner.device, dtype=dt))
+        return out
+
+    def __call__(self, *args: Any, read: Optional[Callable] = None) -> Any:
+        owner = self.owner
+        with owner.lock:
+            if self.graph is None:
+                with torch.inference_mode():
+                    out = self.fn(*self._eager_inputs(args))
+                if read is None:
+                    read = _identity
+            else:
+                with torch.inference_mode():
+                    self._fill(args)
+                    self.graph.replay()
+                for name, n in self.tally.items():
+                    _COUNTERS[name](n)
+                out = self._static_out
+                if read is None:
+                    read = _clone
+            self.replays += 1
+            owner.replays += 1
+            with torch.inference_mode():
+                return read(out)
+
+
+def _identity(x: Any) -> Any:
+    return x
+
+
+def _clone(x: Any) -> Any:
+    return tree_map(torch.clone, x)
+
+
+class Programs:
+    """One owner's programs by bucket key, with one graph memory pool and
+    one replay lock."""
+
+    def __init__(self, device, name: str):
+        self.device = torch.device(device)
+        self.name = name
+        self.lock = threading.RLock()
+        self._progs: Dict[Hashable, Program] = {}
+        self._pool = None
+        self.captures = 0
+        self.capture_s = 0.0
+        self.replays = 0
+        _OWNERS.add(self)
+
+    @property
+    def on_card(self) -> bool:
+        return self.device.type == "cuda"
+
+    def pool(self):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def get(self, key: Hashable,
+            build: Callable[[], Tuple[Callable[..., Any], Sequence[Spec]]]
+            ) -> Program:
+        """The program of `key`, built once: `build()` returns the eager
+        function and its inputs' (shape, dtype). Concurrent first calls
+        build it once: the lookup is double-checked under COMPILE_LOCK."""
+        prog = self._progs.get(key)
+        if prog is None:
+            with COMPILE_LOCK:
+                prog = self._progs.get(key)
+                if prog is None:
+                    fn, specs = build()
+                    prog = Program(self, key, fn, specs)
+                    self._progs[key] = prog
+        return prog
+
+    def __contains__(self, key: Hashable) -> bool:
+        return key in self._progs
+
+    def __len__(self) -> int:
+        return len(self._progs)
+
+    def __iter__(self):
+        return iter(list(self._progs))
+
+    def pop(self, key: Hashable, default: Any = None) -> Any:
+        """Drop a program (its graph's memory returns to the pool)."""
+        with COMPILE_LOCK, self.lock:
+            return self._progs.pop(key, default)
+
+    def _count_capture(self, seconds: float) -> None:
+        self.captures += 1
+        self.capture_s += seconds
+
+    def pool_bytes(self, snapshot: Optional[list] = None) -> Optional[int]:
+        """Bytes of the card's memory that this owner's graph pool holds
+        (the allocator's segments of the pool); 0 on the CPU, None where
+        the allocator's snapshot does not name pools."""
+        if self._pool is None:
+            return 0
+        want = tuple(self._pool)
+        total, named = 0, False
+        for seg in (torch.cuda.memory_snapshot() if snapshot is None
+                    else snapshot):
+            pid = seg.get("segment_pool_id")
+            if pid is None:
+                continue
+            named = True
+            if tuple(pid) == want:
+                total += int(seg["total_size"])
+        return total if named else None
+
+    def stats(self, snapshot: Optional[list] = None) -> Dict[str, Any]:
+        return {"owner": self.name, "programs": len(self._progs),
+                "captures": self.captures, "capture_s": self.capture_s,
+                "replays": self.replays,
+                "pool_bytes": self.pool_bytes(snapshot)}
+
+
+def report() -> List[Dict[str, Any]]:
+    """Every live owner's stats, from one allocator snapshot."""
+    live = owners()
+    snapshot = (torch.cuda.memory_snapshot()
+                if any(o._pool is not None for o in live) else [])
+    return [dict(o.stats(snapshot), id=id(o)) for o in live]

@@ -14,7 +14,11 @@ batched hubs (`service/hub.py`) unless VOICE_BATCH_SERVING=0.
   thread starts.
 
 Hub capacity comes from VOICE_BATCH_CAPACITY, else 64 (the reference's
-TPU dispatch profile, `runtime/autotune.py`, is not ported).
+TPU dispatch profile, `runtime/autotune.py`, is not ported). The lanes of
+a `LanedHub` share one `exec_cache` per family. Programs built at start-up
+(on the card: captured graphs) are built before any session can reach a
+hub: each ticker hub's in its constructor, before its tick thread starts,
+and the KWS batch programs with VOICE_KWS_AOT=1 before every hub.
 """
 from __future__ import annotations
 
@@ -98,6 +102,7 @@ def _vad_factory(model_dir: Optional[str] = None,
     own stepper."""
     from ..asr.vad import StreamingVadStepper
     from ..models import fsmn_vad
+    from ..runtime.graphs import Programs
     import torch
     dev = resolve_device(device)
 
@@ -111,9 +116,11 @@ def _vad_factory(model_dir: Optional[str] = None,
     # >1.0 keeps the model's decision False while the device work still runs
     threshold = float(os.getenv("VOICE_VAD_THRESHOLD", "0.5"))
 
+    overflow = Programs(dev, "vad-sessions")   # the sessions' programs
+
     def per_session():
         return StreamingVadStepper(params, cfg, threshold=threshold,
-                                   cmvn=cmvn, device=dev)
+                                   cmvn=cmvn, device=dev, programs=overflow)
 
     if not _batch_serving():
         return per_session
@@ -123,9 +130,11 @@ def _vad_factory(model_dir: Optional[str] = None,
     cap, lanes = _batch_capacity(capacity), tick_lanes()
     if lanes > 1:
         per = -(-cap // lanes)   # ceil: total capacity never shrinks
+        shared: dict = {}        # the lanes' shared programs
         hub = LanedHub(lambda i: VadHub(params, cfg, capacity=per,
                                         threshold=threshold, cmvn=cmvn,
-                                        device=dev), lanes)
+                                        exec_cache=shared, device=dev),
+                       lanes)
     else:
         hub = VadHub(params, cfg, capacity=cap, threshold=threshold,
                      cmvn=cmvn, device=dev)
@@ -188,10 +197,14 @@ def _streaming_factory(reco, capacity=None, device: DeviceLike = None):
         return factory
 
     from ..models.paraformer_online import OnlineConfig, OnlineRecognizer
+    from ..runtime.graphs import Programs
+
+    overflow = Programs(dev, "online-sessions")   # the sessions' programs
 
     def per_session():
         return OnlineRecognizer(reco.params, reco.cfg, reco.tokenizer,
-                                OnlineConfig(), cmvn=cmvn, device=dev)
+                                OnlineConfig(), cmvn=cmvn, device=dev,
+                                programs=overflow)
 
     if not _batch_serving():
         return per_session
@@ -201,10 +214,11 @@ def _streaming_factory(reco, capacity=None, device: DeviceLike = None):
     cap, lanes = _batch_capacity(capacity), tick_lanes()
     if lanes > 1:
         per = -(-cap // lanes)
+        shared: dict = {}        # the lanes' shared programs
         hub = LanedHub(
             lambda i: ChunkedHub(reco.params, reco.cfg, OnlineConfig(),
                                  reco.tokenizer, cmvn=cmvn, capacity=per,
-                                 device=dev), lanes)
+                                 exec_cache=shared, device=dev), lanes)
     else:
         hub = ChunkedHub(reco.params, reco.cfg, OnlineConfig(),
                          reco.tokenizer, cmvn=cmvn, capacity=cap, device=dev)
@@ -265,14 +279,19 @@ def build_engines(model_dir: Optional[str] = None,
             logger.exception("invalid VOICE_KWS_KEYWORD %r — keeping the "
                              "default keyword %r", want_kw, kws.keyword)
     diar = Diarizer(reco, sv, punctuator=punc)
-    # the VAD loads before its hub starts, the last load of the bundle;
-    # every other hub starts after it
+    if _batch_serving() and os.getenv("VOICE_KWS_AOT", "0") in ("1", "true"):
+        # wake-enabled deployments build the pow-2 batch programs at boot;
+        # off by default, as most keep wake gating off until a real KWS
+        # checkpoint is mounted
+        kws.warm(max_batch=int(os.getenv("VOICE_KWS_MAX_BATCH", "64")))
+    # the VAD loads last; each ticker hub builds its programs before its own
+    # tick thread starts, and the gather hubs start after both
     vad_factory = _vad_factory(model_dir, device=dev)
+    streaming_factory = _streaming_factory(online, device=dev)
     if _batch_serving():
         from .hub import FinalizeHub, KwsHub
         diar = FinalizeHub(diar)
         kws = KwsHub(kws)
     return VoiceEngines(diarizer=diar, kws=kws, verifier=sv,
                         vad_factory=vad_factory,
-                        streaming_factory=_streaming_factory(online,
-                                                             device=dev))
+                        streaming_factory=streaming_factory)

@@ -20,9 +20,13 @@ includes them resolves. Against the reference:
   raises its exception in every caller it held (the reference does this in
   KwsHub and FinalizeHub, and answers False / no new ids in VadHub and
   ChunkedHub);
-- the port's `BatchedChunkedASR` has no `pipelined` dispatch, mesh or
-  `exec_cache`, so ChunkedHub fetches every tick and its partials do not
-  lag one tick (the reference's serving default, CHUNKED_PIPELINE=1);
+- ChunkedHub serves with the reference's double-buffered dispatch by
+  default (CHUNKED_PIPELINE=1, parsed once here): a tick's ids arrive at
+  the next dispatch, or at leave / reset / finalize;
+- the tickers' programs are built (on the card: captured) in the hub's
+  constructor, before its tick thread starts (VOICE_AOT_TICKS=1, the
+  default); lanes of a `LanedHub` share an `exec_cache`, where a graph
+  that binds a lane's own state stays that lane's;
 - `LanedHub.join` holds its lane lock across the pick, the join and the
   count, so concurrent joins spread over the lanes by their true load.
 """
@@ -109,13 +113,23 @@ class _TickLoop:
         self._thread.join(timeout=10.0)
 
 
+def _aot_ticks() -> bool:
+    return os.getenv("VOICE_AOT_TICKS", "1") in ("1", "true")
+
+
 class VadHub(_TickLoop):
     def __init__(self, params, cfg=None, capacity: int = 16,
                  threshold: float = 0.5, tick_ms: float = 10.0, cmvn=None,
+                 exec_cache: Optional[dict] = None,
                  device: DeviceLike = None):
         from ..parallel.stream_batcher import BatchedVadTicker
         self.ticker = BatchedVadTicker(params, cfg, capacity, threshold,
-                                       cmvn=cmvn, device=device)
+                                       cmvn=cmvn, exec_cache=exec_cache,
+                                       device=device)
+        if _aot_ticks():
+            # every fbank and step program of 0.4 s chunks at every pow-2
+            # occupancy, before the tick thread starts
+            self.ticker.warm()
         self.device = self.ticker.device
         self.tick_ms = tick_ms
         # slot → (chunk, [(event, holder), …], generation-at-queue)
@@ -209,14 +223,19 @@ class ChunkedHub(_TickLoop):
 
     def __init__(self, params, cfg, ocfg, tokenizer, cmvn=None,
                  capacity: int = 16, tick_ms: float = 10.0,
+                 exec_cache: Optional[dict] = None,
                  device: DeviceLike = None):
         from ..parallel.stream_batcher import BatchedChunkedASR
-        self.ticker = BatchedChunkedASR(params, cfg, ocfg, capacity=capacity,
-                                        cmvn=cmvn, partials=True,
-                                        device=device)
-        if os.getenv("VOICE_AOT_TICKS", "1") in ("1", "true"):
-            # one all-masked step at every pow-2 occupancy now, so the first
-            # session at a new occupancy finds its library plans made
+        # serving default: double-buffered dispatch, the fetch of tick t−1
+        # overlapping tick t; partials lag one tick, finalize drains
+        # exactly. CHUNKED_PIPELINE=0 fetches every tick.
+        self.ticker = BatchedChunkedASR(
+            params, cfg, ocfg, capacity=capacity, cmvn=cmvn, partials=True,
+            pipelined=os.getenv("CHUNKED_PIPELINE", "1") in ("1", "true"),
+            exec_cache=exec_cache, device=device)
+        if _aot_ticks():
+            # the step program of every pow-2 occupancy and the finalize
+            # tail, before the tick thread starts
             self.ticker.warm()
         self.device = self.ticker.device
         self.cfg = cfg   # model geometry, as the per-session recognizers

@@ -28,9 +28,13 @@ on every other platform.
 
 Left out against the reference: the mesh path (`use_mesh`),
 `param_dtype`, and the single-phase path (TTS_TWO_PHASE=0, which decodes
-and vocodes every row at the worst-case length). `_fn` and `_dur_fn` run
-their program directly: eager PyTorch builds nothing per shape, so there is
-no per-shape cache to keep.
+and vocodes every row at the worst-case length).
+
+The duration probe and the synthesis are programs (`runtime/graphs.py`)
+keyed as the reference keys its compiled functions: a probe per (b, l), a
+synthesis per (decoder, b, l, t_mel). On the card each is a captured CUDA
+graph; in PNCA mode the whole AR scan of ⌈t_mel / r⌉ steps is inside the
+synthesis graph.
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ from ..models.convert import params_from_numpy, tree_to
 from ..runtime import checkpoints as ckpt
 from ..runtime.bucketing import Bucketer
 from ..runtime.config import TTSConfig
+from ..runtime.graphs import Program, Programs
 from ..runtime.metrics import RTFMeter, Tally, timing_log
 from .concat import StreamingConcat, concat_segments
 from .text_frontend import (G2P, LingVocab, pause_after, split_text_for_tts,
@@ -222,6 +227,8 @@ class Synthesizer:
         self.synths = Tally()
         self.ar_steps = Tally()
         self.mel_frames = Tally()
+        # one program per probe and synthesis bucket; on the card a graph
+        self.programs = Programs(self.device, "synthesizer")
 
     @classmethod
     def random(cls, seed: int = 0, tiny: bool = True,
@@ -304,18 +311,14 @@ class Synthesizer:
         return synth
 
     # ------------------------------------------------------ device programs
-    @torch.inference_mode()
-    def _fn(self, ids: torch.Tensor, lens: torch.Tensor, spk: torch.Tensor,
-            t_mel: int) -> torch.Tensor:
+    def _synth(self, ids: torch.Tensor, lens: torch.Tensor,
+               spk: torch.Tensor, t_mel: int, pnca: bool) -> torch.Tensor:
         """Acoustic model → vocoder → int16 PCM for a [b, l] phone batch:
         returns one int16 tensor [b, t_mel·hop + 1] whose last column holds
         the mel lengths (≤ t_mel < 2^15), so one fetch brings both back."""
         acfg = self.acfg
         if t_mel + acfg.outputs_per_step >= 1 << 15:
             raise ValueError(f"t_mel {t_mel} does not fit the int16 fetch")
-        pnca = self.decoder_mode == "pnca"
-        self.ar_steps.add(-(-t_mel // acfg.outputs_per_step) if pnca else 0)
-        self.mel_frames.add(ids.shape[0] * t_mel)
         acoustic = sambert.forward_ar if pnca else sambert.forward
         out = acoustic(self.ap, ids, lens, spk, acfg, t_mel=t_mel)
         wav = hifigan.forward(self.vp, out["mel"], self.vcfg)
@@ -330,6 +333,26 @@ class Synthesizer:
                 spk: torch.Tensor) -> torch.Tensor:
         """The duration probe of a [b, l] batch → mel frame counts [b]."""
         return sambert.predict_mel_lens(self.ap, ids, lens, spk, self.acfg)
+
+    def _batch_specs(self, b: int, l: int):
+        return [((b, l, 4), torch.int32), ((b,), torch.int32),
+                ((b,), torch.int32)]
+
+    def _synth_prog(self, b: int, l: int, t_mel: int) -> Program:
+        """The synthesis program of one (decoder, b, l, t_mel) bucket."""
+        pnca = self.decoder_mode == "pnca"
+
+        def build():
+            return ((lambda i, n, s: self._synth(i, n, s, t_mel, pnca)),
+                    self._batch_specs(b, l))
+        return self.programs.get(("synth", self.decoder_mode, b, l, t_mel),
+                                 build)
+
+    def _dur_prog(self, b: int, l: int) -> Program:
+        """The duration probe program of one (b, l) bucket."""
+        def build():
+            return self._dur_fn, self._batch_specs(b, l)
+        return self.programs.get(("dur", b, l), build)
 
     def _to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
         return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -375,7 +398,8 @@ class Synthesizer:
             t_cap = l * self.acfg.frames_per_phone
             mb = self.MEL_BUCKET
             self.probes.add()
-            probe = self._dur_fn(*self._to_device(ids, lens, spk)).cpu().numpy()
+            probe = self._dur_prog(b, l)(ids, lens, spk,
+                                         read=lambda t: t.cpu().numpy())
             t_rows = np.minimum(-(-probe // mb) * mb, t_cap)
             t_rows = np.maximum(t_rows, mb).astype(int)
             mel_groups: Dict[int, List[int]] = {}
@@ -386,9 +410,12 @@ class Synthesizer:
                 mel_groups[int(t_rows.max())] = list(range(b))
             for t_mel, rows in sorted(mel_groups.items()):
                 self.synths.add()
-                packed = self._fn(
-                    *self._to_device(ids[rows], lens[rows], spk[rows]), t_mel)
-                packed = packed.cpu().numpy()
+                if self.decoder_mode == "pnca":
+                    self.ar_steps.add(-(-t_mel // self.acfg.outputs_per_step))
+                self.mel_frames.add(len(rows) * t_mel)
+                packed = self._synth_prog(len(rows), l, t_mel)(
+                    ids[rows], lens[rows], spk[rows],
+                    read=lambda t: t.cpu().numpy())
                 pcm, mel_lens = packed[:, :-1], packed[:, -1]
                 for g_row, row in enumerate(rows):
                     idx = idxs[row]
