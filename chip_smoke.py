@@ -6,9 +6,12 @@
                                       # transcribe by CUDA kernel, the
                                       # card's busy time per streaming step,
                                       # over an S = 16 service run and over
-                                      # one TTS synthesize, and the stages
-                                      # of a Paraformer-large load
-    python3 chip_smoke.py --sweep     # also: K1's device time per tile
+                                      # one TTS synthesize, the stages
+                                      # of a Paraformer-large load, and
+                                      # one fine-tuning step
+    python3 chip_smoke.py --sweep     # also: K1's device time per tile,
+                                      # and the dw kernel's per frames per
+                                      # block and per pass
 
 Every model call of the port runs as a program (`runtime/graphs.py`): on
 the card one captured CUDA graph per shape bucket, replayed; K1 and K2 run
@@ -33,7 +36,15 @@ Phases (any failure exits non-zero and prints no result line):
    timed; median), beside the same method's per-launch floor (a 1-cycle
    spin kernel), the kernel's per-call time with its host overhead (CUDA
    events over back-to-back calls), and the least time the card could take
-   (bytes or flops over its peak rate). TF32 stays off for every phase;
+   (bytes or flops over its peak rate). K1's backward at the fine-tuning
+   shapes (the encoder's V view of [8, 167, 1536], the decoder's
+   [8, 32, 512]): through `FsmnDepthwiseFn` one backward is one K1 launch
+   (dx, taps reversed) and one `fsmn_conv_dw` launch; dx against autograd
+   of the plain version (f32 within 1e-6 of max|dx|), dw against
+   `fsmn_conv_dw_plain` (f32 within 1e-5 of max|dw|), bf16 within 1e-2,
+   dw bit-equal across two runs; the same times beside the library's
+   `convolution_backward` (input or weight gradient only). TF32 stays off
+   for every phase;
 3. the full-width main path: `Recognizer.random(ParaformerConfig(), seed=0)`
    (Paraformer-large: 50 + 16 layers, d 512, vocab 8404) transcribes a
    batch of 8 x up to 10 s of 16 kHz audio, with and without hotwords; the
@@ -143,11 +154,26 @@ Phases (any failure exits non-zero and prints no result line):
    ok, result latency median and p95, launches accounted. The parts run
    one at a time ((a), (d), then each child alone), so no time is taken
    beside another part's load;
-9. the `streaming`, `service`, `tts`, `checkpoints`, `entry_points`,
+9. fine-tuning at full width (phase 10): `Recognizer.random(
+   ParaformerConfig(), seed=0)`'s tree trained by `parallel/trainstep.py`
+   (AdamW, lr 1e-4) on phase 3's 8 rows as 16-bit WAVs in a manifest with
+   random target ids from a fixed seed (k_max 32; features by
+   `tools/finetune._features`, no CMVN): one step's gradients on the card
+   against the same port on the CPU for 2 rows cut to 3 s (every leaf
+   within 1e-3 of its norm); 8 steps on the fixed batch with the counters
+   zeroed just before each and read just after (K1 132, `fsmn_conv_dw` 66,
+   K2 1 per step; a finite loss, lower at the end than at the start); a
+   fresh seed-0 tree restored from the save at step 4 and continued to 8,
+   equal to the uninterrupted run; `tools/finetune.py` with `--export`,
+   whose export loaded by `Recognizer.from_model_dir` transcribes the 8
+   rows with the ids of a Recognizer on the CLI's tuned tree in memory.
+   cuDNN runs deterministic in this phase. `--profile` adds the card's busy
+   time over one step;
+10. the `streaming`, `service`, `tts`, `checkpoints`, `entry_points`,
    `graphs` (per program owner, as first seen by a phase: programs,
    captures, capture seconds, replays, graph pool bytes at the phase's
-   end) and `kernels` JSON lines, then the result line {"ok": true, "device":
-   {"platform": "gpu", "kind": ..., "count": ...}}.
+   end), `train` and `kernels` JSON lines, then the result line {"ok":
+   true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Needs one card, no network, and only the files of this repository.
 """
@@ -224,8 +250,11 @@ def call_ms(torch, fn, reps: int = 50, rounds: int = 7) -> float:
 
 
 def _device_events(prof):
+    """The profile's kernels and copies on the card; user annotations (such
+    as `Optimizer.step`'s, which span kernels) are left out."""
     return [e for e in prof.key_averages()
-            if "CUDA" in str(getattr(e, "device_type", ""))]
+            if "CUDA" in str(getattr(e, "device_type", ""))
+            and not getattr(e, "is_user_annotation", False)]
 
 
 _SPIN = {}
@@ -405,6 +434,136 @@ def check_k1(torch, peaks, floor_ms: float):
     return rows
 
 
+# K1's backward at the fine-tuning path's shapes: the encoder's V view of
+# [8, 167, 1536] and the decoder's [8, k_max 32, 512], K 11, pad (5, 5)
+K1_TRAIN_SITES = {"encoder": 167, "decoder": 32}
+
+
+def conv_backward(torch, pad, which: str):
+    """The library yardstick of K1's backward: one
+    `torch.ops.aten.convolution_backward` of the depthwise conv, the input
+    gradient (dx, without the residual and masks) or the weight gradient
+    (dw) only."""
+    def library(x, g, w):
+        mask = [which == "dx", which == "dw", False]
+        return torch.ops.aten.convolution_backward(
+            g.transpose(1, 2), x.transpose(1, 2), w, None, [1], [pad[0]],
+            [1], False, [0], x.shape[-1], mask)
+    return library
+
+
+def k1_backward_case(torch, site: str, dtype, seed: int):
+    """x as the path passes it (the encoder: the V third of a qkv buffer
+    that requires grad; the decoder: a contiguous leaf), w, a length mask
+    and the incoming gradient g of K1's output."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, t, d = 8, K1_TRAIN_SITES[site], K1_D
+    width = 3 * d if site == "encoder" else d
+    src = torch.randn((b, t, width), generator=gen, device=dev).to(dtype)
+    w = torch.randn((d, 1, K1_K), generator=gen, device=dev) * 0.02
+    g = torch.randn((b, t, d), generator=gen, device=dev).to(dtype)
+    lens = torch.tensor([t, t * 3 // 4, t // 3, t, t // 2, t - 7,
+                         t * 2 // 3, t // 4], device=dev)
+    mask = (torch.arange(t, device=dev)[None] < lens[:, None]).float()
+    return src, w, g, mask
+
+
+def check_k1_backward(torch, peaks, floor_ms: float):
+    """K1 under autograd at the fine-tuning shapes, through
+    `FsmnDepthwiseFn`: one backward is one K1 launch (dx, the taps
+    reversed) and one `fsmn_conv_dw` launch. dx against autograd of the
+    plain version (f32 within 1e-6 of max|dx|: another order of the same
+    sums), dw against `fsmn_conv_dw_plain` (f32 within 1e-5 of max|dw|),
+    bf16 within 1e-2 of either; dw bit-equal across two runs. Device time
+    of each kernel, its plain version and the library's
+    `convolution_backward`, beside its bound."""
+    from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import fsmn_conv as k1
+    from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import (
+        fsmn_conv_dw as kdw)
+    pad_l, pad_r = K1_PAD
+    rows = {"dx": [], "dw": []}
+    for site in K1_TRAIN_SITES:
+        for dtype, f32 in ((torch.float32, True), (torch.bfloat16, False)):
+            src, w, g, mask = k1_backward_case(torch, site, dtype, seed=6)
+            d = K1_D
+            leaf = src.detach().requires_grad_(True)
+            x = leaf[..., 2 * d:] if site == "encoder" else leaf
+            wg = w.detach().clone().requires_grad_(True)
+            y = k1.fsmn_depthwise(x, wg, pad_l, pad_r, mask)
+            torch.cuda.synchronize()
+            n1, n_dw = k1.launches, kdw.launches
+            y.backward(g)
+            torch.cuda.synchronize()
+            n1, n_dw = k1.launches - n1, kdw.launches - n_dw
+            require((n1, n_dw) == (1, 1), f"K1 backward {site}: {n1} K1 and "
+                    f"{n_dw} dw launches, expected 1 and 1")
+            dx = leaf.grad[..., 2 * d:] if site == "encoder" else leaf.grad
+            require(site != "encoder" or not leaf.grad[..., :2 * d].any(),
+                    "K1 backward: gradient outside the V third")
+            xp = x.detach().contiguous().requires_grad_(True)
+            wp = w.detach().clone().requires_grad_(True)
+            k1.fsmn_depthwise_plain(xp, wp, pad_l, pad_r, mask).backward(g)
+            xv = x.detach()
+            dw1 = kdw.fsmn_conv_dw(xv, g, K1_K, pad_l, mask)
+            dw2 = kdw.fsmn_conv_dw(xv, g, K1_K, pad_l, mask)
+            dw_plain = kdw.fsmn_conv_dw_plain(xv, g, K1_K, pad_l, mask)
+            torch.cuda.synchronize()
+            require(torch.equal(dw1, dw2), f"dw {site}: two runs differ")
+            require(torch.equal(wg.grad, dw1.to(dtype).float()),
+                    f"dw {site}: the Function's dw is not the kernel's")
+            dtype_s = str(dtype).split(".")[-1]
+            wflip = w.flip(-1).to(dtype).contiguous()
+            el = xv.element_size()
+            b, t = xv.shape[:2]
+            for name, got, want, tol in (
+                    ("dx", dx, xp.grad, 1e-6 if f32 else 1e-2),
+                    ("dw", dw1, dw_plain, 1e-5 if f32 else 1e-2)):
+                err = (got.float() - want.float()).abs().max().item()
+                scale = want.float().abs().max().item()
+                require(err <= tol * scale, f"K1 backward {name} {site} "
+                        f"{dtype_s}: max|err| {err} > {tol} x {scale}")
+                if name == "dx":
+                    kernel = lambda: k1.fsmn_depthwise(  # noqa: E731
+                        g, wflip, pad_r, pad_l, mask)
+                    plain = lambda: k1.fsmn_depthwise_plain(  # noqa: E731
+                        g, wflip, pad_r, pad_l, mask)
+                    nbytes = (2 * g.numel() + d * K1_K) * el + mask.numel() * 4
+                    flops = (2 * K1_K + 2) * b * t * d
+                else:
+                    kernel = lambda: kdw.fsmn_conv_dw(  # noqa: E731
+                        xv, g, K1_K, pad_l, mask)
+                    plain = lambda: kdw.fsmn_conv_dw_plain(  # noqa: E731
+                        xv, g, K1_K, pad_l, mask)
+                    nbytes = ((xv.numel() + g.numel()) * el + d * K1_K * 4
+                              + mask.numel() * 4)
+                    flops = 2 * K1_K * b * t * d
+                library = conv_backward(torch, K1_PAD, name)
+                wk = w.to(dtype)
+                ms = device_ms(torch, kernel)
+                host_ms = call_ms(torch, kernel)
+                plain_ms = device_ms(torch, plain)
+                library_ms = device_ms(torch, lambda: library(xv, g, wk))
+                bound_ms, bound_by = bound(nbytes, flops, peaks)
+                rows[name].append(dict(
+                    site=site, dtype=dtype_s, shape=[b, t, d, K1_K],
+                    pad=list(K1_PAD), masked=True, strided=xv.stride(1) != d,
+                    max_abs_err=err, tol=tol, scale=scale, ms=ms,
+                    call_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=library_ms,
+                    launch_floor_ms=floor_ms,
+                    deterministic=True if name == "dw" else None))
+                print(f"K1 backward {name} {site} {dtype_s} x[{b},{t},{d}]"
+                      f"{' (V view)' if xv.stride(1) != d else ''} K={K1_K}: "
+                      f"max|err| {err:.3g} (tol {tol} x max {scale:.3g}) "
+                      f"device: kernel {ms * 1e3:.2f} us, plain "
+                      f"{plain_ms * 1e3:.2f} us, library (convolution_"
+                      f"backward, {name} only) {library_ms * 1e3:.2f} us, "
+                      f"bound {bound_ms * 1e3:.2f} us ({bound_by}); per call "
+                      f"with host overhead {host_ms * 1e3:.2f} us", flush=True)
+    return rows
+
+
 # K1 and K2 at the streaming path's shapes (f32, as the path runs)
 STREAM_S = 64                 # sessions of the largest bucket timed
 VAD_CTX, VAD_T, VAD_D, VAD_K = 19, 40, 128, 20   # [cache ‖ h], lorder 20
@@ -517,6 +676,60 @@ def sweep_k1(torch):
                 print(f"  frames {tile.frames} channels {tile.channels:3d} "
                       f"threads_t {tile.threads_t:3d} k_const "
                       f"{tile.k_const:2d}: {ms * 1e3:.2f} us")
+
+
+DW_SWEEP_FRAMES = (8, 16, 32, 48, 64, 96, 128, 168)
+
+
+def sweep_dw(torch):
+    """`fsmn_conv_dw`'s device time for each frames-per-block of its pass 1
+    at both fine-tuning shapes (f32, held against the plain version), and
+    its two passes apart by torch.profiler at the wrapper's frames, also at
+    batch 64 of the encoder's shape."""
+    from torch.profiler import ProfilerActivity, profile
+    from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import (
+        fsmn_conv_dw as kdw)
+    chosen = kdw.FRAMES
+    pad_l = K1_PAD[0]
+    try:
+        for site in K1_TRAIN_SITES:
+            src, _, g, mask = k1_backward_case(torch, site, torch.float32, 7)
+            x = src[..., 2 * K1_D:] if site == "encoder" else src
+            want = kdw.fsmn_conv_dw_plain(x, g, K1_K, pad_l, mask)
+            times = {}
+            for frames in DW_SWEEP_FRAMES:
+                kdw.FRAMES = frames
+
+                def fn():
+                    return kdw.fsmn_conv_dw(x, g, K1_K, pad_l, mask)
+                err = k1_err(torch, fn(), want)
+                require(err <= 1e-5 * want.abs().max().item(),
+                        f"dw sweep {site} frames {frames}: max|err| {err}")
+                times[frames] = device_ms(torch, fn)
+            print(f"dw sweep {site} x{list(x.shape)}: " + ", ".join(
+                f"{f} frames {ms * 1e3:.2f} us" for f, ms in times.items())
+                + f" (the wrapper's {chosen})", flush=True)
+        kdw.FRAMES = chosen
+        for site, b in (("encoder", 8), ("decoder", 8), ("encoder", 64)):
+            t = K1_TRAIN_SITES[site]
+            x = torch.randn((b, t, K1_D), device="cuda")
+            g = torch.randn((b, t, K1_D), device="cuda")
+            for _ in range(3):
+                kdw.fsmn_conv_dw(x, g, K1_K, pad_l)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    kdw.fsmn_conv_dw(x, g, K1_K, pad_l)
+                torch.cuda.synchronize()
+            parts = {("pass 1" if "partial" in e.key else "pass 2"):
+                     e.self_device_time_total / e.count
+                     for e in _device_events(prof) if "fsmn_dw_" in e.key}
+            print(f"dw passes x[{b},{t},{K1_D}] ({chosen} frames per block, "
+                  f"profiler): " + ", ".join(f"{k} {v:.2f} us"
+                                            for k, v in parts.items()),
+                  flush=True)
+    finally:
+        kdw.FRAMES = chosen
 
 
 def check_k2(torch, peaks, b: int = 8, n: int = 10 * SR, t=None,
@@ -3327,6 +3540,290 @@ def entry_points_path(torch, card, root, mounted, tts_text: str,
 
 
 # ---------------------------------------------------------------- main
+# ------------------------------------------- phase 10: fine-tuning
+FT_STEPS = 8                 # steps on one fixed batch: the loss must fall
+FT_RESUME_AT = 4             # saved here, restored into a fresh tree
+FT_K_MAX = 32
+FT_LR = 1e-4
+FT_CPU_SECONDS = 3.0         # 2 rows cut to this, card vs CPU gradients
+FT_CPU_ROWS = (0, 1)
+FT_GRAD_REL = 1e-3           # card vs CPU: |g_card - g_cpu| <= this · |g_cpu|
+                             # per leaf (66 layers of f32 GEMMs summed in
+                             # other orders, cuBLAS vs the CPU's BLAS)
+
+
+def ft_manifest(root: str, wavs, tokenizer) -> str:
+    """The 8 rows of `make_wavs` as 16-bit WAVs under `root`, with random
+    target texts from a fixed seed (3 tokens per second of audio, at most
+    k_max, ids past the specials), in the CLI's JSONL manifest."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.utils.audio import write_wav
+    rng = np.random.default_rng(9)
+    path = os.path.join(root, "train.jsonl")
+    with open(path, "w", encoding="utf-8") as f:
+        for i, w in enumerate(wavs):
+            wav = os.path.join(root, f"row{i}.wav")
+            write_wav(wav, w, SR)
+            n = min(FT_K_MAX, max(1, int(3 * len(w) / SR)))
+            ids = rng.integers(4, len(tokenizer.tokens), n)
+            f.write(json.dumps({"wav": wav, "text": "".join(
+                tokenizer.tokens[j] for j in ids)}, ensure_ascii=False) + "\n")
+    return path
+
+
+def ft_card_vs_cpu(torch, cfg, params, items):
+    """The gradients of one step on the card against the same port on the
+    CPU (the same seed-0 tree, the same CPU-computed features of 2 rows cut
+    to 3 s), before the card's tree takes a step."""
+    from toolbox_for_asr_and_tts_tpu_torch.models import paraformer
+    from toolbox_for_asr_and_tts_tpu_torch.parallel import trainstep as ts
+    from toolbox_for_asr_and_tts_tpu_torch.tools import finetune
+    n = int(FT_CPU_SECONDS * SR)
+    rows = [(items[i][0][:n], items[i][1][:int(3 * FT_CPU_SECONDS)])
+            for i in FT_CPU_ROWS]
+    batch = finetune._features(rows, cfg.frontend, FT_K_MAX // 2, "cpu")
+    t0 = time.perf_counter()
+    cpu = paraformer.init_params(cfg, torch.Generator().manual_seed(0))
+    for p in ts.param_leaves(cpu):
+        p.requires_grad_(True)
+    out = {}
+    for name, tree in (("card", params), ("cpu", cpu)):
+        dev = ts.param_leaves(tree)[0].device
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, _ = ts.paraformer_loss(tree, b["feats"], b["feat_lens"],
+                                     b["targets"], b["target_lens"], cfg)
+        loss.backward()
+        leaves = ts.param_leaves(tree)
+        out[name] = (loss.item(), [p.grad.cpu() for p in leaves])
+        for p in leaves:
+            p.grad = None
+    (l_card, g_card), (l_cpu, g_cpu) = out["card"], out["cpu"]
+    floor = 1e-7 * max(g.norm().item() for g in g_cpu)
+    worst = max(((a - b).norm() / max(b.norm().item(), floor)).item()
+                for a, b in zip(g_card, g_cpu))
+    dloss = abs(l_card - l_cpu) / abs(l_cpu)
+    require(dloss <= 1e-5, f"fine-tuning card vs cpu: loss {l_card} vs "
+                           f"{l_cpu}")
+    require(worst <= FT_GRAD_REL, f"fine-tuning card vs cpu: a leaf's "
+                                  f"gradient differs by {worst:.3g} of its norm")
+    print(f"fine-tuning card vs cpu: rows {list(FT_CPU_ROWS)} cut to "
+          f"{FT_CPU_SECONDS} s, loss {l_card:.6f} vs {l_cpu:.6f} (rel "
+          f"{dloss:.3g}), worst leaf |g_card - g_cpu| / |g_cpu| {worst:.3g} "
+          f"over {len(g_cpu)} leaves (tol {FT_GRAD_REL}), "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(rows=list(FT_CPU_ROWS), seconds=FT_CPU_SECONDS,
+                loss_rel=dloss, worst_leaf_rel=worst, tol=FT_GRAD_REL,
+                leaves=len(g_cpu))
+
+
+def ft_steps(torch, step, params, opt, items, cfg, on_step=None):
+    """FT_STEPS steps on one fixed batch (all rows, in order), each its
+    features (`finetune._features`, K2) and its step, with the launch
+    counters zeroed just before and read just after; the loss fetched
+    ends each step's wall. `on_step(i)` runs before step i."""
+    from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import fsmn_conv as k1
+    from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import (
+        fsmn_conv_dw as kdw)
+    from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import frame_window as k2
+    from toolbox_for_asr_and_tts_tpu_torch.tools import finetune
+    dev = torch.device("cuda")
+    losses, walls, launches = [], [], []
+    for i in range(FT_STEPS):
+        if on_step is not None:
+            on_step(i)
+        torch.cuda.synchronize()
+        k1.launches = kdw.launches = k2.launches = 0
+        t0 = time.perf_counter()
+        batch = finetune._features(items, cfg.frontend, FT_K_MAX, dev)
+        params, opt, m = step(params, opt, batch)
+        losses.append(m["loss"].item())
+        walls.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        launches.append((k1.launches, kdw.launches, k2.launches))
+    return losses, walls, launches, batch
+
+
+def profile_train_step(torch, step, params, opt, items, cfg, wall_ms: float):
+    """Device time of one fine-tuning step by kernel (torch.profiler),
+    against the unprofiled median step wall; K1's and dw's per launch."""
+    from torch.profiler import ProfilerActivity, profile
+    from toolbox_for_asr_and_tts_tpu_torch.tools import finetune
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        batch = finetune._features(items, cfg.frontend, FT_K_MAX,
+                                   torch.device("cuda"))
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+    rows = _device_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    require(busy_ms > 0, "profiler saw no device time")
+    n = sum(e.count for e in rows)
+    print(f"profile: one fine-tuning step, device busy {busy_ms:.1f} ms of "
+          f"{wall_ms:.1f} ms unprofiled median wall (idle share "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}%), {n} kernel launches")
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    for e in rows[:15]:
+        print(f"  {e.self_device_time_total / 1e3:8.3f} ms "
+              f"{e.count:5d}x  {e.key[:90]}")
+    out = dict(busy_ms=busy_ms, wall_ms=wall_ms, launches=n)
+    for name, sym in (("fsmn_conv", "fsmn_conv_kernel"),
+                      ("fsmn_conv_dw", "fsmn_dw_"),
+                      ("frame_window", "frame_window_kernel")):
+        hits = [e for e in rows if sym in e.key]
+        k = sum(e.count for e in hits)
+        if k:
+            out[name] = dict(ms_total=sum(e.self_device_time_total
+                                          for e in hits) / 1e3, launches=k)
+    print("profile: inside one step: " + ", ".join(
+        f"{k} {v['ms_total']:.3f} ms over {v['launches']} kernel launches"
+        for k, v in out.items() if isinstance(v, dict)), flush=True)
+    return out
+
+
+def finetune_path(torch, card, wavs, profile: bool = False):
+    """Fine-tuning at full width (Paraformer-large, the 8 rows of
+    `make_wavs` with random targets, k_max 32): card vs CPU gradients;
+    FT_STEPS steps on one fixed batch (K1 132, dw 66, K2 1 per step; a
+    finite loss that falls); a fresh seed-0 tree restored from the save at
+    step FT_RESUME_AT continued to FT_STEPS equal to the uninterrupted run;
+    `tools/finetune.py` with `--export`, whose export served by
+    `Recognizer.from_model_dir` gives the ids of a Recognizer on the CLI's
+    tuned tree in memory. cuDNN runs deterministic here (the predictor
+    conv's weight gradient), so a resumed run can equal the uninterrupted
+    one bit for bit."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.asr.recognizer import Recognizer
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer import (
+        ParaformerConfig)
+    from toolbox_for_asr_and_tts_tpu_torch.parallel import trainstep as ts
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import train_ckpt as tc
+    from toolbox_for_asr_and_tts_tpu_torch.tools import finetune
+    cfg = ParaformerConfig()
+    layers = cfg.encoder_layers + cfg.decoder_layers
+    root = tempfile.mkdtemp(prefix="finetune-")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        reco = Recognizer.random(cfg, seed=0)
+        manifest = ft_manifest(root, wavs, reco.tokenizer)
+        items = finetune._load_manifest(manifest, reco.tokenizer,
+                                        cfg.frontend, FT_K_MAX, 10.0)
+        init_opt, step = ts.make_train_step(cfg, ts.adamw(FT_LR))
+        params = reco.params
+        opt = init_opt(params)
+        vs_cpu = ft_card_vs_cpu(torch, cfg, params, items)
+
+        ck = os.path.join(root, "ck")
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()   # the earlier phases' too
+
+        def save_at(i):
+            if i == FT_RESUME_AT:
+                t = time.perf_counter()
+                tc.save_train_state(ck, i, params, opt)
+                save_s.append(time.perf_counter() - t)
+        save_s = []
+        losses, walls, launches, batch = ft_steps(torch, step, params, opt,
+                                                  items, cfg, save_at)
+        peak = torch.cuda.max_memory_allocated()
+        want = (2 * layers, layers, 1)
+        for i, n in enumerate(launches):
+            require(n == want, f"fine-tuning step {i}: K1 / dw / K2 launched "
+                               f"{n}, expected {want}")
+        require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+        require(losses[-1] < losses[0], f"the loss did not fall over "
+                                        f"{FT_STEPS} steps: {losses}")
+        audio_s = sum(len(w) for w, _ in items) / SR
+        tokens = int(batch["target_lens"].sum().item())
+        med = statistics.median(walls)
+        p95 = float(np.percentile(walls, 95))
+        print(f"fine-tuning: {FT_STEPS} steps of 8 rows ({audio_s:.1f} s of "
+              f"audio, {tokens} target tokens, k_max {FT_K_MAX}) on {card}: "
+              f"step wall median {med * 1e3:.1f} ms, p95 {p95 * 1e3:.1f} ms "
+              f"({audio_s / med:.1f} audio s/s, {tokens / med:.0f} tokens/s); "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"({', '.join(f'{v:.3f}' for v in losses)}); launches per step "
+              f"K1 {launches[0][0]}, dw {launches[0][1]}, K2 "
+              f"{launches[0][2]}; peak allocated {peak / 2**30:.2f} GiB "
+              f"({(peak - resident) / 2**30:.2f} GiB above the "
+              f"{resident / 2**30:.2f} GiB resident before the steps)",
+              flush=True)
+
+        # resume: a fresh seed-0 tree and optimizer, restored, continued
+        t = time.perf_counter()
+        reco2 = Recognizer.random(cfg, seed=0)
+        init2, step2 = ts.make_train_step(cfg, ts.adamw(FT_LR))
+        opt2 = init2(reco2.params)
+        got = tc.restore_train_state(ck, reco2.params, opt2)
+        require(got is not None and got[0] == FT_RESUME_AT,
+                f"restored {got and got[0]}, saved {FT_RESUME_AT}")
+        restore_s = time.perf_counter() - t
+        params2 = reco2.params
+        for _ in range(FT_RESUME_AT, FT_STEPS):
+            batch2 = finetune._features(items, cfg.frontend, FT_K_MAX,
+                                        torch.device("cuda"))
+            params2, opt2, _ = step2(params2, opt2, batch2)
+        torch.cuda.synchronize()
+        resume_d = max((a - b).abs().max().item() for a, b in
+                       zip(ts.param_leaves(params), ts.param_leaves(params2)))
+        scale = max(a.abs().max().item() for a in ts.param_leaves(params))
+        require(resume_d <= 1e-6 + 1e-6 * scale,
+                f"resumed run differs from the uninterrupted one by "
+                f"{resume_d}")
+        print(f"fine-tuning resume: saved at step {FT_RESUME_AT} "
+              f"({save_s[0]:.1f} s), restored into a fresh tree "
+              f"({restore_s:.1f} s), continued to step {FT_STEPS}: max |d| "
+              f"against the uninterrupted run {resume_d:.3g}", flush=True)
+        del reco2, params2, opt2
+        prof = (profile_train_step(torch, step, params, opt, items, cfg,
+                                   med * 1e3) if profile else None)
+
+        # the CLI with --export, then the export served
+        t = time.perf_counter()
+        mount = os.path.join(root, "mount")
+        res = finetune.main(
+            ["--manifest", manifest, "--ckpt-dir", os.path.join(root, "cli"),
+             "--steps", "2", "--batch", "8", "--save-every", "2",
+             "--k-max", str(FT_K_MAX), "--max-secs", "10",
+             "--export", os.path.join(mount, "torch_params.npz")])
+        cli_s = time.perf_counter() - t
+        require(len(res["losses"]) == 2 and all(np.isfinite(res["losses"])),
+                f"finetune CLI losses {res['losses']}")
+        served = Recognizer.from_model_dir(mount)
+        tuned = Recognizer(res["params"], res["cfg"], res["tokenizer"])
+        a, b = served.transcribe(wavs), tuned.transcribe(wavs)
+        ids = [r.token_ids for r in a]
+        require(ids == [r.token_ids for r in b], "the exported tree served "
+                "other ids than the tuned tree in memory")
+        print(f"fine-tuning CLI: 2 steps with --export in {cli_s:.1f} s "
+              f"(losses {res['losses']}); Recognizer.from_model_dir on the "
+              f"export: ids equal to the tuned tree's in memory on all 8 "
+              f"rows ({sum(len(i) for i in ids)} tokens)", flush=True)
+        print(f"fine-tuning phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return dict(
+            config="ParaformerConfig()", rows=len(items), audio_s=audio_s,
+            target_tokens=tokens, k_max=FT_K_MAX, lr=FT_LR, steps=FT_STEPS,
+            step_wall_ms_median=med * 1e3, step_wall_ms_p95=p95 * 1e3,
+            step_wall_ms=[w * 1e3 for w in walls],
+            audio_s_per_s=audio_s / med, tokens_per_s=tokens / med,
+            loss_first=losses[0], loss_last=losses[-1], losses=losses,
+            max_memory_allocated=peak, memory_resident_before=resident,
+            launches_per_step={"fsmn_conv": launches[0][0],
+                               "fsmn_conv_dw": launches[0][1],
+                               "frame_window": launches[0][2]},
+            card_vs_cpu=vs_cpu, resume_max_abs_diff=resume_d,
+            save_s=save_s[0], restore_s=restore_s, cli_s=cli_s,
+            cli_losses=res["losses"], export_ids_equal=True,
+            **({"profile": prof} if prof else {}))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv) -> int:
     import shutil
     import tempfile
@@ -3381,8 +3878,10 @@ def main(argv) -> int:
         print(f"launch floor of the event method (a 1-cycle spin kernel): "
               f"{floor_ms * 1e3:.2f} us per launch", flush=True)
         k1_rows = check_k1(torch, peaks, floor_ms)
+        k1_backward = check_k1_backward(torch, peaks, floor_ms)
         if "--sweep" in argv:
             sweep_k1(torch)
+            sweep_dw(torch)
         k2_row = check_k2(torch, peaks)
         k1_stream, k2_stream = check_streaming_kernels(torch, peaks, floor_ms)
         k1_service, k2_service = check_service_kernels(torch, peaks, floor_ms)
@@ -3412,6 +3911,8 @@ def main(argv) -> int:
             if mounted is not None:
                 mounted[0].stop()
             shutil.rmtree(root, ignore_errors=True)
+        at("phase 10: fine-tuning")
+        train = finetune_path(torch, card, wavs, profile)
     except Exception:   # every phase failure ends the run without a result
         traceback.print_exc()
         return 1
@@ -3419,6 +3920,9 @@ def main(argv) -> int:
 
     main_k1 = next(r for r in k1_rows
                    if r["site"] == "encoder" and r["dtype"] == "float32")
+    main_dw = next(r for r in k1_backward["dw"]
+                   if r["site"] == "encoder" and r["dtype"] == "float32")
+    per_step = train["launches_per_step"]
     served = {run: service[run]["launches"]
               for run in ("S1", "S16_first", "S16_unpipelined", "S16",
                           "four_modes", "rest")}
@@ -3456,7 +3960,18 @@ def main(argv) -> int:
              ms_in_replay=in_replay.get("fsmn_conv"),
              ms_in_step_replay=streaming["S64"].get("profile", {}).get(
                  "in_replay", {}).get("fsmn_conv"),
-             shapes=k1_rows + k1_stream + k1_service),
+             launches_per_train_step=per_step["fsmn_conv"],
+             shapes=k1_rows + k1_stream + k1_service,
+             backward_dx_shapes=k1_backward["dx"]),
+        dict(name="fsmn_conv_dw", route="cuda",
+             source="toolbox_for_asr_and_tts_tpu_torch/csrc/fsmn_conv_dw.cu",
+             replaces="toolbox_for_asr_and_tts_tpu/ops/pallas/fsmn_conv.py:38",
+             launches=per_step["fsmn_conv_dw"],
+             **{k: main_dw[k] for k in keys},
+             launch_floor_ms=main_dw["launch_floor_ms"],
+             launches_per_train_step=per_step["fsmn_conv_dw"],
+             deterministic=main_dw["deterministic"],
+             shapes=k1_backward["dw"]),
         dict(name="frame_window", route="cuda",
              source="toolbox_for_asr_and_tts_tpu_torch/csrc/frame_window.cu",
              replaces="toolbox_for_asr_and_tts_tpu/ops/pallas/frame_window.py:56",
@@ -3476,6 +3991,7 @@ def main(argv) -> int:
              ms_in_replay=in_replay.get("frame_window"),
              ms_in_step_replay=streaming["S64"].get("profile", {}).get(
                  "in_replay", {}).get("frame_window"),
+             launches_per_train_step=per_step["frame_window"],
              shapes=[k2_row] + k2_stream + k2_service),
     ]
     graph_snapshot("end")
@@ -3486,6 +4002,7 @@ def main(argv) -> int:
     print(json.dumps({"checkpoints": checkpoints}))
     print(json.dumps({"entry_points": entry_points}, ensure_ascii=False))
     print(json.dumps({"graphs": graphs_line()}))
+    print(json.dumps({"train": train, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

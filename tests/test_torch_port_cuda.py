@@ -813,3 +813,154 @@ def test_a_failing_capture_raises(cuda):
     assert "sync" not in progs
     assert calls[-1] is True        # the last run was the capture's
     torch.cuda.synchronize()
+
+
+# -------------------------------------- K1 under autograd (fine-tuning)
+from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import (  # noqa: E402
+    fsmn_conv_dw as kdw)
+
+
+def _within(got, want, tol):
+    """max |got - want| <= tol · max |want| (in f32)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    assert err <= tol * max(want.abs().max().item(), 1e-30), err
+
+
+def _backward_on_card(x, w, pad_l, mask, cot):
+    """dx and dw of sum(K1(x) · cot) through `FsmnDepthwiseFn` on the
+    card, with the launches it made: (dx, dw, K1 launches, dw launches)."""
+    xg = x.detach().requires_grad_(True)
+    wg = w.detach().clone().requires_grad_(True)
+    pad_r = w.shape[-1] - 1 - pad_l
+    y = k1.fsmn_depthwise(xg, wg, pad_l, pad_r, mask)
+    torch.cuda.synchronize()
+    a, b = k1.launches, kdw.launches
+    (y.float() * cot).sum().backward()
+    torch.cuda.synchronize()
+    return xg.grad, wg.grad, k1.launches - a, kdw.launches - b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("side", ["pad_left", "pad_right", "sanm"])
+@pytest.mark.parametrize("k", [1, 11, 12, 20])
+@pytest.mark.parametrize("t", [1, 5, 167])
+def test_fsmn_backward_matches_plain(cuda, dtype, side, k, t):
+    """On a strided view (the V third of a [3, T, 768] buffer): dx, one K1
+    launch with reversed taps, against autograd of the plain version
+    (f32 within 1e-6 of max|dx|: another order of the same sums); dw, one
+    `fsmn_conv_dw` launch, against `fsmn_conv_dw_plain` (f32 within 1e-5
+    of max|dw|); bf16 within 1e-2."""
+    rng = np.random.default_rng(11)
+    x = _randn(rng, 3, t, 768).to(cuda, dtype)[..., 512:]
+    w = _randn(rng, 256, 1, k, scale=0.1).to(cuda)
+    cot = _randn(rng, 3, t, 256).to(cuda)
+    mask = torch.ones(3, t, device=cuda)
+    mask[1, (t + 1) // 2:] = 0.0
+    pad_l = {"pad_left": k - 1, "pad_right": 0, "sanm": (k - 1) // 2}[side]
+    pad_r = k - 1 - pad_l
+    f32 = dtype == torch.float32
+    for m in (None, mask):
+        dx, dw, n1, n_dw = _backward_on_card(x, w, pad_l, m, cot)
+        assert (n1, n_dw) == (1, 1)
+        assert dx.shape == x.shape and dx.dtype == dtype
+        assert dw.shape == w.shape and dw.dtype == torch.float32
+        xp = x.detach().requires_grad_(True)
+        wp = w.detach().clone().requires_grad_(True)
+        (k1.fsmn_depthwise_plain(xp, wp, pad_l, pad_r, m).float() * cot
+         ).sum().backward()
+        _within(dx, xp.grad, 1e-6 if f32 else 1e-2)
+        _within(dw, kdw.fsmn_conv_dw_plain(x, cot.to(dtype), k, pad_l,
+                                           m).to(dtype),
+                1e-5 if f32 else 1e-2)
+
+
+def test_fsmn_dw_is_deterministic(cuda):
+    """No atomics: two runs of the weight gradient at the encoder's shape
+    (the V view of [8, 167, 1536]) give the same bits."""
+    rng = np.random.default_rng(12)
+    x = _randn(rng, 8, 167, 1536).to(cuda)[..., 1024:]
+    g = _randn(rng, 8, 167, 512).to(cuda)
+    mask = torch.ones(8, 167, device=cuda)
+    mask[2, 60:] = 0.0
+    a = kdw.fsmn_conv_dw(x, g, 11, 5, mask)
+    b = kdw.fsmn_conv_dw(x, g, 11, 5, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _within(a, kdw.fsmn_conv_dw_plain(x, g, 11, 5, mask), 1e-5)
+
+
+def test_fsmn_backward_launch_counts(cuda):
+    """A backward is +1 K1 and +1 dw launch; without grad, or with grad
+    off, the forward is the plain K1 launch and no Function."""
+    rng = np.random.default_rng(13)
+    x = _randn(rng, 2, 30, 64).to(cuda)
+    w = _randn(rng, 64, 1, 11, scale=0.1).to(cuda)
+    _, _, n1, n_dw = _backward_on_card(x, w, 5, None, torch.ones_like(x))
+    assert (n1, n_dw) == (1, 1)
+    wg = w.clone().requires_grad_(True)
+    with torch.no_grad():
+        assert k1.fsmn_depthwise(x, wg, 5, 5).grad_fn is None
+    xg = x.clone().requires_grad_(True)
+    y = k1.fsmn_depthwise(xg, w, 5, 5)
+    a, b = k1.launches, kdw.launches
+    y.sum().backward()       # w needs no grad: dx only
+    assert (k1.launches - a, kdw.launches - b) == (1, 0)
+    assert xg.grad is not None
+
+
+def test_frame_window_raises_on_an_input_that_requires_grad(cuda):
+    """K2 has no backward: on the card it refuses to cut the graph."""
+    cfg = fe.FrontendConfig()
+    x = torch.zeros(2, 16000, device=cuda, requires_grad=True)
+    win = torch.from_numpy(fe._window_coeffs(cfg)).to(cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        k2.frame_window(x, win, 98, 400, 160, 512)
+    with torch.no_grad():
+        assert k2.frame_window(x, win, 98, 400, 160, 512).shape == (2, 98, 512)
+
+
+def test_train_step_on_card_matches_cpu(cuda, no_tf32):
+    """One fine-tuning step at tiny geometry on the card against the CPU:
+    features from `tools/finetune._features` (K2 once), loss within 1e-5,
+    every gradient within 1e-4 of its leaf's norm, and the launches of
+    the step: 2 K1 (forward, dx) and 1 dw per FSMN layer."""
+    from toolbox_for_asr_and_tts_tpu_torch.models import paraformer as pf
+    from toolbox_for_asr_and_tts_tpu_torch.models.convert import tree_map
+    from toolbox_for_asr_and_tts_tpu_torch.parallel import trainstep as ts
+    from toolbox_for_asr_and_tts_tpu_torch.tools import finetune
+    cfg = pf.ParaformerConfig(d_model=32, n_heads=2, ffn_dim=64,
+                              encoder_layers=3, decoder_layers=2,
+                              vocab_size=64)
+    layers = cfg.encoder_layers + cfg.decoder_layers
+    rows = [(w, list(range(4, 4 + n))) for w, n in
+            zip(_wavs(14, (24000, 17000)), (7, 5))]
+    grads = {}
+    for dev in ("cpu", cuda):
+        params = tree_map(lambda a: a.to(dev), pf.init_params(
+            cfg, torch.Generator().manual_seed(0)))
+        init_opt, step = ts.make_train_step(cfg, device=dev)
+        opt = init_opt(params)
+        torch.cuda.synchronize()
+        a, b, c = k1.launches, kdw.launches, k2.launches
+        batch = finetune._features(rows, cfg.frontend, 8, dev)
+        if dev == "cpu":
+            feats = batch["feats"]
+        batch["feats"] = feats.to(dev)      # the same features on both
+        loss, _ = ts.paraformer_loss(params, batch["feats"],
+                                     batch["feat_lens"], batch["targets"],
+                                     batch["target_lens"], cfg)
+        loss.backward()
+        torch.cuda.synchronize()
+        if dev != "cpu":
+            assert (k1.launches - a, kdw.launches - b,
+                    k2.launches - c) == (2 * layers, layers, 1)
+        leaves = []
+        tree_map(leaves.append, params)
+        grads[str(dev)] = (loss.item(), [p.grad.cpu() for p in leaves])
+        params, opt, m = step(params, opt, batch)
+        assert np.isfinite(m["loss"].item())
+    (l_cpu, g_cpu), (l_card, g_card) = grads["cpu"], grads["cuda"]
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    for a, b in zip(g_card, g_cpu):
+        assert (a - b).norm() <= 1e-4 * max(b.norm().item(), 1e-30)

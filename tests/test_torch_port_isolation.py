@@ -485,3 +485,66 @@ def test_from_model_dir_runs_on_explicit_cpu(model_dirs):
         leaves = []
         tree_map(leaves.append, trees)
         assert leaves and all(a.device == cpu for a in leaves), name
+
+
+TRAINING_MODULES = ("parallel.trainstep", "runtime.train_ckpt",
+                    "tools.finetune")
+
+
+def test_training_modules_load_no_jax():
+    """Importing the fine-tuning slice's modules alone loads no JAX, no
+    optax and no orbax (the card's machine has none of them)."""
+    mods = [f"toolbox_for_asr_and_tts_tpu_torch.{m}" for m in TRAINING_MODULES]
+    code = ("import importlib, json, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(mods) <= set(loaded)
+    assert not [m for m in loaded if _forbidden(m)
+                or m.split(".")[0] in ("optax", "orbax")]
+
+
+def _training_entry_points(device, tmp_path):
+    """The fine-tuning slice's entry points, with `device` (None: not
+    passed)."""
+    from toolbox_for_asr_and_tts_tpu_torch.parallel.trainstep import (
+        make_train_step)
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import train_ckpt as tc
+    from toolbox_for_asr_and_tts_tpu_torch.tools import finetune
+    kw = {} if device is None else {"device": device}
+    params = pf.init_params(TINY, torch.Generator().manual_seed(0))
+    opt = torch.optim.AdamW([torch.zeros(1, requires_grad=True)])
+    argv = ["--ckpt-dir", str(tmp_path / "ck"), "--steps", "1", "--batch",
+            "2", "--tiny", "--k-max", "8"]
+    return {
+        "make_train_step": lambda: make_train_step(TINY, **kw),
+        "restore_train_state": lambda: tc.restore_train_state(
+            str(tmp_path / "none"), params, opt, **kw),
+        "finetune.main": lambda: finetune.main(
+            argv + ([] if device is None else ["--device", str(device)])),
+    }
+
+
+def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, make in _training_entry_points(None, tmp_path).items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    for name, make in _training_entry_points("cuda", tmp_path).items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+def test_training_entry_points_run_on_explicit_cpu(tmp_path):
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import train_ckpt as tc
+    made = _training_entry_points("cpu", tmp_path)
+    init_opt, step = made["make_train_step"]()
+    assert made["restore_train_state"]() is None
+    res = made["finetune.main"]()
+    leaves = []
+    tree_map(leaves.append, res["params"])
+    assert leaves and all(a.device.type == "cpu" and a.requires_grad
+                          for a in leaves)
+    assert tc.latest_step(str(tmp_path / "ck")) == 1

@@ -237,7 +237,9 @@ def cif(enc: torch.Tensor, alphas: torch.Tensor, k_max: int,
     # weight of frame t on token k: |[lo_t, csum_t) ∩ [k, k+1)|
     w = torch.minimum(csum[:, None, :], k[None, :, None] + 1.0) - \
         torch.maximum(lo[:, None, :], k[None, :, None])
-    w = torch.clamp_min(w, 0.0)                        # [B, K, T+1]
+    # jnp.maximum's rule at a tie (w == 0, where a cumsum lands on an
+    # integer): half the gradient; clamp_min would pass all of it
+    w = torch.maximum(w, w.new_zeros(()))              # [B, K, T+1]
     embeds = torch.matmul(w, enc.float())
     token_count = torch.clamp_max(torch.floor(csum[:, -1]).int(), k_max)
     fire_frame = _first_true(csum[:, None, :] >= (k[None, :, None] + 1.0))

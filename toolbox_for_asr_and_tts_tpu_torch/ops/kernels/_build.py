@@ -22,7 +22,7 @@ from typing import Dict, List, Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_kernels_build")
-SOURCES = ("fsmn_conv.cu", "frame_window.cu")
+SOURCES = ("fsmn_conv.cu", "fsmn_conv_dw.cu", "frame_window.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
@@ -31,9 +31,12 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C entry points: every pointer and the stream are c_void_p, so ctypes never
 # cuts a 64-bit address to a 32-bit int.
 _FSMN = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _I, _I, _I, _I, _I, _P]
+_FSMN_DW = [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I, _P]
 SIGNATURES = {
     "fsmn_conv_f32": _FSMN,
     "fsmn_conv_bf16": _FSMN,
+    "fsmn_conv_dw_f32": _FSMN_DW,
+    "fsmn_conv_dw_bf16": _FSMN_DW,
     "frame_window_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
 }
 

@@ -6,7 +6,9 @@ Replaces the TPU kernel
 (dispatched from the reference's `ops/frontend.py::fbank`). On the card it
 launches `csrc/frame_window.cu`; on a CPU tensor it runs
 `frame_window_plain` (`unfold`, then the same three steps). A CUDA tensor
-never takes the plain path.
+never takes the plain path. The kernel has no backward: on the card an
+input that requires grad, with grad mode on, raises instead of returning an
+output cut from the graph.
 
 Bound on an H100: bytes. For a batch of 8 x 10 s at 16 kHz it reads 5.1 MB
 of audio and writes 16.4 MB of framed rows, about 6.4 us at 3.35 TB/s. The
@@ -83,6 +85,12 @@ def frame_window(audio: torch.Tensor, window: torch.Tensor, t_frames: int,
                                   frame_shift, n_fft, preemphasis, remove_dc)
     if audio.device.type != "cuda":
         raise ValueError(f"frame_window: unsupported device {audio.device}")
+    if torch.is_grad_enabled() and (audio.requires_grad
+                                    or window.requires_grad):
+        # the kernel has no backward: its output would cut the graph
+        raise RuntimeError("frame_window: the kernel has no backward; call "
+                           "it under torch.no_grad() or on inputs that do "
+                           "not require grad")
     b, n = audio.shape
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the launch grid")

@@ -16,6 +16,13 @@ frame as soon as it is summed. x may be any view with unit channel stride,
 such as the V third of SAN-M's qkv product, so no copy precedes the call;
 where x's base, strides or D are not multiples of 16 bytes the wrapper
 launches the kernel's scalar path (1 channel per thread) instead.
+
+Under autograd (grad mode on, and x or w requiring grad) the call goes
+through `FsmnDepthwiseFn`, whose backward is made of kernels too: dx is K1
+itself with the taps reversed and the pads swapped, and dw is
+`fsmn_conv_dw.py` (`csrc/fsmn_conv_dw.cu`). Otherwise, as on every serving
+path (graphs captured under `inference_mode`), the call launches K1 exactly
+as it does without the Function.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .fsmn_conv_dw import fsmn_conv_dw
 
 launches = 0   # +1 per kernel run (a launch, or one in a graph replay);
                # chip_smoke.py reads it
@@ -180,8 +188,18 @@ def fsmn_depthwise(x: torch.Tensor, w: torch.Tensor, pad_l: int, pad_r: int,
                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [B, T, D] with unit channel stride (any batch and frame stride),
     w [D, 1, K] (torch depthwise layout), optional mask [B, T] →
-    (x·m + depthwise_conv(x·m)) · m, a new contiguous tensor in x's dtype."""
+    (x·m + depthwise_conv(x·m)) · m, a new contiguous tensor in x's dtype.
+    Differentiable in x and w (`FsmnDepthwiseFn`)."""
     k = _check(x, w, pad_l, pad_r, mask)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return FsmnDepthwiseFn.apply(x, w, pad_l, pad_r, mask)
+    return _forward(x, w, pad_l, pad_r, mask, k)
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, pad_l: int, pad_r: int,
+             mask: Optional[torch.Tensor], k: int) -> torch.Tensor:
+    """One K1 call on checked inputs: the kernel on the card, the plain
+    version on the CPU."""
     dev_type = x.device.type
     if dev_type == "cpu":
         return fsmn_depthwise_plain(x, w, pad_l, pad_r, mask)
@@ -191,6 +209,41 @@ def fsmn_depthwise(x: torch.Tensor, w: torch.Tensor, pad_l: int, pad_r: int,
         # a fresh allocation: the kernel reads the taps as 16-byte vectors
         w = w.to(x.dtype).clone(memory_format=torch.contiguous_format)
     return launch(x, w, pad_l, mask, tile_for(x, k))
+
+
+class FsmnDepthwiseFn(torch.autograd.Function):
+    """K1 under autograd. With gm = m·g for the incoming gradient g:
+
+        dx = m·(gm + Σ_j w_j · gm[t − j + pad_l])
+           = fsmn_depthwise(g, w.flip(-1), pad_r, pad_l, mask)
+
+    (K1 with the taps reversed and the pads swapped: one more K1 launch on
+    the card), and dw[d, j] = Σ_{b,t} gm · xm[t + j − pad_l]
+    (`fsmn_conv_dw`), summed in f32. The forward rounds the taps to x's
+    dtype, so dw goes back through that cast: rounded to x's dtype, then
+    returned in w's. x is saved as it came in (SAN-M passes the V view of
+    its qkv product); the gradient returned has the view's shape."""
+
+    @staticmethod
+    def forward(ctx, x, w, pad_l, pad_r, mask):
+        ctx.save_for_backward(x, w, mask)
+        ctx.pads = (pad_l, pad_r)
+        return _forward(x, w, pad_l, pad_r, mask, w.shape[-1])
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w, mask = ctx.saved_tensors
+        pad_l, pad_r = ctx.pads
+        if g.stride(2) != 1:        # an expanded or transposed gradient
+            g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = fsmn_depthwise(g, w.flip(-1), pad_r, pad_l, mask)
+        if ctx.needs_input_grad[1]:
+            dw = (fsmn_conv_dw(x, g, w.shape[-1], pad_l, mask)
+                  .to(x.dtype).to(w.dtype))
+        return dx, dw, None, None, None
 
 
 def launch(x: torch.Tensor, w: torch.Tensor, pad_l: int,
