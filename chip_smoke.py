@@ -10,8 +10,9 @@
                                       # of a Paraformer-large load, and
                                       # one fine-tuning step
     python3 chip_smoke.py --sweep     # also: K1's device time per tile,
-                                      # and the dw kernel's per frames per
-                                      # block and per pass
+                                      # and K1's backward kernel's per tile
+                                      # (channels x frames per block) at
+                                      # B 8 and 64
 
 Every model call of the port runs as a program (`runtime/graphs.py`): on
 the card one captured CUDA graph per shape bucket, replayed; K1 and K2 run
@@ -38,13 +39,17 @@ Phases (any failure exits non-zero and prints no result line):
    events over back-to-back calls), and the least time the card could take
    (bytes or flops over its peak rate). K1's backward at the fine-tuning
    shapes (the encoder's V view of [8, 167, 1536], the decoder's
-   [8, 32, 512]): through `FsmnDepthwiseFn` one backward is one K1 launch
-   (dx, taps reversed) and one `fsmn_conv_dw` launch; dx against autograd
-   of the plain version (f32 within 1e-6 of max|dx|), dw against
-   `fsmn_conv_dw_plain` (f32 within 1e-5 of max|dw|), bf16 within 1e-2,
-   dw bit-equal across two runs; the same times beside the library's
-   `convolution_backward` (input or weight gradient only). TF32 stays off
-   for every phase;
+   [8, 32, 512]): through `FsmnDepthwiseFn` one backward is one launch of
+   K1's backward kernel (`fsmn_conv_dw`: dx and dw) and no K1 launch; f32
+   dx equal bit for bit to the plain version with the taps reversed and
+   the pads swapped and within 1e-6 of max|dx| of autograd of the plain
+   version, dw against `fsmn_conv_dw_plain` (f32 within 1e-5 of max|dw|),
+   bf16 within 1e-2; both bit-equal across two runs and between the eager
+   call and two replays of a captured one; the fused and the dw-only
+   call's times and the fused call's graph replay beside the plain
+   version's, the library's `convolution_backward` (both gradients) and
+   the earlier route's form, timed in the same run (the flip and K1 as
+   dx, then the dw-only call). TF32 stays off for every phase;
 3. the full-width main path: `Recognizer.random(ParaformerConfig(), seed=0)`
    (Paraformer-large: 50 + 16 layers, d 512, vocab 8404) transcribes a
    batch of 8 x up to 10 s of 16 kHz audio, with and without hotwords; the
@@ -161,7 +166,7 @@ Phases (any failure exits non-zero and prints no result line):
    `tools/finetune._features`, no CMVN): one step's gradients on the card
    against the same port on the CPU for 2 rows cut to 3 s (every leaf
    within 1e-3 of its norm); 8 steps on the fixed batch with the counters
-   zeroed just before each and read just after (K1 132, `fsmn_conv_dw` 66,
+   zeroed just before each and read just after (K1 66, `fsmn_conv_dw` 66,
    K2 1 per step; a finite loss, lower at the end than at the start); a
    fresh seed-0 tree restored from the save at step 4 and continued to 8,
    equal to the uninterrupted run; `tools/finetune.py` with `--export`,
@@ -442,10 +447,10 @@ K1_TRAIN_SITES = {"encoder": 167, "decoder": 32}
 def conv_backward(torch, pad, which: str):
     """The library yardstick of K1's backward: one
     `torch.ops.aten.convolution_backward` of the depthwise conv, the input
-    gradient (dx, without the residual and masks) or the weight gradient
-    (dw) only."""
+    gradient (dx, without the residual and masks), the weight gradient (dw)
+    or both."""
     def library(x, g, w):
-        mask = [which == "dx", which == "dw", False]
+        mask = [which in ("dx", "both"), which in ("dw", "both"), False]
         return torch.ops.aten.convolution_backward(
             g.transpose(1, 2), x.transpose(1, 2), w, None, [1], [pad[0]],
             [1], False, [0], x.shape[-1], mask)
@@ -469,20 +474,47 @@ def k1_backward_case(torch, site: str, dtype, seed: int):
     return src, w, g, mask
 
 
+def replay_equal(torch, fn, want):
+    """fn() captured in a CUDA graph on a side stream (after one eager warm-up
+    call there), replayed twice → the graph if each replay's outputs equal
+    `want` bit for bit, else None."""
+    from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import _build
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with _build.tallied():
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = fn()
+    same = True
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same &= all(torch.equal(a, b) for a, b in zip(out, want))
+    return graph if same else None
+
+
 def check_k1_backward(torch, peaks, floor_ms: float):
     """K1 under autograd at the fine-tuning shapes, through
-    `FsmnDepthwiseFn`: one backward is one K1 launch (dx, the taps
-    reversed) and one `fsmn_conv_dw` launch. dx against autograd of the
-    plain version (f32 within 1e-6 of max|dx|: another order of the same
-    sums), dw against `fsmn_conv_dw_plain` (f32 within 1e-5 of max|dw|),
-    bf16 within 1e-2 of either; dw bit-equal across two runs. Device time
-    of each kernel, its plain version and the library's
-    `convolution_backward`, beside its bound."""
+    `FsmnDepthwiseFn`: one backward is one launch of K1's backward kernel
+    (dx and dw) and no K1 launch. f32 dx equal bit for bit to the plain
+    version with the taps reversed and the pads swapped, and within 1e-6 of
+    max|dx| of autograd of the plain version (another order of the same
+    sums); dw within 1e-5 of max|dw| of `fsmn_conv_dw_plain`; bf16 within
+    1e-2 of either; both bit-equal across two runs, the dw-only call's dw
+    equal to the fused call's, and two replays of a captured call equal to
+    the eager call. Device time of the fused call (its tickets' memset and
+    the kernel), the fused call's graph replay, the dw-only call, the
+    earlier route's form (the flip and K1 as dx, then the dw-only call),
+    the plain version and the library's `convolution_backward` with both
+    gradients, beside the bound."""
     from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import fsmn_conv as k1
     from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import (
         fsmn_conv_dw as kdw)
     pad_l, pad_r = K1_PAD
-    rows = {"dx": [], "dw": []}
+    rows = []
     for site in K1_TRAIN_SITES:
         for dtype, f32 in ((torch.float32, True), (torch.bfloat16, False)):
             src, w, g, mask = k1_backward_case(torch, site, dtype, seed=6)
@@ -496,8 +528,8 @@ def check_k1_backward(torch, peaks, floor_ms: float):
             y.backward(g)
             torch.cuda.synchronize()
             n1, n_dw = k1.launches - n1, kdw.launches - n_dw
-            require((n1, n_dw) == (1, 1), f"K1 backward {site}: {n1} K1 and "
-                    f"{n_dw} dw launches, expected 1 and 1")
+            require((n1, n_dw) == (0, 1), f"K1 backward {site}: {n1} K1 and "
+                    f"{n_dw} backward launches, expected 0 and 1")
             dx = leaf.grad[..., 2 * d:] if site == "encoder" else leaf.grad
             require(site != "encoder" or not leaf.grad[..., :2 * d].any(),
                     "K1 backward: gradient outside the V third")
@@ -505,17 +537,41 @@ def check_k1_backward(torch, peaks, floor_ms: float):
             wp = w.detach().clone().requires_grad_(True)
             k1.fsmn_depthwise_plain(xp, wp, pad_l, pad_r, mask).backward(g)
             xv = x.detach()
-            dw1 = kdw.fsmn_conv_dw(xv, g, K1_K, pad_l, mask)
-            dw2 = kdw.fsmn_conv_dw(xv, g, K1_K, pad_l, mask)
+            dtype_s = str(dtype).split(".")[-1]
+            if f32:
+                require(torch.equal(dx, k1.fsmn_depthwise_plain(
+                    g, w.flip(-1), pad_r, pad_l, mask)), f"K1 backward "
+                    f"{site}: f32 dx is not the reversed-taps plain version's")
+
+            def fused():
+                return kdw.fsmn_conv_bwd(xv, g, w, pad_l, pad_r, mask)
+
+            def dw_only():
+                return kdw.fsmn_conv_dw(xv, g, K1_K, pad_l, mask)
+
+            def split():
+                return (kdw.fsmn_conv_bwd(xv, g, w, pad_l, pad_r, mask,
+                                          need_dw=False)[0], dw_only())
+
+            def plain():
+                return kdw.fsmn_conv_bwd_plain(xv, g, w, pad_l, pad_r, mask)
+            dx1, dw1 = fused()
+            dx2, dw2 = fused()
+            dwa, dwb = dw_only(), dw_only()
             dw_plain = kdw.fsmn_conv_dw_plain(xv, g, K1_K, pad_l, mask)
             torch.cuda.synchronize()
-            require(torch.equal(dw1, dw2), f"dw {site}: two runs differ")
-            require(torch.equal(wg.grad, dw1.to(dtype).float()),
-                    f"dw {site}: the Function's dw is not the kernel's")
-            dtype_s = str(dtype).split(".")[-1]
-            wflip = w.flip(-1).to(dtype).contiguous()
-            el = xv.element_size()
-            b, t = xv.shape[:2]
+            require(torch.equal(dx1, dx2) and torch.equal(dw1, dw2)
+                    and torch.equal(dwa, dwb), f"K1 backward {site} "
+                    f"{dtype_s}: two runs differ")
+            require(torch.equal(dwa, dw1), f"K1 backward {site} {dtype_s}: "
+                    "the dw-only call's dw is not the fused call's")
+            require(torch.equal(dx, dx1) and torch.equal(
+                wg.grad, dw1.to(dtype).float()), f"K1 backward {site}: the "
+                "Function's gradients are not the kernel's")
+            graph = replay_equal(torch, fused, (dx1, dw1))
+            require(graph is not None, f"K1 backward {site} {dtype_s}: a "
+                    "graph replay differs from the eager call")
+            errs = {}
             for name, got, want, tol in (
                     ("dx", dx, xp.grad, 1e-6 if f32 else 1e-2),
                     ("dw", dw1, dw_plain, 1e-5 if f32 else 1e-2)):
@@ -523,44 +579,54 @@ def check_k1_backward(torch, peaks, floor_ms: float):
                 scale = want.float().abs().max().item()
                 require(err <= tol * scale, f"K1 backward {name} {site} "
                         f"{dtype_s}: max|err| {err} > {tol} x {scale}")
-                if name == "dx":
-                    kernel = lambda: k1.fsmn_depthwise(  # noqa: E731
-                        g, wflip, pad_r, pad_l, mask)
-                    plain = lambda: k1.fsmn_depthwise_plain(  # noqa: E731
-                        g, wflip, pad_r, pad_l, mask)
-                    nbytes = (2 * g.numel() + d * K1_K) * el + mask.numel() * 4
-                    flops = (2 * K1_K + 2) * b * t * d
-                else:
-                    kernel = lambda: kdw.fsmn_conv_dw(  # noqa: E731
-                        xv, g, K1_K, pad_l, mask)
-                    plain = lambda: kdw.fsmn_conv_dw_plain(  # noqa: E731
-                        xv, g, K1_K, pad_l, mask)
-                    nbytes = ((xv.numel() + g.numel()) * el + d * K1_K * 4
-                              + mask.numel() * 4)
-                    flops = 2 * K1_K * b * t * d
-                library = conv_backward(torch, K1_PAD, name)
-                wk = w.to(dtype)
-                ms = device_ms(torch, kernel)
-                host_ms = call_ms(torch, kernel)
-                plain_ms = device_ms(torch, plain)
-                library_ms = device_ms(torch, lambda: library(xv, g, wk))
-                bound_ms, bound_by = bound(nbytes, flops, peaks)
-                rows[name].append(dict(
-                    site=site, dtype=dtype_s, shape=[b, t, d, K1_K],
-                    pad=list(K1_PAD), masked=True, strided=xv.stride(1) != d,
-                    max_abs_err=err, tol=tol, scale=scale, ms=ms,
-                    call_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=library_ms,
-                    launch_floor_ms=floor_ms,
-                    deterministic=True if name == "dw" else None))
-                print(f"K1 backward {name} {site} {dtype_s} x[{b},{t},{d}]"
-                      f"{' (V view)' if xv.stride(1) != d else ''} K={K1_K}: "
-                      f"max|err| {err:.3g} (tol {tol} x max {scale:.3g}) "
-                      f"device: kernel {ms * 1e3:.2f} us, plain "
-                      f"{plain_ms * 1e3:.2f} us, library (convolution_"
-                      f"backward, {name} only) {library_ms * 1e3:.2f} us, "
-                      f"bound {bound_ms * 1e3:.2f} us ({bound_by}); per call "
-                      f"with host overhead {host_ms * 1e3:.2f} us", flush=True)
+                errs[name] = (err, tol, scale)
+            library = conv_backward(torch, K1_PAD, "both")
+            wk = w.to(dtype)
+            ms = device_ms(torch, fused)
+            dw_ms = device_ms(torch, dw_only)
+            replay_ms = device_ms(torch, graph.replay)
+            split_ms = device_ms(torch, split)
+            host_ms = call_ms(torch, fused)
+            plain_ms = device_ms(torch, plain)
+            library_ms = device_ms(torch, lambda: library(xv, g, wk))
+            el = xv.element_size()
+            b, t = xv.shape[:2]
+            small = d * K1_K * 4 * 2 + mask.numel() * 4     # w, dw, mask
+            bound_ms, bound_by = bound(3 * g.numel() * el + small,
+                                       (4 * K1_K + 2) * b * t * d, peaks)
+            dw_bound_ms, _ = bound(2 * g.numel() * el + small - d * K1_K * 4,
+                                   2 * K1_K * b * t * d, peaks)
+            row = dict(
+                site=site, dtype=dtype_s, shape=[b, t, d, K1_K],
+                pad=list(K1_PAD), masked=True, strided=xv.stride(1) != d,
+                tile=list(kdw.tile_for(xv, g, K1_K)),
+                max_abs_err=max(errs["dx"][0], errs["dw"][0]),
+                max_abs_err_dx=errs["dx"][0], max_abs_err_dw=errs["dw"][0],
+                tol_dx=errs["dx"][1], tol_dw=errs["dw"][1],
+                scale_dx=errs["dx"][2], scale_dw=errs["dw"][2],
+                dx_equal_reversed_plain=True if f32 else None,
+                ms=ms, dw_only_ms=dw_ms, replay_ms=replay_ms,
+                dx_by_k1_plus_dw_only_ms=split_ms, call_ms=host_ms,
+                plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                dw_only_bound_ms=dw_bound_ms, library_ms=library_ms,
+                launch_floor_ms=floor_ms, deterministic=True,
+                replay_equal=True)
+            rows.append(row)
+            print(f"K1 backward {site} {dtype_s} x[{b},{t},{d}]"
+                  f"{' (V view)' if row['strided'] else ''} K={K1_K} "
+                  f"{row['tile']}: max|err| dx {errs['dx'][0]:.3g} (tol "
+                  f"{errs['dx'][1]} x max {errs['dx'][2]:.3g}), dw "
+                  f"{errs['dw'][0]:.3g} (tol {errs['dw'][1]} x max "
+                  f"{errs['dw'][2]:.3g}); device: fused {ms * 1e3:.2f} us "
+                  f"(graph replay {replay_ms * 1e3:.2f} us), dw only "
+                  f"{dw_ms * 1e3:.2f} us, flip + K1 as dx + dw only "
+                  f"{split_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} "
+                  f"us, library (convolution_backward, both gradients) "
+                  f"{library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+                  f"({bound_by}; dw only {dw_bound_ms * 1e3:.2f} us), launch "
+                  f"floor {floor_ms * 1e3:.2f} us; per call with host "
+                  f"overhead {host_ms * 1e3:.2f} us", flush=True)
     return rows
 
 
@@ -678,58 +744,72 @@ def sweep_k1(torch):
                       f"{tile.k_const:2d}: {ms * 1e3:.2f} us")
 
 
-DW_SWEEP_FRAMES = (8, 16, 32, 48, 64, 96, 128, 168)
+BWD_SWEEP = dict(channels=(16, 32, 64), frame_blocks=(1, 2, 3, 4, 6, 11),
+                 per_thread=(2, 4, 8, 16))
 
 
 def sweep_dw(torch):
-    """`fsmn_conv_dw`'s device time for each frames-per-block of its pass 1
-    at both fine-tuning shapes (f32, held against the plain version), and
-    its two passes apart by torch.profiler at the wrapper's frames, also at
-    batch 64 of the encoder's shape."""
-    from torch.profiler import ProfilerActivity, profile
+    """The device time of K1's backward kernel (dx and dw, one launch) for
+    each tile (channels per block x frame blocks x frames per thread, K 11)
+    at both fine-tuning shapes and at batch 64 of the encoder's (f32, x as
+    the path passes it); every tile is first held against the plain
+    version (dx bit-equal, dw within 1e-5 of max|dw|). Then, at the
+    wrapper's tile, the dw-only call and the time to each of the kernel's
+    steps (`fsmn_conv_dw.launch(..., exit_after=p)`: an instantiation whose
+    blocks all leave at the start, after staging, after the dw partials or
+    after dx and the ticket) with dx and dw."""
     from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import (
-        fsmn_conv_dw as kdw)
-    chosen = kdw.FRAMES
-    pad_l = K1_PAD[0]
-    try:
-        for site in K1_TRAIN_SITES:
-            src, _, g, mask = k1_backward_case(torch, site, torch.float32, 7)
-            x = src[..., 2 * K1_D:] if site == "encoder" else src
-            want = kdw.fsmn_conv_dw_plain(x, g, K1_K, pad_l, mask)
-            times = {}
-            for frames in DW_SWEEP_FRAMES:
-                kdw.FRAMES = frames
-
-                def fn():
-                    return kdw.fsmn_conv_dw(x, g, K1_K, pad_l, mask)
-                err = k1_err(torch, fn(), want)
-                require(err <= 1e-5 * want.abs().max().item(),
-                        f"dw sweep {site} frames {frames}: max|err| {err}")
-                times[frames] = device_ms(torch, fn)
-            print(f"dw sweep {site} x{list(x.shape)}: " + ", ".join(
-                f"{f} frames {ms * 1e3:.2f} us" for f, ms in times.items())
-                + f" (the wrapper's {chosen})", flush=True)
-        kdw.FRAMES = chosen
-        for site, b in (("encoder", 8), ("decoder", 8), ("encoder", 64)):
-            t = K1_TRAIN_SITES[site]
-            x = torch.randn((b, t, K1_D), device="cuda")
-            g = torch.randn((b, t, K1_D), device="cuda")
-            for _ in range(3):
-                kdw.fsmn_conv_dw(x, g, K1_K, pad_l)
+        fsmn_conv as k1, fsmn_conv_dw as kdw)
+    pad_l, pad_r = K1_PAD
+    for site, b in (("encoder", 8), ("decoder", 8), ("encoder", 64)):
+        src, w, g, mask = k1_backward_case(torch, site, torch.float32, 7)
+        if b != 8:
+            src, g, mask = (a.repeat(b // 8, *[1] * (a.dim() - 1))
+                            for a in (src, g, mask))
+        x = src[..., 2 * K1_D:] if site == "encoder" else src
+        t = x.shape[1]
+        want_dx = k1.fsmn_depthwise_plain(g, w.flip(-1), pad_r, pad_l, mask)
+        want_dw = kdw.fsmn_conv_dw_plain(x, g, K1_K, pad_l, mask)
+        scale = want_dw.abs().max().item()
+        chosen = kdw.tile_for(x, g, K1_K)
+        tiles = {chosen}
+        for c in BWD_SWEEP["channels"]:
+            for n_tb in BWD_SWEEP["frame_blocks"]:
+                for per in BWD_SWEEP["per_thread"]:
+                    tiles.add(kdw.make_tile(t, K1_K, chosen.vec, c, n_tb, per,
+                                            K1_K))
+        times = {}
+        for tile in sorted(tiles):
+            def fn(tile=tile):
+                return kdw.launch(x, g, w, K1_K, pad_l, mask, tile)
+            dx, dw = fn()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(20):
-                    kdw.fsmn_conv_dw(x, g, K1_K, pad_l)
-                torch.cuda.synchronize()
-            parts = {("pass 1" if "partial" in e.key else "pass 2"):
-                     e.self_device_time_total / e.count
-                     for e in _device_events(prof) if "fsmn_dw_" in e.key}
-            print(f"dw passes x[{b},{t},{K1_D}] ({chosen} frames per block, "
-                  f"profiler): " + ", ".join(f"{k} {v:.2f} us"
-                                            for k, v in parts.items()),
-                  flush=True)
-    finally:
-        kdw.FRAMES = chosen
+            require(torch.equal(dx, want_dx), f"bwd sweep {site} B {b} "
+                                              f"{tile}: dx differs")
+            err = (dw - want_dw).abs().max().item()
+            require(err <= 1e-5 * scale, f"bwd sweep {site} B {b} {tile}: "
+                                         f"dw max|err| {err}")
+            times[tile] = device_ms(torch, fn)
+        dw_ms = device_ms(torch, lambda: kdw.fsmn_conv_dw(x, g, K1_K, pad_l,
+                                                          mask))
+        steps = [device_ms(torch, lambda p=p: kdw.launch(
+            x, g, w, K1_K, pad_l, mask, chosen, exit_after=p))
+            for p in range(1, len(kdw.PHASES) + 1)]
+        best = min(times, key=times.get)
+        print(f"bwd sweep {site} x[{b},{t},{K1_D}] ({len(times)} tiles): "
+              f"best {tuple(best)} {times[best] * 1e3:.2f} us, chosen "
+              f"{tuple(chosen)} {times[chosen] * 1e3:.2f} us; dw only at the "
+              f"chosen tile {dw_ms * 1e3:.2f} us", flush=True)
+        print("  dx and dw, leaving " + ", ".join(
+            f"{phase} {ms * 1e3:.2f} us"
+            for phase, ms in zip(kdw.PHASES, steps))
+            + f", whole {times[chosen] * 1e3:.2f} us", flush=True)
+        for tile, ms in sorted(times.items(), key=lambda kv: kv[1])[:12]:
+            print(f"  channels {tile.channels:2d} frames "
+                  f"{tile.block_frames():3d} ({tile.threads_t:2d} x "
+                  f"{tile.per_thread}) blocks "
+                  f"{b * -(-K1_D // tile.channels) * -(-t // tile.block_frames()):5d}: "
+                  f"{ms * 1e3:.2f} us")
 
 
 def check_k2(torch, peaks, b: int = 8, n: int = 10 * SR, t=None,
@@ -3667,7 +3747,7 @@ def profile_train_step(torch, step, params, opt, items, cfg, wall_ms: float):
               f"{e.count:5d}x  {e.key[:90]}")
     out = dict(busy_ms=busy_ms, wall_ms=wall_ms, launches=n)
     for name, sym in (("fsmn_conv", "fsmn_conv_kernel"),
-                      ("fsmn_conv_dw", "fsmn_dw_"),
+                      ("fsmn_conv_dw", "fsmn_bwd_"),
                       ("frame_window", "frame_window_kernel")):
         hits = [e for e in rows if sym in e.key]
         k = sum(e.count for e in hits)
@@ -3683,7 +3763,7 @@ def profile_train_step(torch, step, params, opt, items, cfg, wall_ms: float):
 def finetune_path(torch, card, wavs, profile: bool = False):
     """Fine-tuning at full width (Paraformer-large, the 8 rows of
     `make_wavs` with random targets, k_max 32): card vs CPU gradients;
-    FT_STEPS steps on one fixed batch (K1 132, dw 66, K2 1 per step; a
+    FT_STEPS steps on one fixed batch (K1 66, dw 66, K2 1 per step; a
     finite loss that falls); a fresh seed-0 tree restored from the save at
     step FT_RESUME_AT continued to FT_STEPS equal to the uninterrupted run;
     `tools/finetune.py` with `--export`, whose export served by
@@ -3729,7 +3809,7 @@ def finetune_path(torch, card, wavs, profile: bool = False):
         losses, walls, launches, batch = ft_steps(torch, step, params, opt,
                                                   items, cfg, save_at)
         peak = torch.cuda.max_memory_allocated()
-        want = (2 * layers, layers, 1)
+        want = (layers, layers, 1)
         for i, n in enumerate(launches):
             require(n == want, f"fine-tuning step {i}: K1 / dw / K2 launched "
                                f"{n}, expected {want}")
@@ -3920,8 +4000,8 @@ def main(argv) -> int:
 
     main_k1 = next(r for r in k1_rows
                    if r["site"] == "encoder" and r["dtype"] == "float32")
-    main_dw = next(r for r in k1_backward["dw"]
-                   if r["site"] == "encoder" and r["dtype"] == "float32")
+    main_bwd = next(r for r in k1_backward
+                    if r["site"] == "encoder" and r["dtype"] == "float32")
     per_step = train["launches_per_step"]
     served = {run: service[run]["launches"]
               for run in ("S1", "S16_first", "S16_unpipelined", "S16",
@@ -3961,17 +4041,21 @@ def main(argv) -> int:
              ms_in_step_replay=streaming["S64"].get("profile", {}).get(
                  "in_replay", {}).get("fsmn_conv"),
              launches_per_train_step=per_step["fsmn_conv"],
-             shapes=k1_rows + k1_stream + k1_service,
-             backward_dx_shapes=k1_backward["dx"]),
+             shapes=k1_rows + k1_stream + k1_service),
         dict(name="fsmn_conv_dw", route="cuda",
              source="toolbox_for_asr_and_tts_tpu_torch/csrc/fsmn_conv_dw.cu",
              replaces="toolbox_for_asr_and_tts_tpu/ops/pallas/fsmn_conv.py:38",
              launches=per_step["fsmn_conv_dw"],
-             **{k: main_dw[k] for k in keys},
-             launch_floor_ms=main_dw["launch_floor_ms"],
+             **{k: main_bwd[k] for k in keys},
+             dw_only_ms=main_bwd["dw_only_ms"],
+             dw_only_bound_ms=main_bwd["dw_only_bound_ms"],
+             launch_floor_ms=main_bwd["launch_floor_ms"],
              launches_per_train_step=per_step["fsmn_conv_dw"],
-             deterministic=main_dw["deterministic"],
-             shapes=k1_backward["dw"]),
+             deterministic=main_bwd["deterministic"],
+             replay_equal=main_bwd["replay_equal"],
+             replay_ms=main_bwd["replay_ms"],
+             dx_by_k1_plus_dw_only_ms=main_bwd["dx_by_k1_plus_dw_only_ms"],
+             shapes=k1_backward),
         dict(name="frame_window", route="cuda",
              source="toolbox_for_asr_and_tts_tpu_torch/csrc/frame_window.cu",
              replaces="toolbox_for_asr_and_tts_tpu/ops/pallas/frame_window.py:56",

@@ -846,11 +846,12 @@ def _backward_on_card(x, w, pad_l, mask, cot):
 @pytest.mark.parametrize("k", [1, 11, 12, 20])
 @pytest.mark.parametrize("t", [1, 5, 167])
 def test_fsmn_backward_matches_plain(cuda, dtype, side, k, t):
-    """On a strided view (the V third of a [3, T, 768] buffer): dx, one K1
-    launch with reversed taps, against autograd of the plain version
-    (f32 within 1e-6 of max|dx|: another order of the same sums); dw, one
-    `fsmn_conv_dw` launch, against `fsmn_conv_dw_plain` (f32 within 1e-5
-    of max|dw|); bf16 within 1e-2."""
+    """On a strided view (the V third of a [3, T, 768] buffer) one backward
+    is one launch of K1's backward kernel and no K1 launch: dx against
+    autograd of the plain version (f32 within 1e-6 of max|dx|: another
+    order of the same sums) and, in f32, equal bit for bit to the plain
+    version with the taps reversed and the pads swapped; dw against
+    `fsmn_conv_dw_plain` (f32 within 1e-5 of max|dw|); bf16 within 1e-2."""
     rng = np.random.default_rng(11)
     x = _randn(rng, 3, t, 768).to(cuda, dtype)[..., 512:]
     w = _randn(rng, 256, 1, k, scale=0.1).to(cuda)
@@ -862,7 +863,7 @@ def test_fsmn_backward_matches_plain(cuda, dtype, side, k, t):
     f32 = dtype == torch.float32
     for m in (None, mask):
         dx, dw, n1, n_dw = _backward_on_card(x, w, pad_l, m, cot)
-        assert (n1, n_dw) == (1, 1)
+        assert (n1, n_dw) == (0, 1)
         assert dx.shape == x.shape and dx.dtype == dtype
         assert dw.shape == w.shape and dw.dtype == torch.float32
         xp = x.detach().requires_grad_(True)
@@ -870,43 +871,146 @@ def test_fsmn_backward_matches_plain(cuda, dtype, side, k, t):
         (k1.fsmn_depthwise_plain(xp, wp, pad_l, pad_r, m).float() * cot
          ).sum().backward()
         _within(dx, xp.grad, 1e-6 if f32 else 1e-2)
-        _within(dw, kdw.fsmn_conv_dw_plain(x, cot.to(dtype), k, pad_l,
-                                           m).to(dtype),
+        g = cot.to(dtype)
+        if f32:
+            assert torch.equal(dx, k1.fsmn_depthwise_plain(
+                g, w.flip(-1), pad_r, pad_l, m))
+        _within(dw, kdw.fsmn_conv_dw_plain(x, g, k, pad_l, m).to(dtype),
                 1e-5 if f32 else 1e-2)
 
 
-def test_fsmn_dw_is_deterministic(cuda):
-    """No atomics: two runs of the weight gradient at the encoder's shape
-    (the V view of [8, 167, 1536]) give the same bits."""
+def _encoder_case(b):
+    """The encoder's backward inputs at batch b: x the V view of
+    [b, 167, 1536], g, w, a length mask with a short row."""
     rng = np.random.default_rng(12)
-    x = _randn(rng, 8, 167, 1536).to(cuda)[..., 1024:]
-    g = _randn(rng, 8, 167, 512).to(cuda)
-    mask = torch.ones(8, 167, device=cuda)
+    x = _randn(rng, b, 167, 1536).to("cuda")[..., 1024:]
+    g = _randn(rng, b, 167, 512).to("cuda")
+    w = _randn(rng, 512, 1, 11, scale=0.1).to("cuda")
+    mask = torch.ones(b, 167, device="cuda")
     mask[2, 60:] = 0.0
+    return x, g, w, mask
+
+
+def test_fsmn_dw_is_deterministic(cuda):
+    """No float atomics: at the encoder's shape (the V view of
+    [8, 167, 1536]) two runs of dw alone and two of the fused call give the
+    same bits, and so do two replays of a captured fused call (each replay
+    zeroes its own tickets by a memset node before the kernel) and the
+    eager call."""
+    x, g, w, mask = _encoder_case(8)
     a = kdw.fsmn_conv_dw(x, g, 11, 5, mask)
     b = kdw.fsmn_conv_dw(x, g, 11, 5, mask)
+    dx1, dw1 = kdw.fsmn_conv_bwd(x, g, w, 5, 5, mask)
+    dx2, dw2 = kdw.fsmn_conv_bwd(x, g, w, 5, 5, mask)
     torch.cuda.synchronize()
-    assert torch.equal(a, b)
+    assert torch.equal(a, b) and torch.equal(dw1, dw2)
+    assert torch.equal(dx1, dx2)
     _within(a, kdw.fsmn_conv_dw_plain(x, g, 11, 5, mask), 1e-5)
+    _within(dw1, a, 1e-5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kdw.fsmn_conv_bwd(x, g, w, 5, 5, mask)   # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = kdw.fsmn_conv_bwd(x, g, w, 5, 5, mask)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], dx1) and torch.equal(out[1], dw1)
 
 
-def test_fsmn_backward_launch_counts(cuda):
-    """A backward is +1 K1 and +1 dw launch; without grad, or with grad
-    off, the forward is the plain K1 launch and no Function."""
+def test_fsmn_backward_replay_beside_an_eager_call(cuda):
+    """A captured fused call replayed on another stream while the capture
+    stream runs an eager call on other inputs: the two share no tickets or
+    scratch, so each gives the bits it gives alone, round after round."""
+    x, g, w, mask = _encoder_case(8)
+    x2, g2 = x.flip(0), g.flip(0)
+    want = kdw.fsmn_conv_bwd(x, g, w, 5, 5, mask)
+    want2 = kdw.fsmn_conv_bwd(x2, g2, w, 5, 5, mask)
+    cap, other = torch.cuda.Stream(), torch.cuda.Stream()
+    cap.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(cap):
+        kdw.fsmn_conv_bwd(x, g, w, 5, 5, mask)   # warm-up
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=cap):
+        out = kdw.fsmn_conv_bwd(x, g, w, 5, 5, mask)
+    torch.cuda.synchronize()
+    for _ in range(20):
+        for s in (cap, other):
+            s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(other):
+            graph.replay()
+        with torch.cuda.stream(cap):
+            got2 = kdw.fsmn_conv_bwd(x2, g2, w, 5, 5, mask)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+        assert torch.equal(got2[0], want2[0]) and torch.equal(got2[1],
+                                                              want2[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,pad_l", [(11, 5), (12, 9)])
+def test_fsmn_backward_scalar_path(cuda, dtype, k, pad_l):
+    """x and g whose base is not 16-byte aligned take the kernel's scalar
+    instantiation: still one launch, f32 dx bit-equal to the reversed-taps
+    plain version, dw within 1e-5 of max|dw| (bf16 1e-2)."""
+    rng = np.random.default_rng(14)
+    x = _randn(rng, 3, 40, 260).to(cuda, dtype)[..., 1:257]
+    g = _randn(rng, 3, 40, 260).to(cuda, dtype)[..., 3:259]
+    w = _randn(rng, 256, 1, k, scale=0.1).to(cuda)
+    mask = torch.ones(3, 40, device=cuda)
+    mask[0, 25:] = 0.0
+    assert kdw.tile_for(x, g, k).vec == 1
+    before = kdw.launches
+    dx, dw = kdw.fsmn_conv_bwd(x, g, w, pad_l, k - 1 - pad_l, mask)
+    torch.cuda.synchronize()
+    assert kdw.launches == before + 1
+    want = k1.fsmn_depthwise_plain(g, w.flip(-1), k - 1 - pad_l, pad_l, mask)
+    if dtype == torch.float32:
+        assert torch.equal(dx, want)
+    else:
+        _within(dx, want, 1e-2)
+    _within(dw, kdw.fsmn_conv_dw_plain(x, g, k, pad_l, mask),
+            1e-5 if dtype == torch.float32 else 1e-2)
+
+
+def test_fsmn_backward_at_batch_64(cuda):
+    """Batch 64 of the encoder's shape (many blocks per channel stripe, so
+    the last block adds many partials): dx bit-equal to the reversed-taps
+    plain version, dw within 1e-5 of max|dw| of the plain version."""
+    x, g, w, mask = _encoder_case(64)
+    dx, dw = kdw.fsmn_conv_bwd(x, g, w, 5, 5, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, k1.fsmn_depthwise_plain(g, w.flip(-1), 5, 5,
+                                                   mask))
+    _within(dw, kdw.fsmn_conv_dw_plain(x, g, 11, 5, mask), 1e-5)
+
+
+@pytest.mark.parametrize("wants", [(True, True), (True, False),
+                                   (False, True)])
+def test_fsmn_backward_launch_counts(cuda, wants):
+    """A backward with both gradients, or dw alone, is one launch of K1's
+    backward kernel; dx alone is one K1 launch (taps reversed). Without
+    grad, or with grad off, the forward is the plain K1 launch and no
+    Function."""
     rng = np.random.default_rng(13)
     x = _randn(rng, 2, 30, 64).to(cuda)
     w = _randn(rng, 64, 1, 11, scale=0.1).to(cuda)
-    _, _, n1, n_dw = _backward_on_card(x, w, 5, None, torch.ones_like(x))
-    assert (n1, n_dw) == (1, 1)
-    wg = w.clone().requires_grad_(True)
-    with torch.no_grad():
-        assert k1.fsmn_depthwise(x, wg, 5, 5).grad_fn is None
-    xg = x.clone().requires_grad_(True)
-    y = k1.fsmn_depthwise(xg, w, 5, 5)
+    xg = x.clone().requires_grad_(wants[0])
+    wg = w.clone().requires_grad_(wants[1])
+    y = k1.fsmn_depthwise(xg, wg, 5, 5)
+    torch.cuda.synchronize()
     a, b = k1.launches, kdw.launches
-    y.sum().backward()       # w needs no grad: dx only
-    assert (k1.launches - a, kdw.launches - b) == (1, 0)
-    assert xg.grad is not None
+    y.sum().backward()
+    torch.cuda.synchronize()
+    want = {(True, True): (0, 1), (True, False): (1, 0),
+            (False, True): (0, 1)}[wants]
+    assert (k1.launches - a, kdw.launches - b) == want
+    assert (xg.grad is not None, wg.grad is not None) == wants
+    with torch.no_grad():
+        assert k1.fsmn_depthwise(xg, wg, 5, 5).grad_fn is None
 
 
 def test_frame_window_raises_on_an_input_that_requires_grad(cuda):
@@ -924,7 +1028,7 @@ def test_train_step_on_card_matches_cpu(cuda, no_tf32):
     """One fine-tuning step at tiny geometry on the card against the CPU:
     features from `tools/finetune._features` (K2 once), loss within 1e-5,
     every gradient within 1e-4 of its leaf's norm, and the launches of
-    the step: 2 K1 (forward, dx) and 1 dw per FSMN layer."""
+    the step: 1 K1 (forward) and 1 backward (dx and dw) per FSMN layer."""
     from toolbox_for_asr_and_tts_tpu_torch.models import paraformer as pf
     from toolbox_for_asr_and_tts_tpu_torch.models.convert import tree_map
     from toolbox_for_asr_and_tts_tpu_torch.parallel import trainstep as ts
@@ -954,7 +1058,7 @@ def test_train_step_on_card_matches_cpu(cuda, no_tf32):
         torch.cuda.synchronize()
         if dev != "cpu":
             assert (k1.launches - a, kdw.launches - b,
-                    k2.launches - c) == (2 * layers, layers, 1)
+                    k2.launches - c) == (layers, layers, 1)
         leaves = []
         tree_map(leaves.append, params)
         grads[str(dev)] = (loss.item(), [p.grad.cpu() for p in leaves])

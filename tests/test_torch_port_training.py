@@ -1,6 +1,7 @@
 """Fine-tuning in the port against the reference, on the CPU at tiny
-geometry: K1 under autograd (`FsmnDepthwiseFn`: dx by K1 itself, dw by
-`fsmn_conv_dw`, their plain versions here) against `jax.grad` of the
+geometry: K1 under autograd (`FsmnDepthwiseFn`: dx and dw by K1's backward
+kernel `fsmn_conv_dw.fsmn_conv_bwd`, its plain version here) against
+`jax.grad` of the
 reference's `nn.fsmn_block`; `paraformer_loss` and its gradients against
 `jax.value_and_grad`; three AdamW steps against `optax.adamw`; checkpoint
 save / restore / resume, the serving export in both directions, and the
@@ -87,11 +88,14 @@ FSMN_CASES = {"k11": (11, (5, 5)), "k20": (20, (19, 0)), "k12": (12, (9, 2))}
 @pytest.mark.parametrize("case,layout", [("k11", "contiguous"),
                                          ("k11", "v_view"),
                                          ("k20", "contiguous"),
-                                         ("k12", "contiguous")])
-def test_fsmn_function_matches_jax_grad(case, layout, masked):
-    """dx and dw of `nn.fsmn_block` through `FsmnDepthwiseFn` equal
-    `jax.grad` of the reference's `fsmn_block` (its XLA conv off the TPU);
-    on a V view the gradient lands in the V third of qkv's gradient."""
+                                         ("k20", "v_view"),
+                                         ("k12", "contiguous"),
+                                         ("k12", "v_view")])
+def test_fsmn_function_matches_jax_grad(case, layout, masked, monkeypatch):
+    """dx and dw of `nn.fsmn_block` through `FsmnDepthwiseFn` (one call of
+    `fsmn_conv_bwd_plain` per backward on the CPU) equal `jax.grad` of the
+    reference's `fsmn_block` (its XLA conv off the TPU); on a V view the
+    gradient lands in the V third of qkv's gradient."""
     k, pad = FSMN_CASES[case]
     rng = np.random.default_rng(3)
     b, t, d = 3, 17, 24
@@ -109,6 +113,10 @@ def test_fsmn_function_matches_jax_grad(case, layout, masked):
         return jnp.sum(rnn.fsmn_block({"w": ww}, xx, pad, m) * cot)
     gx, gw = jax.grad(ref, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
 
+    calls = []
+    plain = kdw.fsmn_conv_bwd_plain
+    monkeypatch.setattr(kdw, "fsmn_conv_bwd_plain",
+                        lambda *a: calls.append(a[5:]) or plain(*a))
     wt = torch.tensor(w, requires_grad=True)
     mt = None if mask is None else torch.from_numpy(mask)
     if layout == "v_view":
@@ -119,6 +127,7 @@ def test_fsmn_function_matches_jax_grad(case, layout, masked):
     y = pnn.fsmn_block({"w": wt}, xt, pad, mt)
     assert type(y.grad_fn).__name__ == "FsmnDepthwiseFnBackward"
     (y * torch.from_numpy(cot)).sum().backward()
+    assert [c[1:] for c in calls] == [(True, True)]
     dx = src.grad[..., 2 * d:] if layout == "v_view" else src.grad
     if layout == "v_view":
         assert not src.grad[..., :2 * d].any()
@@ -128,10 +137,79 @@ def test_fsmn_function_matches_jax_grad(case, layout, masked):
                                    atol=1e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("wants", [(True, True), (True, False),
+                                   (False, True)])
+def test_fsmn_backward_returns_only_the_wanted_gradients(wants):
+    """Each `needs_input_grad` combination: the Function's backward asks
+    `fsmn_conv_bwd` for just those gradients, which gives None for the
+    other, and the gradients it gives equal autograd of the plain
+    version's."""
+    rng = np.random.default_rng(8)
+    x0 = torch.from_numpy(rng.standard_normal((2, 9, 16)).astype(np.float32))
+    w0 = torch.from_numpy((rng.standard_normal((16, 1, 11)) * 0.3)
+                          .astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((2, 9, 16)).astype(np.float32))
+    mask = torch.ones(2, 9)
+    mask[0, 7:] = 0
+    x = x0.clone().requires_grad_(wants[0])
+    w = w0.clone().requires_grad_(wants[1])
+    (k1.fsmn_depthwise(x, w, 4, 6, mask) * g).sum().backward()
+    assert (x.grad is not None, w.grad is not None) == wants
+    dx, dw = kdw.fsmn_conv_bwd(x0, g, w0, 4, 6, mask, *wants)
+    assert (dx is not None, dw is not None) == wants
+    xp = x0.clone().requires_grad_(True)
+    wp = w0.clone().requires_grad_(True)
+    (k1.fsmn_depthwise_plain(xp, wp, 4, 6, mask) * g).sum().backward()
+    for got, direct, want in ((x.grad, dx, xp.grad), (w.grad, dw, wp.grad)):
+        if want is not None and got is not None:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(direct, got, rtol=0, atol=0)
+    assert kdw.fsmn_conv_bwd(x0, g, w0, 4, 6, mask, False, False) == (None,
+                                                                      None)
+
+
+def _refused(what):
+    """The arguments of `fsmn_conv_bwd` with one refused, and the error."""
+    x = torch.zeros(2, 5, 8)
+    g = torch.zeros(2, 5, 8)
+    w = torch.zeros(8, 1, 3)
+    args = dict(x=x, g=g, w=w, pad_l=1, pad_r=1, mask=torch.ones(2, 5))
+    change = {
+        "channel_stride": dict(x=torch.zeros(2, 8, 5).transpose(1, 2)),
+        "dtype": dict(x=x.double(), g=g.double()),
+        "g_dtype": dict(g=g.bfloat16()),
+        "pads": dict(pad_l=2, pad_r=1),
+        "negative_pad": dict(pad_l=-1, pad_r=3),
+        "taps": dict(w=torch.zeros(8, 1, 129), pad_l=64, pad_r=64),
+        "mask_shape": dict(mask=torch.ones(2, 4)),
+        "mask_dtype": dict(mask=torch.ones(2, 5, dtype=torch.float64)),
+        "mask_device": dict(mask=torch.ones(2, 5, device="meta")),
+        "device": dict(x=x.to("meta"), g=g.to("meta"), w=w.to("meta"),
+                       mask=None),
+    }[what]
+    return dict(args, **change), (TypeError if "dtype" in what
+                                  and "mask" not in what else ValueError)
+
+
+@pytest.mark.parametrize("what", ["channel_stride", "dtype", "g_dtype",
+                                  "pads", "negative_pad", "taps",
+                                  "mask_shape", "mask_dtype", "mask_device",
+                                  "device"])
+def test_fsmn_conv_bwd_refuses(what):
+    """The wrapper raises on what the kernel does not take, on the CPU as
+    on the card: a channel stride other than 1, a dtype other than f32 /
+    bf16 (or g's differing from x's), pads that do not preserve the length,
+    K > 128, a mask of another shape, dtype or device, and a device other
+    than cpu or cuda."""
+    args, err = _refused(what)
+    with pytest.raises(err):
+        kdw.fsmn_conv_bwd(**args)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fsmn_function_matches_autograd_of_the_plain_version(dtype):
-    """The Function's backward (K1 with reversed taps, `fsmn_conv_dw`)
-    against autograd through `fsmn_depthwise_plain` itself, whose taps are
+    """The Function's backward (`fsmn_conv_bwd`: dx as K1 with reversed
+    taps, dw) against autograd through `fsmn_depthwise_plain` itself, whose taps are
     rounded to x's dtype: dw goes back through that cast (f32 exact up to
     the sums' order, bf16 within its rounding)."""
     rng = np.random.default_rng(4)

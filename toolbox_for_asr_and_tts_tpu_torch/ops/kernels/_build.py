@@ -31,12 +31,13 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C entry points: every pointer and the stream are c_void_p, so ctypes never
 # cuts a 64-bit address to a 32-bit int.
 _FSMN = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _I, _I, _I, _I, _I, _P]
-_FSMN_DW = [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I, _P]
+_FSMN_BWD = [_P] * 8 + [_I] * 3 + [_L] * 4 + [_I] * 7 + [_P]
 SIGNATURES = {
     "fsmn_conv_f32": _FSMN,
     "fsmn_conv_bf16": _FSMN,
-    "fsmn_conv_dw_f32": _FSMN_DW,
-    "fsmn_conv_dw_bf16": _FSMN_DW,
+    "fsmn_conv_bwd_f32": _FSMN_BWD,
+    "fsmn_conv_bwd_bf16": _FSMN_BWD,
+    "fsmn_conv_bwd_steps_f32": _FSMN_BWD + [_I],
     "frame_window_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
 }
 

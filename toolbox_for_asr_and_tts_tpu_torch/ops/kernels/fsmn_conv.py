@@ -18,11 +18,12 @@ where x's base, strides or D are not multiples of 16 bytes the wrapper
 launches the kernel's scalar path (1 channel per thread) instead.
 
 Under autograd (grad mode on, and x or w requiring grad) the call goes
-through `FsmnDepthwiseFn`, whose backward is made of kernels too: dx is K1
-itself with the taps reversed and the pads swapped, and dw is
-`fsmn_conv_dw.py` (`csrc/fsmn_conv_dw.cu`). Otherwise, as on every serving
-path (graphs captured under `inference_mode`), the call launches K1 exactly
-as it does without the Function.
+through `FsmnDepthwiseFn`, whose backward is a kernel too: K1's backward
+kernel (`fsmn_conv_dw.py`, `csrc/fsmn_conv_dw.cu`) makes dx and dw in one
+launch, or dw alone; dx alone is K1 itself with the taps reversed and the
+pads swapped. Otherwise, as on every serving path (graphs captured under
+`inference_mode`), the call launches K1 exactly as it does without the
+Function.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .fsmn_conv_dw import fsmn_conv_dw
+from . import fsmn_conv_dw as kdw
 
 launches = 0   # +1 per kernel run (a launch, or one in a graph replay);
                # chip_smoke.py reads it
@@ -217,12 +218,14 @@ class FsmnDepthwiseFn(torch.autograd.Function):
         dx = m·(gm + Σ_j w_j · gm[t − j + pad_l])
            = fsmn_depthwise(g, w.flip(-1), pad_r, pad_l, mask)
 
-    (K1 with the taps reversed and the pads swapped: one more K1 launch on
-    the card), and dw[d, j] = Σ_{b,t} gm · xm[t + j − pad_l]
-    (`fsmn_conv_dw`), summed in f32. The forward rounds the taps to x's
-    dtype, so dw goes back through that cast: rounded to x's dtype, then
-    returned in w's. x is saved as it came in (SAN-M passes the V view of
-    its qkv product); the gradient returned has the view's shape."""
+    (K1 with the taps reversed and the pads swapped) and
+    dw[d, j] = Σ_{b,t} gm · xm[t + j − pad_l], summed in f32: one launch of
+    K1's backward kernel for both, or for dw alone; dx alone is one K1
+    launch with the taps reversed (`fsmn_conv_dw.fsmn_conv_bwd`). The
+    forward rounds the taps to x's dtype, so dw goes back through that
+    cast: rounded to x's dtype, then returned in w's. x is saved as it came
+    in (SAN-M passes the V view of its qkv product); the gradient returned
+    has the view's shape."""
 
     @staticmethod
     def forward(ctx, x, w, pad_l, pad_r, mask):
@@ -237,12 +240,10 @@ class FsmnDepthwiseFn(torch.autograd.Function):
         pad_l, pad_r = ctx.pads
         if g.stride(2) != 1:        # an expanded or transposed gradient
             g = g.contiguous()
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = fsmn_depthwise(g, w.flip(-1), pad_r, pad_l, mask)
-        if ctx.needs_input_grad[1]:
-            dw = (fsmn_conv_dw(x, g, w.shape[-1], pad_l, mask)
-                  .to(x.dtype).to(w.dtype))
+        dx, dw = kdw.fsmn_conv_bwd(x, g, w, pad_l, pad_r, mask,
+                                   *ctx.needs_input_grad[:2])
+        if dw is not None:
+            dw = dw.to(x.dtype).to(w.dtype)
         return dx, dw, None, None, None
 
 

@@ -9,8 +9,9 @@ frame mass (`tail_threshold=0.0`), as in the Paraformer paper and FunASR.
 The parameters are the port's plain-dict tree; the step makes its leaves
 require grad and updates them in place, so the tree stays the one a
 `Recognizer` holds (its captured graphs bind those storages). Autograd runs
-through kernel K1 (`ops/kernels/fsmn_conv.py::FsmnDepthwiseFn`: dx by K1,
-dw by `fsmn_conv_dw`). The step runs eagerly.
+through kernel K1 (`ops/kernels/fsmn_conv.py::FsmnDepthwiseFn`: dx and dw
+by one launch of K1's backward kernel, `fsmn_conv_dw.fsmn_conv_bwd`). The
+step runs eagerly.
 """
 from __future__ import annotations
 
