@@ -174,11 +174,41 @@ Phases (any failure exits non-zero and prints no result line):
    rows with the ids of a Recognizer on the CLI's tuned tree in memory.
    cuDNN runs deterministic in this phase. `--profile` adds the card's busy
    time over one step;
-10. the `streaming`, `service`, `tts`, `checkpoints`, `entry_points`,
+10. reduced precision at full width (phase 11): `Recognizer.random(
+   ParaformerConfig(), seed=0, param_dtype=torch.bfloat16)` and, with
+   PARAFORMER_QUANT=int8 set before construction, the W8A8 one, beside
+   phase 3's f32 recognizer on the 8 rows: per mode K1 66 / K2 1 per
+   transcribe, the forward's replay bit-equal to its eager call, card vs
+   the same tree on the CPU (2 rows; bf16 by phase 3's rule, int8 held to
+   the quantization's own error against f32: counts equal, logits within
+   it, ids equal where the CPU's top-2 gap exceeds it), the transcribe
+   wall (median, p95 of 12), the card's busy time and idle share, the
+   weights' and the graph pool's bytes; under int8 the card's quantized
+   tree equal to the CPU's, 200 `_int_mm` calls per eager forward (200
+   `aten::mm` fewer than bf16) and as many int8 GEMM kernels in a
+   replayed transcribe, the corpus CER of the int8 and bf16 ids against
+   the f32 ids (`tools/wer.py`; random weights: printed, not gated);
+   `_linear_int8` at the encoder's four shapes (8 x 167 rows) against the
+   f32 `dot` with the int8 tensor-core and f32 bounds, card = CPU bit for
+   bit there and at 9 rows; the quantized tree on the streaming path at
+   S = 1 (9 rows: `_int_mm`'s padded path) and 64: 4 steps of the ticker
+   step's halves card vs CPU by the int8 rule (fired counts part only
+   where CIF's mass is within the quantization's own mass error of a
+   firing threshold; at S = 1 every id equal),
+   `BatchedChunkedASR`'s first 3 ticks beside a CPU ticker's (agreement
+   printed), K1 50 / K2 1 per step, the step wall, the step's replay
+   bit-equal to its eager call;
+   `Synthesizer.random(seed=0, tiny=False, param_dtype=torch.bfloat16)` on
+   phase 7's paragraph (RTF; `tools/mel_distance.py` on the card against
+   phase 7's f32 audio; the first segment within TTS_PCM_LSB of the bf16
+   trees on the CPU); one bf16 transcribe under `runtime/profiling.
+   trace_to` (the trace names both kernels) and `device_memory_stats()`;
+11. the `streaming`, `service`, `tts`, `checkpoints`, `entry_points`,
    `graphs` (per program owner, as first seen by a phase: programs,
    captures, capture seconds, replays, graph pool bytes at the phase's
-   end), `train` and `kernels` JSON lines, then the result line {"ok":
-   true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+   end), `train`, `precision` and `kernels` JSON lines, then the result
+   line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+   ...}}.
 
 Needs one card, no network, and only the files of this repository.
 """
@@ -219,16 +249,17 @@ def card_line() -> str:
 
 
 def card_peaks(name: str):
-    """(memory bytes/s, float32 flop/s outside the tensor cores) from
-    NVIDIA's data sheets; unknown cards count as the H100 SXM."""
+    """(memory bytes/s, float32 flop/s outside the tensor cores, dense int8
+    tensor-core op/s) from NVIDIA's data sheets; unknown cards count as the
+    H100 SXM."""
     n = name.upper()
     if "H200" in n:
-        return 4.8e12, 67e12
+        return 4.8e12, 67e12, 1979e12
     if "H100" in n and "PCIE" in n:
-        return 2.0e12, 51e12
+        return 2.0e12, 51e12, 1513e12
     if "H100" in n and "NVL" in n:
-        return 3.9e12, 60e12
-    return 3.35e12, 67e12
+        return 3.9e12, 60e12, 1671e12
+    return 3.35e12, 67e12, 1979e12
 
 
 def bound(nbytes: float, flops: float, peaks):
@@ -1127,11 +1158,16 @@ def time_rescoring(torch, reco, wavs):
         + f" (k_b {k_b}, logits {tuple(logits.shape)} bf16)")
 
 
-def compare_cpu(torch, reco, wavs):
-    """The card's forward pass vs the same port on the CPU, rows CPU_ROWS."""
+def compare_cpu(torch, reco, wavs, cpu=None, what: str = "card vs cpu"):
+    """The card's forward pass vs the same port on the CPU (`cpu`, else
+    `Recognizer.random(seed=0)` there), rows CPU_ROWS: token counts equal,
+    tokens equal wherever the CPU's top-2 logit gap exceeds 1e-3 and in at
+    least 99.9 % of places, fire frames equal but at a cumsum within 1e-4
+    of a token boundary. Returns the comparison's numbers."""
     import numpy as np
     from toolbox_for_asr_and_tts_tpu_torch.asr.recognizer import Recognizer
-    cpu = Recognizer.random(reco.cfg, seed=0, device="cpu")
+    if cpu is None:
+        cpu = Recognizer.random(reco.cfg, seed=0, device="cpu")
     batch, lens = reco.bucketer.pad_batch([wavs[i] for i in CPU_ROWS])
     t0 = time.perf_counter()
     a = {k: v.cpu() for k, v in reco.forward_padded(batch, lens).items()}
@@ -1166,12 +1202,19 @@ def compare_cpu(torch, reco, wavs):
     dlog = np.abs(a["logits"].double().numpy() - logits).max()
     dal = np.abs(a["alphas"].double().numpy() - al).max()
     denc = np.abs(a["enc"].double().numpy() - b["enc"].double().numpy()).max()
-    print(f"card vs cpu: token_count {count.tolist()} equal; tokens equal "
+    print(f"{what}: token_count {count.tolist()} equal; tokens equal "
           f"{same[valid].sum()}/{valid.sum()} ({share:.4%}), "
           f"{(~same[valid]).sum()} differ (all with top-2 gap <= 1e-3); "
           f"fire frames differing near a boundary: {near}; "
-          f"max|dlogit| {dlog:.3g}, max|dalpha| {dal:.3g}, max|denc| "
+          f"max|dlogit| {dlog:.3g} of max|logit| "
+          f"{np.abs(logits).max():.3g}, max|dalpha| {dal:.3g}, max|denc| "
           f"{denc:.3g}", flush=True)
+    return dict(rows=list(CPU_ROWS), token_count=count.tolist(),
+                tokens_equal=int(same[valid].sum()),
+                tokens_differ=int((~same[valid]).sum()),
+                fire_frames_near_boundary=near, max_abs_dlogit=float(dlog),
+                max_abs_logit=float(np.abs(logits).max()),
+                max_abs_dalpha=float(dal), max_abs_denc=float(denc))
 
 
 # ------------------------------------------------ phase 4: streaming path
@@ -3904,6 +3947,550 @@ def finetune_path(torch, card, wavs, profile: bool = False):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------- phase 11: reduced precision
+PRECISION_CALLS = 12        # timed transcribes per mode (median, p95)
+INT8_STREAM_SIZES = (1, 64)  # S = 1: a chunked step of 9 rows, padded
+INT8_COMPARE_TICKS = 3      # ticker ticks of fresh sessions beside the CPU's
+INT8_COMPARE_STEPS = 4      # direct steps held against the CPU
+ENCODER_LINEARS = ("attn.qkv", "attn.out", "ffn.w1", "ffn.w2")
+# _linear_int8 at the offline encoder's shapes: 8 rows x 167 LFR frames
+INT8_SHAPES = (("qkv", 512, 1536), ("out", 512, 512), ("w1", 512, 2048),
+               ("w2", 2048, 512))
+INT8_ROWS = 8 * 167
+# cuBLASLt's int8 GEMM kernels by name (s8 / i8 operands, IMMA, i8 WMMA)
+INT8_GEMM = re.compile(r"s8|i8|imma|i161616", re.IGNORECASE)
+
+
+def tree_bytes(torch, tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _flat(torch, tree))
+
+
+def profiled(torch, fn):
+    """fn under torch.profiler (host and card): (its result, the profile)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, prof
+
+
+def op_calls(prof, name: str) -> int:
+    """Host calls of one aten operator in a profile."""
+    return sum(e.count for e in prof.key_averages() if e.key == name)
+
+
+def precision_mode(torch, card, mode: str, reco, wavs, compare=None):
+    """One Recognizer of phase 11 (`mode`: f32, bf16 or int8) on the card:
+    K1 66 / K2 1 per transcribe, its forward's replay bit-equal to its
+    eager call, `compare(reco)` (card vs the same tree on the CPU); the
+    transcribe wall over PRECISION_CALLS calls, the card's busy time of
+    one (torch.profiler), the weights' and the graph pool's bytes."""
+    cfg = reco.cfg
+    reco.transcribe(wavs)                      # capture, plans
+    res, k1_n, k2_n = counted(torch, lambda: reco.transcribe(wavs))
+    check_results(res, wavs, cfg)
+    layers = cfg.encoder_layers + cfg.decoder_layers
+    require(k1_n == layers and k2_n == 1,
+            f"{mode}: K1 {k1_n} (want {layers}), K2 {k2_n} (want 1) per "
+            f"transcribe")
+    batch, lens = reco.bucketer.pad_batch(wavs)
+    n_out = replay_vs_eager(torch, reco._fn_for(*batch.shape), batch, lens,
+                            what=f"{mode} recognizer forward")
+    vs_cpu = compare(reco) if compare is not None else None
+    walls = []
+    for _ in range(PRECISION_CALLS):
+        t0 = time.perf_counter()
+        reco.transcribe(wavs)
+        walls.append(time.perf_counter() - t0)
+    wall = quantiles(walls)
+    _, prof = profiled(torch, lambda: reco.transcribe(wavs))
+    rows = _device_events(prof)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    require(busy > 0, f"{mode}: the profiler saw no device time")
+    out = dict(weight_bytes=tree_bytes(torch, reco.params),
+               k1_per_transcribe=k1_n, k2_per_transcribe=k2_n,
+               replay_outputs=n_out, wall=wall, busy_ms=busy,
+               idle_share=1 - busy / wall["median_ms"],
+               kernels_per_transcribe=sum(e.count for e in rows),
+               pool_bytes=reco._programs.pool_bytes(),
+               ids=[r.token_ids for r in res], card_vs_cpu=vs_cpu)
+    print(f"precision {mode}: weights {out['weight_bytes'] / 1e6:.1f} MB; "
+          f"K1 {k1_n}, K2 {k2_n} per transcribe; replay = eager "
+          f"({n_out} outputs); transcribe wall median "
+          f"{wall['median_ms']:.2f} ms, p95 {wall['p95_ms']:.2f} ms over "
+          f"{wall['n']}; card busy {busy:.2f} ms (idle "
+          f"{100 * out['idle_share']:.1f} %, {out['kernels_per_transcribe']} "
+          f"kernels); graph pool "
+          f"{(out['pool_bytes'] or 0) / 1e6:.1f} MB on {card}", flush=True)
+    return out, prof
+
+
+def compare_int8(torch, reco, cpu, ref, wavs):
+    """The W8A8 forward on the card vs the same quantized tree on the CPU
+    (`cpu`), rows CPU_ROWS, held to the quantization's own error q: the
+    CPU int8 run's max |dlogit| against the f32 forward (`ref`, phase 3's
+    tree on the card). Token counts equal, max |dlogit| card vs CPU <= q,
+    tokens equal wherever the CPU's top-2 gap exceeds q. Phase 3's 1e-3
+    rule does not hold under int8: where the two devices' f32 sums put an
+    activation at a half step, its code rounds the other way, which moves
+    the product by one int8 step, and 50 layers carry it on."""
+    import numpy as np
+    batch, lens = reco.bucketer.pad_batch([wavs[i] for i in CPU_ROWS])
+    a, f = ({k: v.cpu() for k, v in r.forward_padded(batch, lens).items()}
+            for r in (reco, ref))
+    b = cpu.forward_padded(batch, lens)
+    count = b["token_count"].numpy()
+    require((a["token_count"].numpy() == count).all(),
+            f"int8 token_count card {a['token_count'].tolist()} cpu "
+            f"{count.tolist()}")
+    logits = b["logits"].double().numpy()
+    valid = np.arange(logits.shape[1])[None] < count[:, None]
+    q = float(np.abs(logits - f["logits"].double().numpy())[valid].max())
+    d = float(np.abs(a["logits"].double().numpy() - logits)[valid].max())
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    gap = top2[..., 1] - top2[..., 0]
+    same = a["tokens"].numpy() == b["tokens"].numpy()
+    differ = valid & ~same
+    row = dict(rows=list(CPU_ROWS), token_count=count.tolist(),
+               tokens_equal=int((valid & same).sum()),
+               tokens_differ=int(differ.sum()),
+               differing_gaps=[float(g) for g in gap[differ]],
+               max_abs_dlogit=d, quantization_max_abs_dlogit=q,
+               max_abs_logit=float(np.abs(logits).max()),
+               f32_tokens_equal=int((valid & (f["tokens"].numpy()
+                                              == b["tokens"].numpy())).sum()))
+    print(f"int8 card vs cpu: token_count {count.tolist()} equal; tokens "
+          f"equal {row['tokens_equal']}/{int(valid.sum())}, "
+          f"{row['tokens_differ']} differ (top-2 gaps "
+          f"{[round(g, 5) for g in row['differing_gaps']]}); max|dlogit| "
+          f"{d:.4g} against the quantization's own {q:.4g} (CPU int8 vs "
+          f"f32; f32 and int8 ids equal at {row['f32_tokens_equal']}); "
+          f"max|logit| {row['max_abs_logit']:.3g}", flush=True)
+    require(d <= q, f"int8 logits differ card vs CPU by {d} > q {q}")
+    require(not (differ & (gap > q)).any(),
+            f"int8 tokens differ where the CPU's top-2 gap exceeds q {q}")
+    return row
+
+
+def int8_products(torch, reco, ref, wavs, prof):
+    """The 200 int8 GEMMs of a W8A8 transcribe: an eager forward calls
+    `torch._int_mm` once per quantized linear (4 per encoder layer) and
+    `aten::mm` that many times fewer than the bf16 forward (`ref`); one
+    replayed transcribe (`prof`) launches as many int8 GEMM kernels
+    (INT8_GEMM) among the kernels that the bf16 replay does not run."""
+    cfg = reco.cfg
+    want = len(ENCODER_LINEARS) * cfg.encoder_layers
+    batch, lens = reco.bucketer.pad_batch(wavs)
+    calls = {}
+    for name, r in (("int8", reco), ("bf16", ref)):
+        _, p = profiled(torch, lambda: r.forward_padded(batch, lens))
+        calls[name] = (op_calls(p, "aten::_int_mm"), op_calls(p, "aten::mm"))
+    require(calls["int8"][0] == want and calls["bf16"][0] == 0,
+            f"_int_mm calls per forward {calls}: want {want} under int8")
+    require(calls["bf16"][1] - calls["int8"][1] == want,
+            f"aten::mm calls per forward {calls}: the int8 forward should "
+            f"run {want} fewer")
+    # the replayed transcribe's kernels that the bf16 replay does not run:
+    # the quantize / dequantize passes and cuBLASLt's int8 GEMMs, told
+    # apart by the s8 / i8 / imma in their names
+    _, pb = profiled(torch, lambda: ref.transcribe(wavs))
+    seen = {e.key for e in _device_events(pb)}
+    extra = {e.key: e.count for e in _device_events(prof)
+             if e.key not in seen}
+    gemm = {k: n for k, n in extra.items() if INT8_GEMM.search(k)}
+    in_replay = sum(gemm.values())
+    print(f"int8 GEMMs: {calls['int8'][0]} _int_mm per eager forward "
+          f"(aten::mm {calls['int8'][1]} vs {calls['bf16'][1]} under bf16); "
+          f"the replayed transcribe's kernels that bf16 does not run: "
+          + "; ".join(f"{n} x {k[:110]}" for k, n in sorted(
+              extra.items(), key=lambda kv: -kv[1])), flush=True)
+    require(in_replay == want, f"{in_replay} int8 GEMM kernels in the "
+                               f"replay ({sorted(gemm)}), {want} expected")
+    return dict(int_mm_per_forward=calls["int8"][0],
+                mm_per_forward={"int8": calls["int8"][1],
+                                "bf16": calls["bf16"][1]},
+                int8_gemm_kernels_in_replay=in_replay,
+                int8_gemm_kernel_names=sorted(gemm))
+
+
+def time_linear_int8(torch, card, peaks):
+    """`_linear_int8` (quantize, `_int_mm`, dequantize) against the f32
+    `dot` (TF32 off) at the encoder's shapes, with the int8 tensor-core and
+    the f32 bounds; the card's result bit-equal to the CPU's, at the
+    path's rows and at 9 (a chunked step's, padded to 17)."""
+    from toolbox_for_asr_and_tts_tpu_torch.ops import nn
+    out = []
+    g = torch.Generator().manual_seed(11)
+    for name, k, n in INT8_SHAPES:
+        p = {"w": torch.randn(k, n, generator=g) * k ** -0.5,
+             "b": torch.randn(n, generator=g) * 0.1}
+        q = nn.quantize_linear_int8(p)
+        pc = {a: v.cuda() for a, v in p.items()}
+        qc = nn.quantize_linear_int8(pc)
+        for a in q:
+            require(torch.equal(qc[a].cpu(), q[a]),
+                    f"{name}: quantized {a} differs card vs CPU")
+        for rows in (INT8_ROWS, 9):
+            x = torch.randn(rows, k, generator=g)
+            got = nn.linear(qc, x.cuda()).cpu()
+            require(torch.equal(got, nn.linear(q, x)),
+                    f"{name} at {rows} rows: _linear_int8 card != CPU")
+        x = torch.randn(INT8_ROWS, k, generator=g).cuda()
+        ms_int8 = device_ms(torch, lambda: nn.linear(qc, x))
+        ms_f32 = device_ms(torch, lambda: nn.linear(pc, x))
+        xq = torch.randint(-127, 128, (INT8_ROWS, k), dtype=torch.int8,
+                           device="cuda")
+        ms_mm = device_ms(torch, lambda: torch._int_mm(xq, qc["w"]))
+        ops = 2 * INT8_ROWS * k * n
+        b_int8 = INT8_ROWS * k * 4 + k * n + 2 * n * 4 + INT8_ROWS * n * 4
+        bound_int8 = max(b_int8 / peaks[0], ops / peaks[2]) * 1e3
+        b_f32 = INT8_ROWS * k * 4 + k * n * 4 + n * 4 + INT8_ROWS * n * 4
+        bound_f32, by_f32 = bound(b_f32, ops, peaks)
+        row = dict(linear=name, shape=[INT8_ROWS, k, n], int8_ms=ms_int8,
+                   int_mm_ms=ms_mm, f32_dot_ms=ms_f32,
+                   int8_bound_ms=bound_int8,
+                   int8_bound_by=("bytes" if b_int8 / peaks[0]
+                                  >= ops / peaks[2] else "operations"),
+                   f32_bound_ms=bound_f32, f32_bound_by=by_f32,
+                   card_equals_cpu=True)
+        out.append(row)
+        print(f"_linear_int8 [{INT8_ROWS},{k}]x[{k},{n}] ({name}): "
+              f"{ms_int8 * 1e3:.2f} us (the _int_mm alone "
+              f"{ms_mm * 1e3:.2f} us; int8 bound {bound_int8 * 1e3:.2f} us "
+              f"by {row['int8_bound_by']}) vs f32 dot {ms_f32 * 1e3:.2f} us "
+              f"(f32 bound {bound_f32 * 1e3:.2f} us by {by_f32}); card = "
+              f"CPU bit for bit at {INT8_ROWS} and 9 rows, on {card}",
+              flush=True)
+    return out
+
+
+def first_ticks(asr, audios, n_ticks: int):
+    """Per tick, each fresh session's partial ids over the first n_ticks
+    0.4 s chunks; the sessions leave after."""
+    slots = [asr.join() for _ in audios]
+    out = []
+    for c in range(n_ticks):
+        fired = asr.tick({s: a[c * CHUNK:(c + 1) * CHUNK]
+                          for s, a in zip(slots, audios)})
+        out.append([list(fired.get(s, [])) for s in slots])
+    for s in slots:
+        asr.leave(s)
+    return out
+
+
+def direct_steps(torch, device, params, audios, n_steps: int):
+    """The ticker step's halves (`fused_encode`, `fused_decode`) for the
+    sessions as one batch on `device`, n_steps steps of 0.24 s from a
+    fresh state: per step the fired counts, logits, token mask and the
+    CIF's integrated mass (a token fires at each whole unit)."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.models import paraformer_online as po
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer import ParaformerConfig
+    cfg, ocfg = ParaformerConfig(), po.OnlineConfig()
+    a = ocfg.c1 * cfg.frontend.lfr_n * cfg.frontend.frame_shift
+    audio = np.zeros((len(audios), n_steps * a), np.float32)
+    for i, x in enumerate(audios):
+        audio[i, :min(len(x), n_steps * a)] = x[:n_steps * a]
+    out = []
+    with torch.inference_mode():
+        st = po.init_fused_state(cfg, ocfg, len(audios), True, device)
+        for k in range(n_steps):
+            chunk = torch.from_numpy(audio[:, k * a:(k + 1) * a]).to(device)
+            st, enc, emb, n = po.fused_encode(params, st, chunk, cfg, ocfg,
+                                              k_cap=ocfg.tokens_per_chunk)
+            st, logits, mask = po.fused_decode(params, st, enc, emb, n, cfg,
+                                               ocfg)
+            out.append((n.cpu(), logits.double().cpu().numpy(),
+                        mask.bool().cpu().numpy(),
+                        st["cif_mass"].double().cpu().numpy()))
+    return out
+
+
+def direct_compare(got, want):
+    """Two runs of `direct_steps` over the same sessions, session by
+    session up to the first step whose fired count differs (CIF's state
+    differs from there on): (per parted session the distance of `want`'s
+    integrated mass from a whole unit at that step, the largest |dmass|
+    before any parting, per kept step (logits, `want`'s logits, token
+    mask) of the agreeing rows)."""
+    import numpy as np
+    live = np.ones(got[0][0].shape[0], bool)
+    parted, dmass, kept = [], 0.0, []
+    for (na, la, _, ma), (nb, lb, mb, mw) in zip(got, want):
+        now = live & (na == nb).numpy()
+        parted += [float(abs(mw[r] - np.round(mw[r])))
+                   for r in np.flatnonzero(live & ~now)]
+        live = now
+        if live.any():
+            dmass = max(dmass, float(np.abs(ma - mw)[live].max()))
+        kept.append((la[live], lb[live], mb[live]))
+    return parted, dmass, kept
+
+
+def int8_streaming(torch, card, params, cpu_params, f32_params):
+    """The quantized tree on the streaming path at S = 1 (a step of 9
+    window rows: `_int_mm`'s padded path) and S = 64. Card vs CPU through
+    the ticker step's halves for INT8_COMPARE_STEPS steps (`direct_steps`,
+    `direct_compare`), held to the quantization's own error, as
+    `compare_int8`: no more sessions whose fired counts part card vs CPU
+    (its error: q the CPU int8 run's max |dlogit| against f32, δ its max
+    |dmass| of CIF's integrated mass): a session's fired counts part card
+    vs CPU only where the CPU's mass lies within δ of a whole unit (a
+    firing threshold); up to that step, logits within q and ids equal
+    where the CPU's top-2 gap exceeds q; at S = 1 every id equal. `BatchedChunkedASR(capacity=64,
+    partials=True)`'s first INT8_COMPARE_TICKS ticks beside a CPU
+    ticker's (agreement printed); a full drive with K1 50 / K2 1 per
+    step, the step wall, and the step's replay bit-equal to its eager
+    call."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer import ParaformerConfig
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer_online import OnlineConfig
+    from toolbox_for_asr_and_tts_tpu_torch.parallel.stream_batcher import (
+        BatchedChunkedASR)
+    cfg, ocfg = ParaformerConfig(), OnlineConfig()
+    cuda, cpu_dev = torch.device("cuda"), torch.device("cpu")
+    out = {}
+    for n in INT8_STREAM_SIZES:
+        audios = session_audio(n, seed=300 + n)
+        t0 = time.perf_counter()
+        card_s, cpu_s, f32_s = (
+            direct_steps(torch, dev, p, audios, INT8_COMPARE_STEPS)
+            for dev, p in ((cuda, params), (cpu_dev, cpu_params),
+                           (cuda, f32_params)))
+        _, delta, kept_q = direct_compare(cpu_s, f32_s)
+        parted, _, kept = direct_compare(card_s, cpu_s)
+        q = max((float(np.abs(lb - lf)[mb].max()) for lb, lf, mb in kept_q
+                 if mb.any()), default=0.0)
+        d, equal, differ, gaps, min_gap = 0.0, 0, 0, [], float("inf")
+        for la, lb, mb in kept:
+            if not mb.any():
+                continue
+            d = max(d, float(np.abs(la - lb)[mb].max()))
+            top2 = np.sort(lb, axis=-1)[..., -2:]
+            gap = top2[..., 1] - top2[..., 0]
+            eq = la.argmax(-1) == lb.argmax(-1)
+            equal += int((mb & eq).sum())
+            differ += int((mb & ~eq).sum())
+            gaps += [float(g) for g in gap[mb & ~eq]]
+            min_gap = min(min_gap, float(gap[mb].min()))
+        direct = dict(steps=INT8_COMPARE_STEPS, sessions_parted=len(parted),
+                      parted_mass_from_unit=parted,
+                      quantization_max_abs_dmass=delta, ids_equal=equal,
+                      ids_differ=differ, differing_gaps=gaps,
+                      min_gap=min_gap, max_abs_dlogit=d,
+                      quantization_max_abs_dlogit=q)
+        print(f"int8 streaming S={n}: card vs CPU over {INT8_COMPARE_STEPS} "
+              f"direct steps: {len(parted)} sessions' fired counts parted, "
+              f"the CPU's mass {[round(m, 6) for m in parted]} from a whole "
+              f"unit there (the quantization's max |dmass| {delta:.4g}); ids "
+              f"equal {equal}, differ "
+              f"{differ} (top-2 gaps {[round(g, 5) for g in gaps]}; least "
+              f"gap {min_gap:.4g}); max|dlogit| {d:.4g} against the "
+              f"quantization's {q:.4g}", flush=True)
+        require(all(m <= delta for m in parted),
+                f"int8 S={n}: fired counts part card vs CPU with the CPU's "
+                f"mass {parted} from a whole unit, beyond {delta}")
+        require(d <= q, f"int8 S={n}: logits differ card vs CPU by {d} > "
+                        f"q {q}")
+        require(not any(g > q for g in gaps),
+                f"int8 S={n}: ids differ where the CPU's top-2 gap exceeds "
+                f"q {q}: {gaps}")
+        require(equal > 0, f"int8 S={n}: no token fired")
+        if n == 1:
+            require(differ == 0 and not parted,
+                    "int8 S=1 (the padded path): ids differ card vs CPU")
+        asr = BatchedChunkedASR(params, cfg, ocfg, capacity=64,
+                                partials=True)
+        cpu = BatchedChunkedASR(cpu_params, cfg, ocfg, capacity=64,
+                                partials=True, device="cpu")
+        got = first_ticks(asr, audios, INT8_COMPARE_TICKS)
+        want = first_ticks(cpu, audios, INT8_COMPARE_TICKS)
+        same = sum(g == w for tg, tw in zip(got, want)
+                   for g, w in zip(tg, tw))
+        cmp_s = time.perf_counter() - t0
+        steps_before = asr.steps
+        (ticks, ids, finals), k1_n, k2_n = counted(
+            torch, lambda: drive_chunked(asr, audios))
+        n_steps = asr.steps - steps_before
+        require(k1_n == cfg.encoder_layers * n_steps and k2_n == n_steps,
+                f"int8 S={n}: K1 {k1_n}, K2 {k2_n} in {n_steps} steps")
+        every, _ = step_stats(ticks)
+        tokens = sum(len(v) for v in ids.values())
+        require(tokens > 0, f"int8 S={n}: no token fired")
+        rng = np.random.default_rng(8)
+        replay = replay_vs_eager(
+            torch, asr._tick_fn(n),
+            (0.1 * rng.standard_normal((n, asr.chunk_samples))).astype(
+                np.float32), np.ones((n,), np.float32),
+            what=f"int8 chunked step b{n}", state=list(asr.state.values()))
+        out[f"S{n}"] = dict(
+            sessions=n, steps=n_steps, k1_per_step=k1_n / n_steps,
+            k2_per_step=k2_n / n_steps, step=every, tokens=tokens,
+            replay_outputs=replay, direct=direct,
+            ticker=dict(ticks=INT8_COMPARE_TICKS,
+                        session_ticks=n * INT8_COMPARE_TICKS,
+                        session_ticks_equal=same),
+            compare_s=cmp_s)
+        print(f"int8 streaming S={n}: ticker ids equal the CPU ticker's in "
+              f"{same} of {n * INT8_COMPARE_TICKS} session-ticks; the step's "
+              f"replay = eager ({replay} outputs and state leaves); {n_steps} "
+              f"steps, K1 {k1_n / n_steps:g}/step, K2 {k2_n / n_steps:g}/"
+              f"step; step wall median {every['median_ms']:.2f} ms, p95 "
+              f"{every['p95_ms']:.2f} ms; {tokens} tokens, on {card}",
+              flush=True)
+    return out
+
+
+def tts_bf16(torch, card, synth_f32):
+    """`Synthesizer.random(seed=0, tiny=False, param_dtype=bfloat16)` on
+    phase 7's paragraph: the RTF (median of 3 after a warm-up), the port's
+    `mel_distance` on the card between its audio and phase 7's f32 audio
+    (the same draw), and its first segment's PCM on the card within
+    TTS_PCM_LSB of the same bf16 trees copied to the CPU."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.tools.mel_distance import mel_distance
+    from toolbox_for_asr_and_tts_tpu_torch.tts.synthesizer import Synthesizer
+    synth = tts_pin(Synthesizer.random(seed=0, tiny=False,
+                                       param_dtype=torch.bfloat16))
+    leaves = _flat(torch, synth.ap) + _flat(torch, synth.vp)
+    require(all(t.dtype == torch.bfloat16 for t in leaves
+                if t.is_floating_point()), "a floating leaf is not bf16")
+    segments = tts_segments(synth)
+    res = synth.synthesize(TTS_TEXT)           # captures, plans
+    check_tts(synth, res, segments)
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res, n = tts_counted(torch, synth, lambda: synth.synthesize(TTS_TEXT))
+        runs.append(time.perf_counter() - t0)
+        require(n["k1"] == 0 and n["k2"] == 0, "the TTS path launched K1/K2")
+    wall = statistics.median(runs)
+    audio_s = len(res.wav) / SR
+    ref = tts_pin(synth_f32).synthesize(TTS_TEXT).wav
+    dist = mel_distance(res.wav, ref)            # on the card
+    cpu = tts_pin(Synthesizer(synth.ap, synth.acfg, synth.vp, synth.vcfg,
+                              device="cpu"))
+    (w_card, _), (w_cpu, _) = (s.synthesize_segments(segments[:1],
+                                                     "zhitian_emo")
+                               for s in (synth, cpu))
+    require(len(w_card[0]) == len(w_cpu[0]),
+            "first segment's length differs card vs CPU")
+    lsb = int(np.abs(pcm16(w_card[0]) - pcm16(w_cpu[0])).max())
+    require(lsb <= TTS_PCM_LSB, f"bf16 PCM differs by {lsb} LSB card vs CPU")
+    out = dict(weight_bytes=tree_bytes(torch, synth.ap)
+               + tree_bytes(torch, synth.vp),
+               weight_bytes_f32=tree_bytes(torch, synth_f32.ap)
+               + tree_bytes(torch, synth_f32.vp),
+               wall_ms=wall * 1e3, audio_s=audio_s, rtf=wall / audio_s,
+               mel_distance_vs_f32=dist, card_vs_cpu_pcm_max_lsb=lsb,
+               card_vs_cpu_samples=len(w_card[0]),
+               pool_bytes=synth.programs.pool_bytes())
+    print(f"tts bf16: weights {out['weight_bytes'] / 1e6:.1f} MB (f32 "
+          f"{out['weight_bytes_f32'] / 1e6:.1f} MB); synthesize "
+          f"{audio_s:.2f} s of audio in {wall * 1e3:.1f} ms (median of 3), "
+          f"RTF {out['rtf']:.5f}; mel distance to the f32 audio on the "
+          f"card: rmse {dist['rmse_db']:.4f} dB, corr {dist['corr']:.6f} "
+          f"over {dist['frames']} frames; first segment card vs CPU max "
+          f"|d| {lsb} LSB (limit {TTS_PCM_LSB}) over {len(w_card[0])} "
+          f"samples, on {card}", flush=True)
+    return out
+
+
+def trace_check(torch, reco, wavs):
+    """One bf16 transcribe under `runtime/profiling.trace_to`: the trace
+    file exists and names both kernels; `device_memory_stats()`."""
+    import shutil
+    import tempfile
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import profiling
+    root = tempfile.mkdtemp(prefix="trace-")
+    try:
+        with profiling.trace_to(root) as path:
+            with profiling.annotate("precision-transcribe"):
+                reco.transcribe(wavs)
+        require(os.path.exists(path), "trace_to wrote no file")
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        named = {k: k in text for k in ("fsmn_conv", "frame_window",
+                                        "precision-transcribe")}
+        require(all(named.values()), f"the trace names {named}")
+        size = os.path.getsize(path)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    stats = profiling.device_memory_stats()
+    print(f"trace_to: {size} bytes naming fsmn_conv, frame_window and the "
+          f"annotation; device_memory_stats() {stats}", flush=True)
+    return dict(trace_bytes=size, device_memory_stats=stats)
+
+
+def precision_path(torch, card, peaks, reco_f32, wavs, synth_f32):
+    """Phase 11: reduced-precision serving at full width on the card:
+    Paraformer-large at param_dtype bf16 and under PARAFORMER_QUANT=int8
+    beside phase 3's f32 recognizer (one card, one call), the int8
+    chunked ticker, the bf16 Synthesizer, the int8 product's kernel times,
+    a trace."""
+    from toolbox_for_asr_and_tts_tpu_torch.asr.recognizer import Recognizer
+    from toolbox_for_asr_and_tts_tpu_torch.tools.wer import corpus_cer
+    t_phase = time.perf_counter()
+    cfg = reco_f32.cfg
+    out = {"linear_int8": time_linear_int8(torch, card, peaks)}
+    out["f32"], _ = precision_mode(torch, card, "f32", reco_f32, wavs)
+    bf16 = Recognizer.random(cfg, seed=0, param_dtype=torch.bfloat16)
+    leaves = _flat(torch, bf16.params)
+    require(all(t.dtype == torch.bfloat16 for t in leaves),
+            "a leaf of the bf16 tree is not bf16")
+    cpu_bf16 = Recognizer.random(cfg, seed=0, device="cpu",
+                                 param_dtype=torch.bfloat16)
+    out["bf16"], _ = precision_mode(
+        torch, card, "bf16", bf16, wavs,
+        lambda r: compare_cpu(torch, r, wavs, cpu=cpu_bf16,
+                              what="bf16 card vs cpu"))
+    del cpu_bf16
+    prev = os.environ.get("PARAFORMER_QUANT")
+    os.environ["PARAFORMER_QUANT"] = "int8"
+    try:
+        int8 = Recognizer.random(cfg, seed=0)
+        cpu_int8 = Recognizer.random(cfg, seed=0, device="cpu")
+    finally:
+        if prev is None:
+            del os.environ["PARAFORMER_QUANT"]
+        else:
+            os.environ["PARAFORMER_QUANT"] = prev
+    n_int8 = sum(t.dtype == torch.int8 for t in _flat(torch, int8.params))
+    require(n_int8 == len(ENCODER_LINEARS) * cfg.encoder_layers,
+            f"{n_int8} int8 leaves in the quantized tree")
+    q_equal = all(torch.equal(a.cpu(), b) for a, b in
+                  zip(_flat(torch, int8.params), _flat(torch,
+                                                       cpu_int8.params)))
+    require(q_equal, "the card's quantized tree differs from the CPU's")
+    out["int8"], prof = precision_mode(
+        torch, card, "int8", int8, wavs,
+        lambda r: compare_int8(torch, r, cpu_int8, reco_f32, wavs))
+    out["int8"]["leaves_equal_cpu"] = q_equal
+    out["int8"].update(int8_products(torch, int8, bf16, wavs, prof))
+    tok = reco_f32.tokenizer
+    pairs = [(tok.ids_to_text(a), tok.ids_to_text(b))
+             for a, b in zip(out["f32"]["ids"], out["int8"]["ids"])]
+    out["int8"]["cer_vs_f32"] = corpus_cer(pairs)
+    out["bf16"]["cer_vs_f32"] = corpus_cer(
+        [(tok.ids_to_text(a), tok.ids_to_text(b))
+         for a, b in zip(out["f32"]["ids"], out["bf16"]["ids"])])
+    print(f"CER against the f32 ids (random weights: printed, not gated): "
+          f"int8 {out['int8']['cer_vs_f32']}, bf16 "
+          f"{out['bf16']['cer_vs_f32']}", flush=True)
+    out["int8_streaming"] = int8_streaming(torch, card, int8.params,
+                                           cpu_int8.params, reco_f32.params)
+    del cpu_int8
+    out["tts_bf16"] = tts_bf16(torch, card, synth_f32)
+    out["trace"] = trace_check(torch, bf16, wavs)
+    for m in ("f32", "bf16", "int8"):
+        out[m].pop("ids")
+    graph_snapshot("precision")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"precision phase: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main(argv) -> int:
     import shutil
     import tempfile
@@ -3934,7 +4521,8 @@ def main(argv) -> int:
         peaks = card_peaks(kind)
         print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
               f"cuda {torch.version.cuda}; peaks used for bounds: "
-              f"{peaks[0] / 1e12} TB/s, {peaks[1] / 1e12} TFLOP/s f32",
+              f"{peaks[0] / 1e12} TB/s, {peaks[1] / 1e12} TFLOP/s f32, "
+              f"{peaks[2] / 1e12} TOP/s int8 (tensor cores)",
               flush=True)
         _build.load()
         info = _build.build_info
@@ -3993,6 +4581,8 @@ def main(argv) -> int:
             shutil.rmtree(root, ignore_errors=True)
         at("phase 10: fine-tuning")
         train = finetune_path(torch, card, wavs, profile)
+        at("phase 11: reduced precision")
+        precision = precision_path(torch, card, peaks, reco, wavs, synth)
     except Exception:   # every phase failure ends the run without a result
         traceback.print_exc()
         return 1
@@ -4041,6 +4631,11 @@ def main(argv) -> int:
              ms_in_step_replay=streaming["S64"].get("profile", {}).get(
                  "in_replay", {}).get("fsmn_conv"),
              launches_per_train_step=per_step["fsmn_conv"],
+             launches_bf16=precision["bf16"]["k1_per_transcribe"],
+             launches_int8=precision["int8"]["k1_per_transcribe"],
+             launches_per_chunked_step_int8={
+                 s: r["k1_per_step"]
+                 for s, r in precision["int8_streaming"].items()},
              shapes=k1_rows + k1_stream + k1_service),
         dict(name="fsmn_conv_dw", route="cuda",
              source="toolbox_for_asr_and_tts_tpu_torch/csrc/fsmn_conv_dw.cu",
@@ -4076,6 +4671,11 @@ def main(argv) -> int:
              ms_in_step_replay=streaming["S64"].get("profile", {}).get(
                  "in_replay", {}).get("frame_window"),
              launches_per_train_step=per_step["frame_window"],
+             launches_bf16=precision["bf16"]["k2_per_transcribe"],
+             launches_int8=precision["int8"]["k2_per_transcribe"],
+             launches_per_chunked_step_int8={
+                 s: r["k2_per_step"]
+                 for s, r in precision["int8_streaming"].items()},
              shapes=[k2_row] + k2_stream + k2_service),
     ]
     graph_snapshot("end")
@@ -4087,6 +4687,7 @@ def main(argv) -> int:
     print(json.dumps({"entry_points": entry_points}, ensure_ascii=False))
     print(json.dumps({"graphs": graphs_line()}))
     print(json.dumps({"train": train, "card": card}))
+    print(json.dumps({"precision": precision, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1068,3 +1068,74 @@ def test_train_step_on_card_matches_cpu(cuda, no_tf32):
     assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
     for a, b in zip(g_card, g_cpu):
         assert (a - b).norm() <= 1e-4 * max(b.norm().item(), 1e-30)
+
+
+# ------------------------------------------------ reduced precision
+@pytest.mark.parametrize("d_in,d_out", [(512, 1536), (2048, 512), (32, 96)])
+@pytest.mark.parametrize("rows", [1, 9, 16, 17, 1336])
+def test_linear_int8_on_card_equals_cpu(cuda, rows, d_in, d_out):
+    """`_linear_int8` on the card (cuBLASLt's int8 product through
+    `torch._int_mm`, rows under 17 padded) equals the CPU's bit for bit:
+    the int32 product is exact and the elementwise steps round alike."""
+    from toolbox_for_asr_and_tts_tpu_torch.ops import nn
+    rng = np.random.default_rng(rows + d_in)
+    p = {"w": _randn(rng, d_in, d_out, scale=d_in ** -0.5),
+         "b": _randn(rng, d_out, scale=0.1)}
+    x = _randn(rng, 1, rows, d_in)
+    q = nn.quantize_linear_int8(p)
+    qc = nn.quantize_linear_int8({k: v.to(cuda) for k, v in p.items()})
+    for k in q:
+        assert torch.equal(qc[k].cpu(), q[k]), k
+    got = nn.linear(qc, x.to(cuda))
+    torch.cuda.synchronize()
+    assert got.shape == (1, rows, d_out) and got.dtype == torch.float32
+    assert torch.equal(got.cpu(), nn.linear(q, x))
+
+
+def _int8_recognizer(device, monkeypatch):
+    monkeypatch.setenv("PARAFORMER_QUANT", "int8")
+    return _tiny_recognizer(device)
+
+
+def test_int8_recognizer_on_card_holds_the_cpu_leaves(cuda, no_tf32,
+                                                      monkeypatch):
+    """Under PARAFORMER_QUANT=int8 a card Recognizer and a CPU Recognizer
+    from one seed hold the same int8 `q` and f32 `s` bit for bit, and
+    transcribe to the same ids."""
+    reco = _int8_recognizer(cuda, monkeypatch)
+    cpu = _int8_recognizer("cpu", monkeypatch)
+    n = 0
+    for a, b in zip(reco.params["encoder"]["layers"],
+                    cpu.params["encoder"]["layers"]):
+        for lin in (a["attn"]["qkv"], a["attn"]["out"], a["ffn"]["w1"],
+                    a["ffn"]["w2"]):
+            assert lin["w"].dtype == torch.int8 and lin["w"].is_cuda
+        for got, want in ((a["attn"]["qkv"], b["attn"]["qkv"]),
+                          (a["attn"]["out"], b["attn"]["out"]),
+                          (a["ffn"]["w1"], b["ffn"]["w1"]),
+                          (a["ffn"]["w2"], b["ffn"]["w2"])):
+            assert torch.equal(got["w"].cpu(), want["w"])
+            assert torch.equal(got["s"].cpu(), want["s"])
+            n += 1
+    assert n == 4 * len(cpu.params["encoder"]["layers"])
+    wavs = _wavs(22, (16000, 9000, 30000))
+    assert [r.token_ids for r in reco.transcribe(wavs)] == \
+        [r.token_ids for r in cpu.transcribe(wavs)]
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+def test_reduced_precision_replay_equals_eager(cuda, no_tf32, monkeypatch,
+                                               mode):
+    """The captured forward of an int8 (and a bf16) Recognizer replays
+    what its eager function computes, bit for bit."""
+    if mode == "int8":
+        reco = _int8_recognizer(cuda, monkeypatch)
+    else:
+        from toolbox_for_asr_and_tts_tpu_torch.asr.recognizer import (
+            Recognizer)
+        reco = Recognizer.random(_tiny_recognizer("cpu").cfg, device=cuda,
+                                 param_dtype=torch.bfloat16)
+    batch, lens = reco.bucketer.pad_batch(_wavs(23, (16000, 9000)))
+    prog = reco._fn_for(*batch.shape)
+    assert prog.graph is not None
+    _replay_vs_eager(prog, batch, lens)

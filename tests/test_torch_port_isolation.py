@@ -548,3 +548,41 @@ def test_training_entry_points_run_on_explicit_cpu(tmp_path):
     assert leaves and all(a.device.type == "cpu" and a.requires_grad
                           for a in leaves)
     assert tc.latest_step(str(tmp_path / "ck")) == 1
+
+
+def _tool_entry_points(device, tmp_path):
+    """The yardsticks of reduced-precision serving and the bf16
+    Recognizer, built with `device`."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import profiling
+    from toolbox_for_asr_and_tts_tpu_torch.tools import mel_distance as md
+    x = (0.1 * np.random.default_rng(0).standard_normal(8000)).astype(
+        np.float32)
+
+    def trace():
+        with profiling.trace_to(str(tmp_path / "tb"), device=device):
+            pass
+    return {
+        "mel_distance": lambda: md.mel_distance(x, x, device=device),
+        "device_memory_stats": lambda: profiling.device_memory_stats(
+            device=device),
+        "trace_to": trace,
+        "Recognizer(param_dtype)": lambda: Recognizer.random(
+            TINY, device=device, param_dtype=torch.bfloat16),
+    }
+
+
+def test_precision_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, make in _tool_entry_points(None, tmp_path).items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+
+
+def test_precision_entry_points_run_on_explicit_cpu(tmp_path):
+    made = {k: f() for k, f in _tool_entry_points("cpu", tmp_path).items()}
+    assert made["mel_distance"]["rmse_db"] == 0.0
+    assert list(made["device_memory_stats"]) == ["cpu"]
+    reco = made["Recognizer(param_dtype)"]
+    assert reco.params["encoder"]["layers"][0]["attn"]["qkv"]["w"].dtype \
+        == torch.bfloat16

@@ -20,6 +20,7 @@ that fetch, rescoring's log-softmax and the text stay on the host.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -59,18 +60,32 @@ class Recognizer:
                  cmvn: Optional[Tuple[np.ndarray, np.ndarray]] = None,
                  bucketer: Optional[Bucketer] = None,
                  device: DeviceLike = None,
+                 param_dtype: Optional[torch.dtype] = None,
                  lm=None, lm_weight: float = 0.3):
         """params: a Paraformer tensor tree (moved to `device`); device:
-        the card unless "cpu" is passed; lm: optional asr.ngram_lm.ArpaLM
-        fused into decoding."""
+        the card unless "cpu" is passed; param_dtype: the floating leaves'
+        dtype (torch.bfloat16 halves the weights; the products still run
+        in f32, `nn.dot`); lm: optional asr.ngram_lm.ArpaLM fused into
+        decoding, loaded from $NGRAM_LM_FILE when none is passed unless
+        FUNASR_DISABLE_LM is set (a file that fails to load raises).
+        PARAFORMER_QUANT=int8 quantizes the encoder's linears (W8A8,
+        `paraformer.quantize_encoder_int8`) after the cast, as the
+        reference does; any other value leaves the tree as it is."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer
+        if lm is None and os.getenv("NGRAM_LM_FILE") \
+                and not os.getenv("FUNASR_DISABLE_LM"):
+            from .ngram_lm import ArpaLM
+            lm = ArpaLM.load(os.environ["NGRAM_LM_FILE"])
         self.lm = lm
         self.lm_weight = lm_weight
         self.fe_cfg = cfg.frontend
         self.bucketer = bucketer or Bucketer.for_audio(self.fe_cfg.sample_rate)
-        self.params = tree_to(params, self.device)
+        params = tree_to(params, self.device, param_dtype)
+        if os.getenv("PARAFORMER_QUANT", "") == "int8":
+            params = paraformer.quantize_encoder_int8(params)
+        self.params = params
         self.cmvn = None
         if cmvn is not None:
             self.cmvn = tuple(torch.as_tensor(np.asarray(c, np.float32),
@@ -119,7 +134,6 @@ class Recognizer:
         upsampled timestamp predictor; plain vocab8404 checkpoints do not.
         The bicif template is tried first, and the plain one when its
         tensors are absent (KeyError) or shaped otherwise (ValueError)."""
-        import os
         from ..models.convert import params_from_numpy
         from ..runtime import checkpoints as ckpt
         device = resolve_device(device)

@@ -7,7 +7,7 @@ sides compute the same function.
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -30,7 +30,8 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
 
 def tree_to(tree: Any, device: torch.device,
             dtype: torch.dtype = None) -> Any:
-    """Move a tensor tree to `device`, casting floating leaves to `dtype`."""
+    """Move a tensor tree to `device`, casting floating leaves to `dtype`
+    (integer leaves, such as an int8-quantized linear's `w`, keep theirs)."""
     def move(a: torch.Tensor) -> torch.Tensor:
         if dtype is not None and a.is_floating_point():
             return a.to(device, dtype)
@@ -39,10 +40,13 @@ def tree_to(tree: Any, device: torch.device,
 
 
 def params_from_numpy(tree: Any, device: DeviceLike = None,
-                      dtype: torch.dtype = torch.float32) -> Any:
+                      dtype: Optional[torch.dtype] = torch.float32) -> Any:
     """Numpy (or any array-like) parameter tree → torch tree on `device`
     (resolved as every entry point: the card unless "cpu" is passed), with
-    floating leaves cast to `dtype`. Every leaf converts alike, so
+    floating leaves cast to `dtype`; `dtype=None` keeps every leaf's own
+    dtype (a bf16 tree from the reference stays bf16). Integer leaves keep
+    theirs, so a tree the reference quantized (`quantize_encoder_int8`:
+    int8 `w`, f32 `s`) converts as it is. Every leaf converts alike, so
     BatchNorm statistics (`mean`, `var`) and extra taps such as KWS's `wr`
     need no rule of their own; None leaves stay None."""
     dev = resolve_device(device)
@@ -52,9 +56,6 @@ def params_from_numpy(tree: Any, device: DeviceLike = None,
         # converted checkpoint's leaves then have the layout (and the
         # results) of a drawn tree
         arr = np.require(a, requirements=("C", "W"))
-        if arr.dtype == np.int8:
-            raise NotImplementedError(
-                "int8-quantized trees have no path in the port yet")
         if arr.dtype.name == "bfloat16":   # ml_dtypes' bf16: same bits
             return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
         return torch.from_numpy(arr)

@@ -164,6 +164,27 @@ def init_params(cfg: ParaformerConfig = ParaformerConfig(),
     }
 
 
+def quantize_encoder_int8(params: nn.Params) -> nn.Params:
+    """W8A8 serving quantization of the SAN-M encoder stack (ref
+    `quantize_encoder_int8`): each encoder layer's attention `qkv` / `out`
+    and FFN `w1` / `w2` linears become {"w" int8, "s" f32, "b" f32}
+    (`nn.quantize_linear_int8`); layernorms, the FSMN taps, the predictor
+    and the decoder keep their leaves, so the CIF and decode math is
+    untouched. Serving only: a quantized tree does not train
+    (`parallel/trainstep.py` refuses it). A new tree; the input's leaves
+    are shared, not copied."""
+    layers = []
+    for layer in params["encoder"]["layers"]:
+        q = dict(layer)
+        q["attn"] = dict(layer["attn"],
+                         qkv=nn.quantize_linear_int8(layer["attn"]["qkv"]),
+                         out=nn.quantize_linear_int8(layer["attn"]["out"]))
+        q["ffn"] = {"w1": nn.quantize_linear_int8(layer["ffn"]["w1"]),
+                    "w2": nn.quantize_linear_int8(layer["ffn"]["w2"])}
+        layers.append(q)
+    return dict(params, encoder=dict(params["encoder"], layers=layers))
+
+
 # ----------------------------------------------------------------- encoder
 def encode(params: nn.Params, feats: torch.Tensor, mask: torch.Tensor,
            cfg: ParaformerConfig = ParaformerConfig()) -> torch.Tensor:

@@ -366,8 +366,10 @@ def _embed_inputs(params: nn.Params, ling_ids: torch.Tensor,
          + nn.embedding(lp["tone"], ling_ids[..., 1])
          + nn.embedding(lp["syllable_flag"], ling_ids[..., 2])
          + nn.embedding(lp["word_segment"], ling_ids[..., 3]))
+    # in the table's dtype, as the reference: a bf16 tree keeps these
+    # sums bf16 until the first product
     x = x + nn.sinusoidal_posenc(ling_ids.shape[1], cfg.d_model,
-                                 device=x.device)[None]
+                                 device=x.device, dtype=x.dtype)[None]
     x = x + nn.embedding(params["spk"], speaker_ids)[:, None, :]
     if emotion_ids is None:
         emotion_ids = torch.zeros_like(speaker_ids)
@@ -463,7 +465,8 @@ def forward(params: nn.Params, phone_ids: torch.Tensor,
     h, mel_mask, aux = _encode_regulate(params, phone_ids, phone_lens,
                                         speaker_ids, cfg, t_mel,
                                         duration_override, emotion_ids)
-    h = h + nn.sinusoidal_posenc(t_mel, cfg.d_model, device=h.device)[None]
+    h = h + nn.sinusoidal_posenc(t_mel, cfg.d_model, device=h.device,
+                                 dtype=h.dtype)[None]
     for layer in params["decoder"]:
         h = _transformer_layer(layer, h, cfg.n_heads, mel_mask)
     mel = nn.linear(params["mel_out"], h)

@@ -69,10 +69,63 @@ def linear_init(g: torch.Generator, d_in: int, d_out: int,
 
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    if p["w"].dtype == torch.int8:
+        return _linear_int8(p, x)
     y = dot(x, p["w"])
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def quantize_linear_int8(p: Params) -> Params:
+    """Symmetric per-output-channel int8 weight quantization of a linear
+    param dict: {"w" int8 [in, out], "s" f32 [out], "b" f32?}. `linear`
+    dispatches on the int8 dtype, so call sites do not change. Exact
+    elementwise arithmetic (max, IEEE division, round half to even), so a
+    tree quantized on the card holds the CPU's bits. `w` is laid out
+    column-major (the [out, in] storage seen as [in, out]): cuBLASLt's
+    int8 tensor-core product takes its first operand transposed."""
+    w = p["w"].float()
+    m = torch.clamp_min(w.abs().amax(dim=0), 1e-12)
+    s = _div127(m)                                               # [out]
+    q = torch.clamp(torch.round(w / s[None, :]), -127, 127).to(torch.int8)
+    out = {"w": q.t().contiguous().t(), "s": s}
+    if "b" in p:
+        out["b"] = p["b"].float()
+    return out
+
+
+def _div127(a: torch.Tensor) -> torch.Tensor:
+    """a / 127 by IEEE division on every device, as the reference computes
+    it: CUDA turns a division by a Python scalar into a product with its
+    reciprocal, which differs in the last bit."""
+    return a / torch.full_like(a, 127.0)
+
+
+# torch._int_mm on CUDA takes more than 16 rows (and inner and output
+# widths that are multiples of 8, which every quantized linear has)
+INT_MM_MIN_ROWS = 17
+
+
+def _linear_int8(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """W8A8 product (the reference's s8×s8→s32 `dot_general`): activations
+    quantize with a dynamic per-token symmetric scale, `torch._int_mm`
+    accumulates in int32 (cuBLASLt's int8 tensor cores on the card), and
+    the product of the activation and per-channel weight scales dequantizes
+    in f32. Fewer rows than `_int_mm` takes are padded with zero rows and
+    sliced off, never sent to a float product."""
+    sx = _div127(torch.clamp_min(x.abs().amax(dim=-1, keepdim=True),
+                                 1e-8).float())
+    xq = torch.clamp(torch.round(x.float() / sx), -127, 127).to(torch.int8)
+    rows = xq.reshape(-1, x.shape[-1]).contiguous()
+    m = rows.shape[0]
+    if m < INT_MM_MIN_ROWS:
+        rows = F.pad(rows, (0, 0, 0, INT_MM_MIN_ROWS - m))
+    y = torch._int_mm(rows, p["w"])[:m].reshape(*x.shape[:-1], -1)
+    y = y.float() * (sx * p["s"])
+    if "b" in p:
+        y = y + p["b"]
+    return y.to(x.dtype)
 
 
 # --------------------------------------------------------------- layernorm
@@ -151,16 +204,18 @@ def conv_transpose1d(p: Params, x: torch.Tensor, stride: int,
 
 # -------------------------------------------------- sinusoidal position enc
 def sinusoidal_posenc(t: int, d: int, offset: int = 1,
-                      device: Optional[torch.device] = None) -> torch.Tensor:
+                      device: Optional[torch.device] = None,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """FunASR `SinusoidalPositionEncoder`: positions start at `offset` (1)
-    and the frequency denominator is `half - 1`."""
+    and the frequency denominator is `half - 1`; computed in float32 and
+    cast to `dtype`."""
     pos = torch.arange(offset, t + offset, dtype=torch.float32,
                        device=device)[:, None]
     half = d // 2
     inv = torch.exp(torch.arange(half, dtype=torch.float32, device=device)
                     * -(math.log(10000.0) / (half - 1)))
     ang = pos * inv[None, :]
-    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 # -------------------------------------------------------------- FSMN block
@@ -319,3 +374,11 @@ def dec_ffn_init(g: torch.Generator, d: int, d_hidden: int,
 
 def dec_ffn(p: Params, x: torch.Tensor, activation=torch.relu) -> torch.Tensor:
     return linear(p["w2"], layernorm(p["norm"], activation(linear(p["w1"], x))))
+
+
+# ----------------------------------------------------------------- sampling
+def glu(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Gated linear unit: the first half of `axis` times the sigmoid of the
+    second."""
+    a, b = x.chunk(2, dim=axis)
+    return a * torch.sigmoid(b)

@@ -46,6 +46,17 @@ def param_leaves(params: Any) -> List[torch.Tensor]:
     return out
 
 
+def _refuse_quantized(params: Any) -> None:
+    """Raise on a tree with integer leaves: an int8-quantized tree
+    (`paraformer.quantize_encoder_int8`) serves only, as the reference's
+    docstring says; its rounding has no gradient."""
+    ints = sorted({str(p.dtype) for p in param_leaves(params)
+                   if not p.is_floating_point()})
+    if ints:
+        raise ValueError(f"a quantized tree ({', '.join(ints)} leaves) "
+                         "serves only and does not train")
+
+
 def paraformer_loss(params, feats, feat_lens, targets, target_lens,
                     cfg: paraformer.ParaformerConfig,
                     quantity_weight: float = 1.0
@@ -92,6 +103,7 @@ def make_train_step(cfg: paraformer.ParaformerConfig,
     make_opt = optimizer or adamw()
 
     def init_opt(params) -> torch.optim.Optimizer:
+        _refuse_quantized(params)
         leaves = param_leaves(params)
         for p in leaves:
             if p.device != dev:
@@ -102,6 +114,7 @@ def make_train_step(cfg: paraformer.ParaformerConfig,
 
     def train_step(params, opt_state: torch.optim.Optimizer,
                    batch: Dict[str, Any]) -> Tuple[Any, Any, Dict]:
+        _refuse_quantized(params)
         b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         opt_state.zero_grad(set_to_none=True)
         loss, aux = paraformer_loss(params, b["feats"], b["feat_lens"],

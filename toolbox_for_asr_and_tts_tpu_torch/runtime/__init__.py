@@ -1,6 +1,7 @@
 """Framework-free runtime pieces of the port: shape bucketing, the
 services' configs, stage timing and RTF metrics, the Prometheus and model
-registries, and the checkpoint converter (`checkpoints.py`). The
+registries, the checkpoint converter (`checkpoints.py`) and the
+`torch.profiler` helpers (`profiling.py`). The
 reference's mesh names (`serving_mesh`, `local_device_count`,
 `shard_batch`) wait for the multi-card slice."""
 from .bucketing import Bucketer, DEFAULT_AUDIO_BUCKETS_S

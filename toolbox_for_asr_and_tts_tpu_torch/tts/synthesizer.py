@@ -202,10 +202,14 @@ class Synthesizer:
                  vocab: Optional[LingVocab] = None,
                  tts_cfg: Optional[TTSConfig] = None,
                  voices: Sequence[str] = VOICES,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 param_dtype: Optional[torch.dtype] = None):
+        """device: the card unless "cpu" is passed; param_dtype: the
+        floating leaves' dtype of both trees (torch.bfloat16 halves the
+        weights; products and convolutions still run in f32)."""
         self.device = resolve_device(device)
-        self.ap = tree_to(acoustic_params, self.device)
-        self.vp = tree_to(vocoder_params, self.device)
+        self.ap = tree_to(acoustic_params, self.device, param_dtype)
+        self.vp = tree_to(vocoder_params, self.device, param_dtype)
         self.acfg, self.vcfg = acoustic_cfg, vocoder_cfg
         self.g2p = g2p or G2P()
         self.vocab = vocab or LingVocab.default()
