@@ -100,8 +100,9 @@ Phases (any failure exits non-zero and prints no result line):
    attributed to chunks: extra traffic that real clients do not send;
 6. the TTS service at full width (phase 7): `Synthesizer.random(seed=0,
    tiny=False)` on the card (Sambert d 256, 4 + 4 layers, 6 PNCA layers;
-   HiFi-GAN 512 channels, upsample (5, 5, 4, 2)), pinned to the serving
-   defaults (NAR decoder, two-phase, one call per batch of 8): a fixed
+   HiFi-GAN 512 channels, upsample (5, 5, 4, 2)), pinned to the NAR
+   decoder, two-phase, one call per batch of 8 (whatever the dispatch
+   profile's groupings, which phase 12 times): a fixed
    14-segment paragraph through `synthesize` (one warm-up, then the median
    of 3: wall, audio seconds, RTF, the probes and synth groups run, no K1
    or K2 launch), `synthesize_stream` (time to the first chunk; its
@@ -201,14 +202,40 @@ Phases (any failure exits non-zero and prints no result line):
    `Synthesizer.random(seed=0, tiny=False, param_dtype=torch.bfloat16)` on
    phase 7's paragraph (RTF; `tools/mel_distance.py` on the card against
    phase 7's f32 audio; the first segment within TTS_PCM_LSB of the bf16
-   trees on the CPU); one bf16 transcribe under `runtime/profiling.
-   trace_to` (the trace names both kernels) and `device_memory_stats()`;
-11. the `streaming`, `service`, `tts`, `checkpoints`, `entry_points`,
+   trees on the CPU); TRACE_TRANSCRIBES bf16 transcribes under `runtime/
+   profiling.trace_to` (the trace holds kernel events of both kernels) and
+   `device_memory_stats()`;
+11. the dispatch profile and the rehearsal (phase 12), which choose and
+   check the `cuda` values of `runtime/autotune.py`: the probe
+   (`measure_rtt_ms`, median of 7) and the profile `get_profile()`
+   resolved at start-up, which must be `local`; the hub capacity sweep,
+   for C in 64, 128, 192 and 256, every ticker built first, then timed in
+   4 alternating rounds: `BatchedChunkedASR(capacity=C)` with C live
+   sessions fed 8 chunks each (step wall median and p95, the card's busy
+   time per step, K1 50 / K2 1 per step exactly) and
+   `BatchedVadTicker(capacity=C)` (tick median), captures, capture
+   seconds and pool bytes, and the rule's pick (the most sessions per ms
+   of step + tick among the C with a step p95 under 100 ms, the smallest
+   within 10 % of it); phase 7's paragraph under the four settings of
+   (TTS_GROUP_BY_LENGTH, TTS_MEL_GROUP) (wall, first audio, busy,
+   captures, pool bytes, max |d| in LSB against off/off; a grouping goes
+   on only where it saves 5 %); phase 3's 8 rows quantized to PCM through
+   the f32 and the int16 upload (fbank and ids bit-equal, K1 66 / K2 1 per
+   transcribe, the wall; the chunked step at S = 64 with equal ids, K1 50
+   / K2 1 per step; on only where it saves 5 %); USE_PALLAS_FRAMING=0
+   raising on a CUDA tensor; then `tools/rehearse.py` over phase 8's mount
+   as `cli rehearse --reconvert` runs it (every family converted with 0
+   missing and 0 unmapped, exit status 0, the REST text equal to phase
+   8's mounted service's with its launches held to its programs, a WS
+   final, a TTS WAV; the seconds of convert, boot and each drive). Phases
+   8 and 9 run their engines at 64 hub rows (VOICE_BATCH_CAPACITY), the
+   rehearsal at the profile's;
+12. the `streaming`, `service`, `tts`, `checkpoints`, `entry_points`,
    `graphs` (per program owner, as first seen by a phase: programs,
    captures, capture seconds, replays, graph pool bytes at the phase's
-   end), `train`, `precision` and `kernels` JSON lines, then the result
-   line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
-   ...}}.
+   end), `train`, `precision`, `dispatch` and `kernels` JSON lines, then
+   the result line {"ok": true, "device": {"platform": "gpu", "kind": ...,
+   "count": ...}}.
 
 Needs one card, no network, and only the files of this repository.
 """
@@ -2304,8 +2331,8 @@ def hifigan_flops_per_frame(v) -> int:
 
 
 def tts_pin(synth, mode: str = "nar"):
-    """The serving defaults, pinned whatever the environment says: the
-    NAR decoder, one call per batch."""
+    """Pinned whatever the environment and the dispatch profile say: the
+    NAR decoder (or `mode`), one call per batch."""
     synth.decoder_mode = mode
     synth.group_by_length = synth.mel_group = False
     return synth
@@ -3179,6 +3206,7 @@ def checkpoints_path(torch, card, root, reco, wavs, models, synth,
                         for s in mem], "speaker results differ")
         out["service"] = dict(build_engines_s=t_built,
                               startup_to_first_answer_s=startup,
+                              rest_text=rest["text"],
                               chars=len(rest["text"]), sentences=len(mem),
                               speakers=sorted({s.spk for s in mem}))
         print(f"checkpoints: build_engines(model_dir=root) in {t_built:.1f} s "
@@ -4397,30 +4425,56 @@ def tts_bf16(torch, card, synth_f32):
     return out
 
 
+TRACE_TRANSCRIBES = 3
+
+
 def trace_check(torch, reco, wavs):
-    """One bf16 transcribe under `runtime/profiling.trace_to`: the trace
-    file exists and names both kernels; `device_memory_stats()`."""
+    """TRACE_TRANSCRIBES bf16 transcribes under `runtime/profiling.
+    trace_to`: the trace file exists, names the annotation and holds kernel
+    events of both kernels; the kernel events it recorded are printed
+    beside the launches the counters saw; `device_memory_stats()`. The
+    profiler has been seen to drop the lone K2 event of a single traced
+    transcribe late in a long process, so more than one is traced."""
     import shutil
     import tempfile
     from toolbox_for_asr_and_tts_tpu_torch.runtime import profiling
     root = tempfile.mkdtemp(prefix="trace-")
-    try:
+
+    def traced():
         with profiling.trace_to(root) as path:
             with profiling.annotate("precision-transcribe"):
-                reco.transcribe(wavs)
+                for _ in range(TRACE_TRANSCRIBES):
+                    reco.transcribe(wavs)
+        return path
+
+    try:
+        path, k1_n, k2_n = counted(torch, traced)
         require(os.path.exists(path), "trace_to wrote no file")
-        with open(path, encoding="utf-8") as f:
-            text = f.read()
-        named = {k: k in text for k in ("fsmn_conv", "frame_window",
-                                        "precision-transcribe")}
-        require(all(named.values()), f"the trace names {named}")
         size = os.path.getsize(path)
+        with open(path, encoding="utf-8") as f:
+            events = json.load(f)["traceEvents"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    seen = {name: sum(sym in e.get("name", "") for e in kernels)
+            for name, sym in (("fsmn_conv", "fsmn_conv_kernel"),
+                              ("frame_window", "frame_window_kernel"))}
+    annotated = any(e.get("name") == "precision-transcribe" for e in events)
+    print(f"trace_to: {size} bytes over {TRACE_TRANSCRIBES} transcribes, "
+          f"{len(kernels)} kernel events: fsmn_conv {seen['fsmn_conv']} of "
+          f"{k1_n} launches, frame_window {seen['frame_window']} of {k2_n}; "
+          f"annotation {'named' if annotated else 'missing'}", flush=True)
+    if not all(seen.values()):
+        kernels.sort(key=lambda e: e.get("ts", 0))
+        print("trace_to: the first kernel events: " + "; ".join(
+            e.get("name", "")[:60] for e in kernels[:12]), flush=True)
+    require(all(seen.values()) and annotated,
+            f"the trace names {seen}, annotation {annotated}")
     stats = profiling.device_memory_stats()
-    print(f"trace_to: {size} bytes naming fsmn_conv, frame_window and the "
-          f"annotation; device_memory_stats() {stats}", flush=True)
-    return dict(trace_bytes=size, device_memory_stats=stats)
+    print(f"device_memory_stats() {stats}", flush=True)
+    return dict(trace_bytes=size, kernel_events=seen,
+                launches={"fsmn_conv": k1_n, "frame_window": k2_n},
+                device_memory_stats=stats)
 
 
 def precision_path(torch, card, peaks, reco_f32, wavs, synth_f32):
@@ -4488,6 +4542,493 @@ def precision_path(torch, card, peaks, reco_f32, wavs, synth_f32):
     graph_snapshot("precision")
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"precision phase: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+# ---------------------------- phase 12: dispatch profile and rehearsal
+SWEEP_CAPACITIES = (64, 128, 192, 256)   # hub rows; every row a live session
+SWEEP_TICKS = 8           # 0.4 s chunks fed to every session (3.2 s: all
+                          # sessions are at least this long)
+SWEEP_ROUNDS = 4          # C ascending, descending, ascending, descending
+SWEEP_P95_MS = 100.0      # a capacity qualifies while its step p95 stays under
+NEAR_BEST = 0.10          # within this share of the best ratio, the smallest C
+KNOB_SAVING = 0.05        # a knob goes on only if it saves this share of wall
+INT16_CALLS = 7           # timed transcribes per upload mode (median)
+TTS_GROUP_CALLS = 5       # timed synthesize calls per grouping (median)
+
+
+def probe_profile(torch, card):
+    """The dispatch probe (`measure_rtt_ms`, median of 7) and the profile
+    `get_profile()` resolved on the card, which must be `local`."""
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import autotune as at
+    rtt = at.measure_rtt_ms(7)
+    prof = at.get_profile()
+    knobs = {k: prof[k] for k in at.profile_knobs("local", "cuda")}
+    print(f"dispatch probe: a tiny op on the card and its .item() "
+          f"{rtt * 1e3:.1f} us (median of 7); the profile resolved at start-"
+          f"up: {prof['name']} on {prof['platform']} (probe "
+          f"{prof['rtt_ms'] * 1e3:.1f} us, tunnel above "
+          f"{at.TUNNEL_RTT_MS} ms), knobs {knobs} on {card}", flush=True)
+    require(prof["name"] == "local" and prof["platform"] == "cuda",
+            f"the card's profile resolved as {prof['name']} on "
+            f"{prof['platform']}")
+    require(knobs == at.profile_knobs("local", "cuda"),
+            f"profile knobs {knobs}")
+    return dict(rtt_ms=rtt, name=prof["name"], startup_rtt_ms=prof["rtt_ms"],
+                knobs=knobs)
+
+
+def busy_per_step(torch, asr, audios, n_ticks: int = 2):
+    """The card's busy time per chunked step (torch.profiler) over n_ticks
+    ticks of fresh sessions after a warm-up tick."""
+    slots = [asr.join() for _ in audios]
+    try:
+        asr.tick({s: a[:CHUNK] for s, a in zip(slots, audios)})
+        steps = asr.steps
+        _, prof = profiled(torch, lambda: [
+            asr.tick({s: a[c * CHUNK:(c + 1) * CHUNK]
+                      for s, a in zip(slots, audios)})
+            for c in range(1, 1 + n_ticks)])
+    finally:
+        for s in slots:
+            asr.leave(s)
+    busy = sum(e.self_device_time_total for e in _device_events(prof)) / 1e3
+    require(busy > 0, "profiler saw no device time in the chunked steps")
+    return busy / (asr.steps - steps)
+
+
+def feed_ticks(asr, audios, n_ticks: int):
+    """Join one session per audio and feed each its first n_ticks 0.4 s
+    chunks, every session in every tick; leave without a finalize. Returns
+    (per-tick (wall s, steps, True), per-session fired ids)."""
+    slots = [asr.join() for _ in audios]
+    back = {s: i for i, s in enumerate(slots)}
+    ids = {i: [] for i in range(len(audios))}
+    ticks = []
+    try:
+        for c in range(n_ticks):
+            steps = asr.steps
+            t0 = time.perf_counter()
+            fired = asr.tick({s: a[c * CHUNK:(c + 1) * CHUNK]
+                              for s, a in zip(slots, audios)})
+            ticks.append((time.perf_counter() - t0, asr.steps - steps, True))
+            for s, v in fired.items():
+                ids[back[s]].extend(v)
+    finally:
+        for s in slots:
+            asr.leave(s)
+    return ticks, ids
+
+
+def vad_ticks(vad, audios, n_ticks: int):
+    """Join one VAD session per audio, tick every session's first n_ticks
+    0.4 s chunks, leave. Returns each tick's wall (s)."""
+    slots = [vad.join() for _ in audios]
+    walls = []
+    try:
+        for c in range(n_ticks):
+            t0 = time.perf_counter()
+            vad.tick({s: a[c * CHUNK:(c + 1) * CHUNK]
+                      for s, a in zip(slots, audios)})
+            walls.append(time.perf_counter() - t0)
+    finally:
+        for s in slots:
+            vad.leave(s)
+    return walls
+
+
+def capacity_sweep(torch, card, params):
+    """For each hub capacity C: `BatchedChunkedASR(capacity=C)` and
+    `BatchedVadTicker(capacity=C)`, all built first (captures, capture
+    seconds, pool bytes), then timed in SWEEP_ROUNDS rounds (C ascending,
+    then descending, so drift on the host reaches every C alike), each
+    round with C new sessions fed SWEEP_TICKS chunks: the chunked step's
+    wall median and p95 and the VAD tick's median over the rounds' ticks
+    (each round's first tick left out), K1 50 / K2 1 per step and K1 4 / K2
+    1 per VAD tick exactly, and the busy time per step. The rule: among the
+    C whose step p95 stays under SWEEP_P95_MS, the largest C / (step +
+    tick) wins, and within NEAR_BEST of it the smallest C."""
+    import gc
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.models import fsmn_vad as fv
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer import (
+        ParaformerConfig)
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer_online import (
+        OnlineConfig)
+    from toolbox_for_asr_and_tts_tpu_torch.parallel.stream_batcher import (
+        BatchedChunkedASR, BatchedVadTicker)
+    cfg, ocfg, vcfg = ParaformerConfig(), OnlineConfig(), fv.FsmnVadConfig()
+    vparams = fv.init_params(vcfg, torch.Generator().manual_seed(0))
+    tickers, audios, rows = {}, {}, {}
+    for c in SWEEP_CAPACITIES:
+        asr = BatchedChunkedASR(params, cfg, ocfg, capacity=c, partials=True)
+        asr.warm()
+        vad = BatchedVadTicker(vparams, vcfg, capacity=c)
+        vad.warm()
+        tickers[c] = (asr, vad)
+        audios[c] = session_audio(c, seed=900 + c)   # every round's sessions
+    snap = torch.cuda.memory_snapshot()
+    steps = {c: [] for c in SWEEP_CAPACITIES}
+    vads = {c: [] for c in SWEEP_CAPACITIES}
+    order = list(SWEEP_CAPACITIES)
+    for r in range(SWEEP_ROUNDS):
+        for c in (order if r % 2 == 0 else order[::-1]):
+            asr, vad = tickers[c]
+            (ticks, _), k1_n, k2_n = counted(
+                torch, lambda: feed_ticks(asr, audios[c], SWEEP_TICKS))
+            n = sum(t[1] for t in ticks)
+            require(k1_n == cfg.encoder_layers * n and k2_n == n,
+                    f"sweep C={c}: K1 {k1_n}, K2 {k2_n} in {n} steps")
+            steps[c] += [w / k * 1e3 for w, k, _ in ticks[1:]
+                         for _ in range(k) if k]
+            walls, k1_n, k2_n = counted(
+                torch, lambda: vad_ticks(vad, audios[c], SWEEP_TICKS))
+            require(k1_n == vcfg.fsmn_layers * SWEEP_TICKS
+                    and k2_n == SWEEP_TICKS,
+                    f"sweep VAD C={c}: K1 {k1_n}, K2 {k2_n} in "
+                    f"{SWEEP_TICKS} ticks")
+            vads[c] += [w * 1e3 for w in walls[1:]]
+    for c in SWEEP_CAPACITIES:
+        asr, vad = tickers[c]
+        busy = busy_per_step(torch, asr, audios[c])
+        t, v = asr.programs.stats(snap), vad.programs.stats(snap)
+        step_med = float(np.median(steps[c]))
+        vad_med = float(np.median(vads[c]))
+        rows[c] = dict(
+            step_median_ms=step_med,
+            step_p95_ms=float(np.percentile(steps[c], 95)),
+            busy_ms_per_step=busy, steps=len(steps[c]),
+            k1_per_step=cfg.encoder_layers, k2_per_step=1,
+            vad_tick_median_ms=vad_med,
+            vad_tick_p95_ms=float(np.percentile(vads[c], 95)),
+            vad_ticks=len(vads[c]),
+            sessions_per_ms=c / (step_med + vad_med),
+            captures=t["captures"] + v["captures"],
+            capture_s=t["capture_s"] + v["capture_s"],
+            pool_bytes=(t["pool_bytes"] or 0) + (v["pool_bytes"] or 0),
+            chunked_pool_bytes=t["pool_bytes"])
+        r = rows[c]
+        print(f"capacity C={c}: chunked step median {step_med:.2f} ms, p95 "
+              f"{r['step_p95_ms']:.2f} ms, busy {busy:.2f} ms/step "
+              f"({r['steps']} steps timed, K1 {cfg.encoder_layers}, K2 1 per "
+              f"step); VAD tick "
+              f"median {vad_med:.2f} ms, p95 {r['vad_tick_p95_ms']:.2f} ms "
+              f"({r['vad_ticks']} ticks, K1 {vcfg.fsmn_layers}, K2 1 per "
+              f"tick); C / (step + tick) {r['sessions_per_ms']:.3f} "
+              f"sessions/ms; {r['captures']} captures in "
+              f"{r['capture_s']:.2f} s, pools {r['pool_bytes'] / 1e9:.3f} GB "
+              f"(chunked {r['chunked_pool_bytes'] / 1e9:.3f}) on {card}",
+              flush=True)
+    graph_snapshot("dispatch")
+    del tickers, asr, vad
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = {c: r for c, r in rows.items() if r["step_p95_ms"] < SWEEP_P95_MS}
+    require(ok, f"no capacity keeps the step p95 under {SWEEP_P95_MS} ms")
+    best = max(r["sessions_per_ms"] for r in ok.values())
+    pick = min(c for c, r in ok.items()
+               if r["sessions_per_ms"] >= (1 - NEAR_BEST) * best)
+    print(f"capacity rule: step p95 < {SWEEP_P95_MS:g} ms for {sorted(ok)}, "
+          f"best {best:.3f} sessions/ms, the smallest within "
+          f"{NEAR_BEST:.0%}: C = {pick}", flush=True)
+    return dict(rows={str(c): r for c, r in rows.items()}, pick=pick)
+
+
+def tts_groupings(torch, card, synth):
+    """Phase 7's paragraph under each (TTS_GROUP_BY_LENGTH, TTS_MEL_GROUP):
+    wall (median of TTS_GROUP_CALLS after a capturing call), first audio of
+    `synthesize_stream`, the card's busy time over one call, captures and
+    pool bytes, and the max |d| in LSB against the off/off PCM. The rule:
+    the lowest wall, each knob of it on only where it saves KNOB_SAVING."""
+    import numpy as np
+    settings = ((False, False), (True, False), (False, True), (True, True))
+    rows, pcm = {}, {}
+    try:
+        for gl, mg in settings:
+            synth.group_by_length, synth.mel_group = gl, mg
+            captures0, capture_s0 = (synth.programs.captures,
+                                     synth.programs.capture_s)
+            first = synth.synthesize(TTS_TEXT)         # captures new buckets
+            walls = []
+            for _ in range(TTS_GROUP_CALLS):
+                t0 = time.perf_counter()
+                synth.synthesize(TTS_TEXT)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            t0, ttfa = time.perf_counter(), None
+            for ev in synth.synthesize_stream(TTS_TEXT):
+                if ttfa is None and ev["event"] == "chunk":
+                    ttfa = (time.perf_counter() - t0) * 1e3
+            _, prof = profiled(torch, lambda: synth.synthesize(TTS_TEXT))
+            busy = sum(e.self_device_time_total
+                       for e in _device_events(prof)) / 1e3
+            pcm[gl, mg] = pcm16(first.wav)
+            key = f"length={int(gl)},mel={int(mg)}"
+            rows[key] = dict(
+                group_by_length=gl, mel_group=mg,
+                wall_ms=float(np.median(walls)), walls_ms=walls,
+                first_audio_ms=ttfa, busy_ms=busy,
+                audio_s=len(first.wav) / SR,
+                captures=synth.programs.captures - captures0,
+                capture_s=synth.programs.capture_s - capture_s0,
+                pool_bytes=synth.programs.stats(
+                    torch.cuda.memory_snapshot())["pool_bytes"])
+    finally:
+        tts_pin(synth)
+    base = pcm[False, False]
+    for (gl, mg), p in pcm.items():
+        r = rows[f"length={int(gl)},mel={int(mg)}"]
+        n = min(len(p), len(base))
+        r["samples"], r["max_lsb_vs_off"] = len(p), int(
+            np.abs(p[:n] - base[:n]).max())
+        print(f"tts grouping length={int(gl)} mel={int(mg)}: wall "
+              f"{r['wall_ms']:.1f} ms (median of {TTS_GROUP_CALLS}) for "
+              f"{r['audio_s']:.2f} s of audio ({r['wall_ms'] / r['audio_s']:.3f}"
+              f" ms per audio second), first "
+              f"audio {r['first_audio_ms']:.1f} ms, card busy "
+              f"{r['busy_ms']:.1f} ms, {r['captures']} captures in "
+              f"{r['capture_s']:.2f} s, pool {r['pool_bytes'] / 1e9:.3f} GB;"
+              f" {len(p)} samples ({len(base)} off/off), max |d| "
+              f"{r['max_lsb_vs_off']} LSB against off/off on {card}",
+              flush=True)
+    wall = {(v["group_by_length"], v["mel_group"]): v["wall_ms"]
+            for v in rows.values()}
+    gl, mg = min(wall, key=wall.get)
+    # a knob of the fastest setting stays on only if turning it off costs
+    # KNOB_SAVING of the wall or more
+    keep_gl = gl and wall[gl, mg] <= (1 - KNOB_SAVING) * wall[False, mg]
+    keep_mg = mg and wall[gl, mg] <= (1 - KNOB_SAVING) * wall[gl, False]
+    pick = dict(tts_group_by_length=bool(keep_gl), tts_mel_group=bool(keep_mg))
+    print(f"tts grouping rule: fastest length={int(gl)} mel={int(mg)}; with "
+          f"the {KNOB_SAVING:.0%} rule: {pick}", flush=True)
+    return dict(rows=rows, pick=pick)
+
+
+def int16_upload(torch, card, reco, params):
+    """Phase 3's 8 rows quantized to PCM first, through the f32 and the
+    int16 upload (two Recognizers on phase 3's weights, the mode set by
+    PARAFORMER_TRANSFER_INT16 at construction): fbank and ids bit-equal,
+    K1 66 / K2 1 per transcribe on both, the wall (median of INT16_CALLS,
+    alternating); then the chunked step at S = 64 under both: ids equal,
+    K1 50 / K2 1 per step. The rule: on only if int16 saves KNOB_SAVING."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.asr.recognizer import (
+        Recognizer, from_int16_pcm, to_int16_pcm)
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer_online import (
+        OnlineConfig)
+    from toolbox_for_asr_and_tts_tpu_torch.ops import frontend as fe
+    from toolbox_for_asr_and_tts_tpu_torch.parallel.stream_batcher import (
+        BatchedChunkedASR)
+    wavs = [to_int16_pcm(w) / np.float32(32768.0) for w in make_wavs()]
+    enc, dec = reco.cfg.encoder_layers, reco.cfg.decoder_layers
+    cmvn = None if reco.cmvn is None else tuple(c.cpu().numpy()
+                                                for c in reco.cmvn)
+    recos, out = {}, {}
+    for mode in ("f32", "int16"):
+        os.environ["PARAFORMER_TRANSFER_INT16"] = "1" if mode == "int16" \
+            else "0"
+        try:
+            recos[mode] = Recognizer(params, reco.cfg, reco.tokenizer,
+                                     cmvn=cmvn)
+        finally:
+            del os.environ["PARAFORMER_TRANSFER_INT16"]
+        require(recos[mode]._int16_transfer is (mode == "int16"),
+                f"{mode}: the upload mode")
+    batch, _ = reco.bucketer.pad_batch(wavs)
+    x = torch.from_numpy(batch).cuda()
+    with torch.inference_mode():
+        fb32 = fe.fbank(x, reco.fe_cfg)
+        fb16 = fe.fbank(from_int16_pcm(torch.from_numpy(
+            to_int16_pcm(batch)).cuda()), reco.fe_cfg)
+    require(torch.equal(fb32, fb16), "fbank of the int16 upload differs")
+    ids, walls, counts = {}, {"f32": [], "int16": []}, {}
+    for mode, r in recos.items():
+        res, k1_n, k2_n = counted(torch, lambda: r.transcribe(wavs))
+        require(k1_n == enc + dec and k2_n == 1,
+                f"{mode}: K1 {k1_n}, K2 {k2_n} per transcribe")
+        ids[mode], counts[mode] = [x.token_ids for x in res], (k1_n, k2_n)
+    require(ids["f32"] == ids["int16"], "int16 ids differ from f32's")
+    for _ in range(INT16_CALLS):
+        for mode, r in recos.items():
+            t0 = time.perf_counter()
+            r.transcribe(wavs)
+            walls[mode].append((time.perf_counter() - t0) * 1e3)
+    for mode in recos:
+        out[mode] = dict(wall_ms=float(np.median(walls[mode])),
+                         walls_ms=walls[mode],
+                         k1_per_transcribe=counts[mode][0],
+                         k2_per_transcribe=counts[mode][1])
+    saving = 1 - out["int16"]["wall_ms"] / out["f32"]["wall_ms"]
+    out["saving"] = saving
+    print(f"int16 upload: 8 rows quantized to PCM, fbank bit-equal, ids "
+          f"equal ({sum(len(i) for i in ids['f32'])} tokens), K1 "
+          f"{enc + dec} / K2 1 per transcribe on both; transcribe wall "
+          f"median f32 {out['f32']['wall_ms']:.2f} ms, int16 "
+          f"{out['int16']['wall_ms']:.2f} ms (saving {saving:.1%}) on {card}",
+          flush=True)
+    del recos
+    # the chunked step at S = 64 under both uploads
+    audios = [to_int16_pcm(a) / np.float32(32768.0)
+              for a in session_audio(64, seed=990)]
+    fired = {}
+    for mode in ("f32", "int16"):
+        os.environ["PARAFORMER_TRANSFER_INT16"] = "1" if mode == "int16" \
+            else "0"
+        try:
+            asr = BatchedChunkedASR(params, reco.cfg, OnlineConfig(),
+                                    capacity=64, partials=True, cmvn=cmvn)
+        finally:
+            del os.environ["PARAFORMER_TRANSFER_INT16"]
+        require(asr._int16_transfer is (mode == "int16"), "ticker mode")
+        (ticks, fired[mode]), k1_n, k2_n = counted(
+            torch, lambda: feed_ticks(asr, audios, 4))
+        n = sum(t[1] for t in ticks)
+        require(k1_n == enc * n and k2_n == n,
+                f"chunked {mode}: K1 {k1_n}, K2 {k2_n} in {n} steps")
+        out[f"chunked_{mode}"] = dict(steps=n, k1_per_step=k1_n / n,
+                                      k2_per_step=k2_n / n)
+        del asr
+    require(fired["f32"] == fired["int16"],
+            "chunked ids under the int16 upload differ from f32's")
+    print(f"int16 upload: chunked step S=64, 4 ticks: ids equal "
+          f"({sum(len(v) for v in fired['f32'].values())} tokens), K1 "
+          f"{enc} / K2 1 per step under both uploads", flush=True)
+    out["pick"] = bool(saving >= KNOB_SAVING)
+    return out
+
+
+def framing_switch_raises(torch):
+    """USE_PALLAS_FRAMING=0 (and the module flag False) with a CUDA tensor
+    raises: the card always frames with K2."""
+    from toolbox_for_asr_and_tts_tpu_torch.ops import frontend as fe
+    x = torch.zeros((1, SR), device="cuda")
+    raised = []
+    os.environ["USE_PALLAS_FRAMING"] = "0"
+    try:
+        fe.fbank(x)
+    except ValueError as e:
+        raised.append(str(e))
+    finally:
+        del os.environ["USE_PALLAS_FRAMING"]
+    fe.USE_PALLAS_FRAMING = False
+    try:
+        fe.fbank(x)
+    except ValueError as e:
+        raised.append(str(e))
+    finally:
+        fe.USE_PALLAS_FRAMING = None
+    require(len(raised) == 2, "the framing switch off did not raise on the card")
+    fe.fbank(x)                       # on again: K2
+    print(f"USE_PALLAS_FRAMING=0 and the flag False on a CUDA tensor raise: "
+          f"{raised[0]!r}", flush=True)
+    return len(raised)
+
+
+def rehearsal(torch, card, root: str, rest_text: str):
+    """`tools/rehearse.py` over phase 8's mount, as `cli rehearse root
+    --reconvert --golden-wav W --report R` runs it (R under the run's temp
+    dir; W the 8 s audio of phase 8's REST request): every family
+    converted with 0 missing and 0 unmapped, exit status 0, the REST text
+    equal to phase 8's mounted service's, a WS final, a TTS WAV; K1 / K2
+    launches of the REST drive held to its programs (66 / 1 per
+    transcribe); seconds for convert, boot and each drive."""
+    import logging
+    import shutil
+    import tempfile
+    from toolbox_for_asr_and_tts_tpu_torch.service import engines as E
+    from toolbox_for_asr_and_tts_tpu_torch.tools import rehearse as R
+    from toolbox_for_asr_and_tts_tpu_torch.utils.audio import write_wav
+    work = tempfile.mkdtemp(prefix="rehearsal-")
+    golden = os.path.join(work, "golden.wav")
+    write_wav(golden, make_wavs()[5][: 8 * SR], SR)
+    report_path = os.path.join(work, "rehearsal_report.json")
+    seen = {}
+    build, rest = E.build_engines, R._rest_asr
+
+    def build_engines(*a, **k):
+        seen["engines"] = build(*a, **k)
+        return seen["engines"]
+
+    def rest_accounted(port, b64):
+        eng = seen["engines"]
+        diar = eng.diarizer.inner
+        models = (diar.recognizer, diar.verifier, diar.punctuator,
+                  eng.kws.inner)
+        out, seen["rest"] = accounted(torch, "rehearsal REST", eng, models,
+                                      lambda: rest(port, b64))
+        return out
+    E.build_engines, R._rest_asr = build_engines, rest_accounted
+    level = logging.getLogger().level
+    t0 = time.perf_counter()
+    try:
+        R.main([root, "--reconvert", "--golden-wav", golden,
+                "--report", report_path])
+    except SystemExit as e:
+        raise PhaseError(f"rehearse exited with status {e.code}") from e
+    finally:
+        E.build_engines, R._rest_asr = build, rest
+        logging.getLogger().setLevel(level)
+    wall = time.perf_counter() - t0
+    with open(report_path, encoding="utf-8") as f:
+        report = json.load(f)
+    shutil.rmtree(work, ignore_errors=True)
+    fams = report["families"]
+    for key, v in fams.items():
+        require(v["status"] == "converted" and v["missing"] == []
+                and v["unmapped"] == [],
+                f"rehearsal {key}: {v['status']}, missing "
+                f"{v.get('missing', [])[:3]}, unmapped "
+                f"{v.get('unmapped', [])[:3]}")
+    svc = report["service"]
+    require(report["ok"] and svc["rest_asr"]["text"] == rest_text,
+            f"rehearsal REST text {svc['rest_asr']['text']!r} vs phase 8's "
+            f"{rest_text!r}")
+    require(svc["ws_asr"]["ok"] and svc["tts"]["status"] == "completed"
+            and svc["tts"]["audio_size"] > 0 and not svc["tts"][
+                "random_weights"], f"rehearsal drives {svc}")
+    n = seen["rest"]
+    require(n["transcribes"] >= 1, "the REST drive ran no transcribe")
+    convert_s = sum(v["seconds"] for v in fams.values())
+    print(f"rehearsal: {len(fams)} families converted (rules "
+          f"{sum(v['n_rules'] for v in fams.values())}, 0 missing, 0 "
+          f"unmapped) in {convert_s:.1f} s ("
+          + ", ".join(f"{k} {v['seconds']:.2f}" for k, v in fams.items())
+          + f"); engines built in {svc['boot_seconds']:.1f} s; REST "
+          f"{svc['rest_asr']['seconds']:.2f} s (text equals phase 8's, "
+          f"{n['transcribes']} transcribes, K1 {n['k1']}, K2 {n['k2']}), WS "
+          f"{svc['ws_asr']['seconds']:.2f} s (frames "
+          f"{svc['ws_asr']['frames']}), TTS job {svc['tts']['seconds']:.2f} s"
+          f" ({svc['tts']['audio_size']} base64 bytes); exit status 0 in "
+          f"{wall:.1f} s on {card}", flush=True)
+    return dict(families={k: {f: v[f] for f in ("status", "seconds",
+                                                "n_rules", "n_converted")}
+                          for k, v in fams.items()},
+                convert_s=convert_s, boot_s=svc["boot_seconds"],
+                rest_s=svc["rest_asr"]["seconds"],
+                ws_s=svc["ws_asr"]["seconds"], tts_s=svc["tts"]["seconds"],
+                ws_frames=svc["ws_asr"]["frames"], wall_s=wall,
+                rest_launches=n)
+
+
+def dispatch_path(torch, card, reco, synth, root: str, rest_text: str):
+    """Phase 12: the dispatch profile and the rehearsal."""
+    t_phase = time.perf_counter()
+    out = dict(probe=probe_profile(torch, card),
+               capacity=capacity_sweep(torch, card, reco.params),
+               tts_grouping=tts_groupings(torch, card, synth),
+               int16=int16_upload(torch, card, reco, reco.params),
+               framing_switch_raises=framing_switch_raises(torch))
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import autotune as at
+    chosen = dict(batch_capacity=out["capacity"]["pick"],
+                  asr_int16_transfer=out["int16"]["pick"],
+                  **out["tts_grouping"]["pick"])
+    held = {k: at.CUDA_LOCAL[k] for k in chosen}
+    out["rules_pick"], out["profile_holds"] = chosen, held
+    print(f"dispatch rules pick {chosen}; the cuda local profile holds "
+          f"{held}" + ("" if chosen == held else " (differs: see PERF.md)"),
+          flush=True)
+    out["rehearsal"] = rehearsal(torch, card, root, rest_text)
+    graph_snapshot("dispatch")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"dispatch phase: {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -4569,20 +5110,29 @@ def main(argv) -> int:
         root = tempfile.mkdtemp(prefix="mounted-damo-")
         mounted = None
         try:
-            checkpoints, mounted = checkpoints_path(
-                torch, card, root, reco, wavs, models, synth, profile)
-            at("phase 9: the entry points")
-            entry_points = entry_points_path(
-                torch, card, root, mounted, tts_segments(synth)[0],
-                checkpoints["tts"]["samples"])
+            # phases 8-9 serve at phase 6's 64 hub rows (the profile's
+            # capacity is phase 12's to measure); their children inherit it
+            os.environ["VOICE_BATCH_CAPACITY"] = "64"
+            try:
+                checkpoints, mounted = checkpoints_path(
+                    torch, card, root, reco, wavs, models, synth, profile)
+                at("phase 9: the entry points")
+                entry_points = entry_points_path(
+                    torch, card, root, mounted, tts_segments(synth)[0],
+                    checkpoints["tts"]["samples"])
+            finally:
+                del os.environ["VOICE_BATCH_CAPACITY"]
+                if mounted is not None:
+                    mounted[0].stop()
+            at("phase 10: fine-tuning")
+            train = finetune_path(torch, card, wavs, profile)
+            at("phase 11: reduced precision")
+            precision = precision_path(torch, card, peaks, reco, wavs, synth)
+            at("phase 12: the dispatch profile and the rehearsal")
+            dispatch = dispatch_path(torch, card, reco, synth, root,
+                                     checkpoints["service"]["rest_text"])
         finally:
-            if mounted is not None:
-                mounted[0].stop()
             shutil.rmtree(root, ignore_errors=True)
-        at("phase 10: fine-tuning")
-        train = finetune_path(torch, card, wavs, profile)
-        at("phase 11: reduced precision")
-        precision = precision_path(torch, card, peaks, reco, wavs, synth)
     except Exception:   # every phase failure ends the run without a result
         traceback.print_exc()
         return 1
@@ -4599,6 +5149,21 @@ def main(argv) -> int:
     in_replay = launches["in_replay"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms")
+
+    def dispatch_launches(k):
+        """Phase 12's counts: per chunked step of the capacity sweep, per
+        transcribe and chunked step of the int16 upload, and the
+        rehearsal's REST drive."""
+        rows = dispatch["capacity"]["rows"]
+        i16 = dispatch["int16"]
+        return dict(
+            launches_per_chunked_step_sweep={
+                c: r[f"{k}_per_step"] for c, r in rows.items()},
+            launches_per_transcribe_int16=i16["int16"][
+                f"{k}_per_transcribe"],
+            launches_per_chunked_step_int16=i16["chunked_int16"][
+                f"{k}_per_step"],
+            launches_rehearsal_rest=dispatch["rehearsal"]["rest_launches"][k])
 
     def entry_launches(k):
         runs = {f"funasr_{m}": entry_points["funasr"][m]["launches"]
@@ -4636,6 +5201,7 @@ def main(argv) -> int:
              launches_per_chunked_step_int8={
                  s: r["k1_per_step"]
                  for s, r in precision["int8_streaming"].items()},
+             **dispatch_launches("k1"),
              shapes=k1_rows + k1_stream + k1_service),
         dict(name="fsmn_conv_dw", route="cuda",
              source="toolbox_for_asr_and_tts_tpu_torch/csrc/fsmn_conv_dw.cu",
@@ -4676,6 +5242,7 @@ def main(argv) -> int:
              launches_per_chunked_step_int8={
                  s: r["k2_per_step"]
                  for s, r in precision["int8_streaming"].items()},
+             **dispatch_launches("k2"),
              shapes=[k2_row] + k2_stream + k2_service),
     ]
     graph_snapshot("end")
@@ -4688,6 +5255,7 @@ def main(argv) -> int:
     print(json.dumps({"graphs": graphs_line()}))
     print(json.dumps({"train": train, "card": card}))
     print(json.dumps({"precision": precision, "card": card}))
+    print(json.dumps({"dispatch": dispatch, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -261,3 +261,143 @@ def funasr_utterance(port, mode, pcm16, wav_name="w", frame=960 * 2):
         return replies
     finally:
         ws.close()
+
+
+# ------------------------------------------------------- a synthetic zoo
+# The tiny geometry of tests/test_rehearse.py's zoo, with config.json files
+# (both packages' loaders read them; PyYAML is not needed) and Sambert's
+# embedding sized to the text front end's phone vocabulary (the port's
+# embedding raises on an id past its rows, where JAX clamps the gather).
+ZOO_PARAFORMER = {"encoder_conf": {"output_size": 32, "attention_heads": 2,
+                                   "linear_units": 64, "num_blocks": 2,
+                                   "kernel_size": 11},
+                  "decoder_conf": {"num_blocks": 1},
+                  "frontend_conf": {"n_mels": 80, "lfr_m": 7, "lfr_n": 6}}
+ZOO_VAD = {"encoder_conf": {"input_dim": 400, "input_affine_dim": 20,
+                            "linear_dim": 24, "proj_dim": 8,
+                            "fsmn_layers": 2, "lorder": 5, "rorder": 0,
+                            "output_affine_dim": 20, "output_dim": 6}}
+ZOO_PUNC = {"encoder_conf": {"attention_heads": 2, "linear_units": 64,
+                             "num_blocks": 2, "output_size": 32,
+                             "input_size": 16},
+            "model_conf": {"punc_list": ["<unk>", "_", "，", "。", "？", "、"],
+                           "vocab_size": 40}}
+ZOO_KWS = {"encoder_conf": {"input_dim": 120, "linear_dim": 32,
+                            "proj_dim": 16, "fsmn_layers": 2, "lorder": 5,
+                            "rorder": 2, "output_dim": 32}}
+ZOO_SAMBERT = dict(vocab_size=4237, n_speakers=4,   # the phone vocab's rows d_model=16, n_heads=2,
+                   ffn_dim=32, encoder_layers=2, decoder_layers=1,
+                   pnca_layers=2, postnet_layers=2, var_channels=16,
+                   prenet_units=12, outputs_per_step=3, n_mels=8,
+                   frames_per_phone=4)
+ZOO_HIFIGAN = dict(n_mels=8, upsample_initial_channel=16,
+                   upsample_rates=(2, 2), upsample_kernels=(4, 4),
+                   resblock_kernels=(3,), resblock_dilations=((1, 2),))
+ZOO_VOICE_CKPT = "checkpoint_2400000.pth"
+
+
+def zoo_state_dicts():
+    """FunASR / KAN-TTS-named state dicts of every registry family at the
+    zoo's geometry, drawn by the port from fixed seeds (no JAX): family →
+    state dict (HiFi-GAN as weight-norm pairs, as KAN-TTS saves it)."""
+    import torch
+    from toolbox_for_asr_and_tts_tpu_torch.models import (
+        campplus, ct_transformer, fsmn_vad, hifigan, kws_ctc, paraformer,
+        sambert)
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import checkpoints as ck
+
+    def g(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def np_sd(tree, rules):
+        return {k: np.asarray(v, np.float32) for k, v in
+                ck.invert_to_state_dict(_np_leaves(tree), rules).items()}
+    pc = paraformer.ParaformerConfig.from_funasr(ZOO_PARAFORMER, vocab_size=32)
+    vc = fsmn_vad.FsmnVadConfig.from_funasr(ZOO_VAD)
+    sc = campplus.CampPlusConfig()
+    cc = ct_transformer.CTTransformerConfig.from_funasr(ZOO_PUNC)
+    kc = kws_ctc.KwsConfig.from_funasr(ZOO_KWS)
+    ac = sambert.SambertConfig(**ZOO_SAMBERT)
+    hc = hifigan.HifiGanConfig(**ZOO_HIFIGAN)
+    voc = {}
+    for k, v in np_sd(hifigan.init_params(g(6), hc), ck.hifigan_rules(
+            len(hc.upsample_rates), len(hc.resblock_kernels),
+            len(hc.resblock_dilations[0]))).items():
+        if k.endswith(".weight") and v.ndim >= 2:
+            norm = np.sqrt((v * v).sum(axis=tuple(range(1, v.ndim)),
+                                       keepdims=True))
+            voc[k[:-len(".weight")] + ".weight_g"] = norm
+            voc[k[:-len(".weight")] + ".weight_v"] = v
+        else:
+            voc[k] = v
+    return {
+        "paraformer": np_sd(paraformer.init_params(pc, g(0)),
+                            ck.paraformer_rules(pc.encoder_layers,
+                                                pc.decoder_layers)),
+        "fsmn_vad": np_sd(fsmn_vad.init_params(vc, g(1)),
+                          ck.fsmn_vad_rules(vc.fsmn_layers)),
+        "sv": np_sd(campplus.init_params(sc, g(2)),
+                    ck.campplus_rules(sc.block_layers)),
+        "punc": np_sd(ct_transformer.init_params(cc, g(3)),
+                      ck.ct_transformer_rules(cc.num_layers)),
+        "kws": np_sd(kws_ctc.init_params(kc, g(4)),
+                     ck.kws_rules(kc.num_layers, kc.rorder)),
+        "am": np_sd(sambert.init_params(g(5), ac),
+                    ck.sambert_rules(ac.encoder_layers, ac.pnca_layers,
+                                     ac.postnet_layers)),
+        "voc": voc,
+    }
+
+
+def _np_leaves(tree):
+    from toolbox_for_asr_and_tts_tpu_torch.models.convert import tree_map
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def write_zoo(root, sds):
+    """The synthetic ModelScope tree (every registry family, each dir with
+    its own config.json and token list, the TTS package in the KAN-TTS
+    layout) under `root`, from `zoo_state_dicts()`."""
+    import torch
+    from toolbox_for_asr_and_tts_tpu_torch.runtime.registry import MODELS
+
+    def save(sd, path):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                    for k, v in sd.items()}, path)
+
+    def family(key, sd, conf=None, files=()):
+        d = root / MODELS[key].name
+        d.mkdir(parents=True)
+        if conf is not None:
+            (d / "config.json").write_text(json.dumps(conf), encoding="utf-8")
+        for name, text in files:
+            (d / name).write_text(text, encoding="utf-8")
+        save(sd, d / "model.pt")
+    toks = ["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(29)]
+    for key in ("paraformer_offline", "paraformer_streaming"):
+        family(key, sds["paraformer"], ZOO_PARAFORMER,
+               [("tokens.txt", "\n".join(toks))])
+    family("fsmn_vad", sds["fsmn_vad"], ZOO_VAD)
+    family("sv", sds["sv"])
+    family("punc", sds["punc"], ZOO_PUNC, [("tokens.json", json.dumps(
+        ["<unk>"] + [chr(0x4E00 + i) for i in range(39)]))])
+    family("kws", sds["kws"], ZOO_KWS, [("tokens.txt", "\n".join(
+        ["<blank>", "小", "护"] + [chr(0x4E00 + i) for i in range(29)]))])
+    pkg = root / MODELS["tts"].name / "voices" / "zhitian_emo"
+    save(sds["am"], pkg / "am" / "ckpt" / ZOO_VOICE_CKPT)
+    save(sds["voc"], pkg / "voc" / "ckpt" / ZOO_VOICE_CKPT)
+    (pkg / "am" / "config.json").write_text(json.dumps(
+        {"Model": {"KanTtsSAMBERT": {"params": ZOO_SAMBERT}}}),
+        encoding="utf-8")
+    h = ZOO_HIFIGAN
+    (pkg / "voc" / "config.json").write_text(json.dumps(
+        {"Model": {"Generator": {"params": {
+            "upsample_rates": list(h["upsample_rates"]),
+            "upsample_kernel_sizes": list(h["upsample_kernels"]),
+            "upsample_initial_channel": h["upsample_initial_channel"],
+            "resblock_kernel_sizes": list(h["resblock_kernels"]),
+            "resblock_dilation_sizes": [list(x) for x in
+                                        h["resblock_dilations"]],
+            "num_mels": h["n_mels"]}}}}), encoding="utf-8")
+    return root

@@ -1139,3 +1139,83 @@ def test_reduced_precision_replay_equals_eager(cuda, no_tf32, monkeypatch,
     prog = reco._fn_for(*batch.shape)
     assert prog.graph is not None
     _replay_vs_eager(prog, batch, lens)
+
+
+# --------------------------------- the dispatch profile and the rehearsal
+def _pcm_wavs(seed, lengths):
+    from toolbox_for_asr_and_tts_tpu_torch.asr.recognizer import to_int16_pcm
+    return [to_int16_pcm(w) / np.float32(32768.0)
+            for w in _wavs(seed, lengths)]
+
+
+def test_profile_resolves_local_with_the_cuda_knobs(cuda):
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import autotune as at
+    at._cache.clear()
+    try:
+        prof = at.get_profile()
+    finally:
+        at._cache.clear()
+    assert prof["name"] == "local" and prof["platform"] == "cuda"
+    assert prof["rtt_ms"] < at.TUNNEL_RTT_MS
+    assert {k: prof[k] for k in at.profile_knobs("local", "cuda")} == \
+        at.profile_knobs("local", "cuda")
+
+
+def test_framing_switch_off_raises_on_the_card(cuda, monkeypatch):
+    x = torch.zeros((1, 16000), device=cuda)
+    monkeypatch.setenv("USE_PALLAS_FRAMING", "0")
+    with pytest.raises(ValueError, match="USE_PALLAS_FRAMING"):
+        fe.fbank(x)
+    monkeypatch.delenv("USE_PALLAS_FRAMING")
+    before = k2.launches
+    fe.fbank(x)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1
+
+
+def test_int16_upload_equals_f32_on_the_card(cuda, no_tf32, monkeypatch):
+    """On PCM-sourced audio the int16 upload gives the f32 path's outputs
+    bit for bit: a transcribe (K1 4 / K2 1 each) and a chunked step."""
+    from toolbox_for_asr_and_tts_tpu_torch.asr.recognizer import to_int16_pcm
+    recos, tickers = {}, {}
+    for mode in ("1", "0"):
+        monkeypatch.setenv("PARAFORMER_TRANSFER_INT16", mode)
+        recos[mode] = _tiny_recognizer(cuda)
+        tickers[mode] = _tickers_on(cuda, True)[0]
+    assert recos["1"]._int16_transfer and not recos["0"]._int16_transfer
+    wavs = _pcm_wavs(40, (16000, 9000, 30000))
+    batch, lens = recos["0"].bucketer.pad_batch(wavs)
+    a = recos["1"]._fn_for(*batch.shape)(to_int16_pcm(batch), lens)
+    b = recos["0"]._fn_for(*batch.shape)(batch, lens)
+    _equal_trees(a, b)
+    (got, n1, n2), want = _counted(lambda: recos["1"].transcribe(wavs)), \
+        recos["0"].transcribe(wavs)
+    assert [r.token_ids for r in got] == [r.token_ids for r in want]
+    assert (n1, n2) == (4, 1)
+    audio = _pcm_wavs(41, (6400,) * 4)
+    for t in tickers.values():
+        for _ in range(4):
+            t.join()
+    outs = [t.tick({s: a for s, a in enumerate(audio)})
+            for t in tickers.values()]
+    assert outs[0] == outs[1]
+    _equal_trees(tickers["1"].state, tickers["0"].state)
+
+
+def test_rehearse_on_a_tiny_zoo_exits_0_on_the_card(cuda, tmp_path, capsys,
+                                                    monkeypatch):
+    """`cli rehearse` (default device: the card) over the synthetic zoo of
+    tests/_torch_port_helpers.py: every family converted, REST, WS and a
+    TTS job served, exit status 0."""
+    import json
+    from _torch_port_helpers import write_zoo, zoo_state_dicts
+    from toolbox_for_asr_and_tts_tpu_torch import cli
+    monkeypatch.setenv("VOICE_DISABLE_LLM", "1")
+    monkeypatch.setenv("VOICE_BATCH_CAPACITY", "4")
+    root = write_zoo(tmp_path / "zoo", zoo_state_dicts())
+    cli.main(["rehearse", str(root), "--reconvert", "--report",
+              str(tmp_path / "report.json")])
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["ok"], report["strict_failures"]
+    assert {v["status"] for v in report["families"].values()} == {"converted"}
+    assert report["service"]["tts"]["status"] == "completed"

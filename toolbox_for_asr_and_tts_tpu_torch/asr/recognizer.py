@@ -16,6 +16,14 @@ Each (batch, audio bucket) forward and each rescoring bucket is one program
 card a captured CUDA graph, replayed with the audio copied in from pinned
 memory and the packed per-token outputs fetched in one copy. Bucketing,
 that fetch, rescoring's log-softmax and the text stay on the host.
+
+PARAFORMER_TRANSFER_INT16 (else the dispatch profile's
+`asr_int16_transfer`, `runtime/autotune.py`), read at construction: the
+host rounds the padded batch to int16 PCM (`to_int16_pcm`), the staging
+buffer is int16, and the program turns it back into f32 · 2^-15 before the
+fbank, so kernel K2 gets the same f32 input as on the f32 path; on
+PCM-sourced audio the two paths are bit-equal. The mode is part of the
+program key.
 """
 from __future__ import annotations
 
@@ -36,6 +44,17 @@ from ..runtime.bucketing import Bucketer
 from ..runtime.graphs import Program, Programs
 from ..runtime.metrics import RTFMeter, Tally, timing_log
 from .tokenizer import CharTokenizer
+
+
+def to_int16_pcm(x: np.ndarray) -> np.ndarray:
+    """f32 audio → int16 PCM for the upload, in the reference's order:
+    clip(round(x·32768), −32768, 32767); exact for PCM-sourced audio."""
+    return np.clip(np.round(x * 32768.0), -32768.0, 32767.0).astype(np.int16)
+
+
+def from_int16_pcm(x: torch.Tensor) -> torch.Tensor:
+    """The device side of the int16 upload: int16 → f32 · 2^-15."""
+    return x.float() * (1.0 / 32768.0)
 
 
 @dataclasses.dataclass
@@ -91,6 +110,10 @@ class Recognizer:
             self.cmvn = tuple(torch.as_tensor(np.asarray(c, np.float32),
                                               device=self.device)
                               for c in cmvn)
+        # int16 audio upload: an explicit env var wins, else the profile
+        from ..runtime.autotune import env_or_profile
+        self._int16_transfer = env_or_profile("PARAFORMER_TRANSFER_INT16",
+                                              "asr_int16_transfer")
         self.rtf = RTFMeter()
         # one program per (batch, audio bucket) forward and per rescoring
         # bucket; on the card each is a captured graph
@@ -204,13 +227,17 @@ class Recognizer:
             torch.from_numpy(np.asarray(lens, np.int64)).to(self.device))
 
     def _fn_for(self, batch: int, n_samples: int) -> Program:
-        """The forward program of one (batch, samples) bucket (ref
-        `_fn_for`): audio and lengths → every per-token output packed into
-        one f32 array [B, 1 + n·k_max] (one fetch), and the tensors the
-        rescoring pass re-decodes from (`enc`, `embeds`, `feat_lens`,
+        """The forward program of one (batch, samples, int16 upload) bucket
+        (ref `_fn_for`): audio and lengths → every per-token output packed
+        into one f32 array [B, 1 + n·k_max] (one fetch), and the tensors
+        the rescoring pass re-decodes from (`enc`, `embeds`, `feat_lens`,
         `token_count`), kept on the device."""
+        int16_in = self._int16_transfer
+
         def build():
             def run(wavs, wav_lens):
+                if int16_in:
+                    wavs = from_int16_pcm(wavs)
                 out = self._forward(wavs, wav_lens)
                 cols = [out["token_count"][:, None], out["tokens"],
                         out["token_center"], out["token_start"],
@@ -220,9 +247,11 @@ class Recognizer:
                 packed = torch.cat([c.float() for c in cols], dim=1)
                 return {"packed": packed,
                         **{k: out[k] for k in self._RESCORING_INPUTS}}
-            return run, [((batch, n_samples), torch.float32),
+            return run, [((batch, n_samples),
+                          torch.int16 if int16_in else torch.float32),
                          ((batch,), torch.int64)]
-        return self._programs.get(("forward", batch, n_samples), build)
+        return self._programs.get(("forward", batch, n_samples, int16_in),
+                                  build)
 
     _RESCORING_INPUTS = ("embeds", "token_count", "enc", "feat_lens")
 
@@ -286,8 +315,11 @@ class Recognizer:
                     if want_logits and dev["packed"].is_cuda else dev)
             return dev["packed"].cpu().numpy(), kept
 
+        batch = np.asarray(batch, np.float32)
+        if self._int16_transfer:
+            batch = to_int16_pcm(batch)
         self.forwards.add()
-        packed, dev = prog(np.asarray(batch, np.float32), lens, read=fetch)
+        packed, dev = prog(batch, lens, read=fetch)
         out = {
             "token_count": packed[:, 0].astype(np.int32),
             "tokens": packed[:, 1: 1 + k_max].astype(np.int32),

@@ -4,12 +4,12 @@
     python -m toolbox_for_asr_and_tts_tpu_torch.cli tts "文本" -o out.wav [--stream] [--tiny]
     python -m toolbox_for_asr_and_tts_tpu_torch.cli serve-voice / serve-tts
     python -m toolbox_for_asr_and_tts_tpu_torch.cli demo recording.wav
+    python -m toolbox_for_asr_and_tts_tpu_torch.cli rehearse MODELS_DIR [--reconvert]
 
 Port of `toolbox_for_asr_and_tts_tpu/cli.py`. Every command takes
 `--device` (default `cuda`). Departures: `tts` raises when a mounted
 checkpoint fails to load (the reference logs it and synthesizes with random
-weights); the reference's `rehearse` command and `transcribe --no-mesh`
-are not ported yet.
+weights); the reference's `transcribe --no-mesh` is not ported yet.
 """
 from __future__ import annotations
 
@@ -92,6 +92,19 @@ def cmd_demo(args) -> None:
     demo_main([args.wav, "--torch-device", args.device])
 
 
+def cmd_rehearse(args) -> None:
+    from .tools.rehearse import main as rehearse_main
+    argv = [args.models_dir, "--device", args.device]
+    for flag in ("report", "golden_wav"):
+        v = getattr(args, flag)
+        if v:
+            argv += [f"--{flag.replace('_', '-')}", v]
+    for flag in ("reconvert", "no_serve", "lenient"):
+        if getattr(args, flag):
+            argv.append(f"--{flag.replace('_', '-')}")
+    rehearse_main(argv)
+
+
 def _load(path: str):
     from .utils.audio import ensure_mono_16k, read_wav
     x, sr = read_wav(path)
@@ -129,6 +142,17 @@ def main(argv=None) -> None:
 
     d = command("demo", cmd_demo, "file-driven full voice demo")
     d.add_argument("wav")
+
+    r = command("rehearse", cmd_rehearse,
+                "real-checkpoint mount rehearsal: strict-convert all "
+                "families, boot both services, drive golden inputs, emit a "
+                "report")
+    r.add_argument("models_dir")
+    r.add_argument("--report", default=None)
+    r.add_argument("--reconvert", action="store_true")
+    r.add_argument("--no-serve", action="store_true")
+    r.add_argument("--golden-wav", default=None)
+    r.add_argument("--lenient", action="store_true")
 
     args = ap.parse_args(argv)
     args.fn(args)

@@ -6,7 +6,8 @@ fbank with FunASR's settings: 16 kHz, 25 ms frames, 10 ms shift, hamming
 window, 80 mel bins, snip_edges, DC removal, pre-emphasis 0.97, low_freq 20,
 power spectrum, int16 input scaling, no dither). The framing stage runs
 kernel K2 (`kernels/frame_window.py`); the real DFT is `torch.fft.rfft` and
-the mel bank a float32 matmul.
+the mel bank a float32 matmul. USE_PALLAS_FRAMING (the reference's
+switch) is read as the reference reads it; on a CUDA tensor it must be on.
 """
 from __future__ import annotations
 
@@ -19,6 +20,20 @@ import numpy as np
 import torch
 
 from .kernels.frame_window import frame_window
+
+# The fbank framing kernel K2 (the reference's Pallas-framing switch). None
+# = decide from USE_PALLAS_FRAMING, else the dispatch profile, as the
+# reference does. CPU tensors run K2's plain version whatever it says; a
+# CUDA tensor always launches K2, and the switch off raises there.
+USE_PALLAS_FRAMING: Optional[bool] = None
+
+
+def _use_pallas_framing() -> bool:
+    if USE_PALLAS_FRAMING is not None:
+        return USE_PALLAS_FRAMING
+    from ..runtime.autotune import env_or_profile
+    return env_or_profile("USE_PALLAS_FRAMING", "pallas_framing")
+
 
 EPSILON = 1.1920928955078125e-07  # torch.finfo(float32).eps — kaldi energy floor
 
@@ -133,6 +148,10 @@ def fbank(x: torch.Tensor, cfg: FrontendConfig = FrontendConfig(),
     """
     if x.dim() != 2:
         raise ValueError("fbank expects [B, T] — batch-first everywhere")
+    if x.is_cuda and not _use_pallas_framing():
+        raise ValueError("USE_PALLAS_FRAMING is off, but on the card the "
+                         "fbank framing always runs kernel K2: no plain "
+                         "framing serves a CUDA tensor")
     x = x.float()
     if cfg.int16_scale:
         x = x * 32768.0

@@ -22,8 +22,14 @@ state buffers, so here each lane keeps its own tick programs and shares
 only the programs that read no state of their own: the chunked finalize's
 "tail" decode (the row's decoder state is copied in) and the VAD fbank.
 
-Left out against the reference: the mesh path, the int16 upload (a knob for
-the TPU's host link) and the unfused `fused=False` path.
+PARAFORMER_TRANSFER_INT16 (else the dispatch profile's
+`asr_int16_transfer`), read at construction as the reference reads it:
+`BatchedChunkedASR`'s chunk upload and `BatchedVadTicker`'s fbank upload go
+as int16 PCM (`asr/recognizer.py::to_int16_pcm`) into int16 staging rows,
+and each program turns them back into f32 · 2^-15 before the fbank.
+
+Left out against the reference: the mesh path and the unfused
+`fused=False` path.
 """
 from __future__ import annotations
 
@@ -36,12 +42,14 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..asr.recognizer import from_int16_pcm, to_int16_pcm
 from ..models import fsmn_vad
 from ..models import paraformer as pf
 from ..models import paraformer_online as po
 from ..models.convert import tree_to
 from ..models.paraformer_streaming import StreamingFrontend
 from ..ops import frontend as fe
+from ..runtime.autotune import env_or_profile
 from ..runtime.graphs import Programs
 
 logger = logging.getLogger("toolbox.stream_batcher")
@@ -176,11 +184,11 @@ class BatchedChunkedASR:
     everything.
 
     exec_cache: a dict shared by identically configured tickers (the lanes
-    of one `LanedHub`). The signature holds capacity, partials, both
-    configs, a CMVN fingerprint, the device and the weights' buffers; a
-    mismatch raises ValueError. Each lane's tick programs bind its own
-    state rows and are its own; the finalize "tail" decode, which copies
-    its row's decoder state in, is shared.
+    of one `LanedHub`). The signature holds capacity, partials, the int16
+    upload, both configs, a CMVN fingerprint, the device and the weights'
+    buffers; a mismatch raises ValueError. Each lane's tick programs bind
+    its own state rows and are its own; the finalize "tail" decode, which
+    copies its row's decoder state in, is shared.
     """
 
     def __init__(self, params, cfg: Optional[pf.ParaformerConfig] = None,
@@ -205,6 +213,9 @@ class BatchedChunkedASR:
             self.cmvn = tuple(torch.as_tensor(np.asarray(c, np.float32),
                                               device=self.device)
                               for c in cmvn)
+        # int16 upload: an explicit env var wins, else the profile
+        self._int16_transfer = env_or_profile("PARAFORMER_TRANSFER_INT16",
+                                              "asr_int16_transfer")
         fcfg = self.cfg.frontend
         self.chunk_samples = self.ocfg.c1 * fcfg.lfr_n * fcfg.frame_shift
         with torch.inference_mode():
@@ -214,8 +225,8 @@ class BatchedChunkedASR:
         self._audio: Dict[int, np.ndarray] = {}
         self.steps = 0            # device steps run (one fused_step each)
         self.programs = Programs(self.device, "chunked-tick")
-        sig = ("chunked", capacity, partials, self.cfg, self.ocfg,
-               _fingerprint(self.cmvn), str(self.device),
+        sig = ("chunked", capacity, partials, self._int16_transfer,
+               self.cfg, self.ocfg, _fingerprint(self.cmvn), str(self.device),
                _weights_id(self.params))
         self.shared = _share(exec_cache, sig, self.device, "chunked-shared")
         # the step's fired outputs, copied out per dispatch into one of two
@@ -327,11 +338,15 @@ class BatchedChunkedASR:
         audio [b, chunk] and row activity [b] → (fired ids [b, k_cap] int32
         or embeddings [b, k_cap, d] f32, fired counts [b] int32), the state
         prefix merged in place for the active rows."""
+        int16_in = self._int16_transfer
+
         def build():
             sub = {k: a.narrow(po.batch_dim(k), 0, b)
                    for k, a in self.state.items()}
 
             def run(audio, active):
+                if int16_in:
+                    audio = from_int16_pcm(audio)
                 res = po.fused_step(self.params, sub, audio, self.cfg,
                                     self.ocfg, cmvn=self.cmvn,
                                     k_cap=self.ocfg.tokens_per_chunk,
@@ -342,7 +357,8 @@ class BatchedChunkedASR:
                 n = res[2].int() * active.int()
                 out = res[3].int() if self.partials else res[1].float()
                 return out, n
-            return run, [((b, self.chunk_samples), torch.float32),
+            return run, [((b, self.chunk_samples),
+                          torch.int16 if int16_in else torch.float32),
                          ((b,), torch.float32)]
         return self.programs.get(("tick", b), build)
 
@@ -381,6 +397,8 @@ class BatchedChunkedASR:
             done = torch.cuda.Event()
             done.record()
             return host_out[:b].numpy(), host_n[:b].numpy(), done
+        if self._int16_transfer:
+            batch = to_int16_pcm(batch)
         res = self._tick_fn(b)(batch, row_active, read=read)
         self.steps += 1
         return res
@@ -487,7 +505,8 @@ class BatchedVadTicker:
     proj], packed like BatchedChunkedASR's rows. Each (pow-2 rows, frames)
     step is a program bound to its prefix of the cache; each (pow-2 rows,
     length bucket) fbank is a program that reads no state, shared through
-    `exec_cache` (signature: capacity, config, CMVN fingerprint, device).
+    `exec_cache` (signature: capacity, the int16 upload, config, CMVN
+    fingerprint, device).
     """
 
     LEN_QUANTUM = 1600       # 0.1 s buckets of buffered length
@@ -510,9 +529,13 @@ class BatchedVadTicker:
         self._audio: Dict[int, np.ndarray] = {}   # per-slot raw-sample tails
         self.fbanks = 0   # fbank passes run (one K2 each)
         self.steps = 0    # FSMN steps run (K1 in each layer)
+        # int16 upload of the fbank rows: an explicit env var wins, else
+        # the profile
+        self._int16_transfer = env_or_profile("PARAFORMER_TRANSFER_INT16",
+                                              "asr_int16_transfer")
         self.programs = Programs(self.device, "vad-step")
-        sig = ("vad", capacity, self.cfg, _fingerprint(cmvn),
-               str(self.device))
+        sig = ("vad", capacity, self._int16_transfer, self.cfg,
+               _fingerprint(cmvn), str(self.device))
         self.shared = _share(exec_cache, sig, self.device, "vad-fbank")
 
     # ------------------------------------------------------------ rows
@@ -574,11 +597,18 @@ class BatchedVadTicker:
     # ------------------------------------------------------------ programs
     def _fbank_fn(self, nb: int, lb: int):
         """The fbank of nb rows of lb samples (ref ("fb", nb, lb))."""
+        int16_in = self._int16_transfer
+
         def build():
             fcfg = self.cfg.frontend
             t = fe.num_fbank_frames(lb, fcfg)
-            return ((lambda a: fe.fbank(a, fcfg, t_frames=t)),
-                    [((nb, lb), torch.float32)])
+
+            def run(a):
+                if int16_in:
+                    a = from_int16_pcm(a)
+                return fe.fbank(a, fcfg, t_frames=t)
+            return run, [((nb, lb),
+                          torch.int16 if int16_in else torch.float32)]
         return self.shared.get(("fb", nb, lb), build)
 
     def _step_fn(self, nb: int, n: int):
@@ -655,6 +685,8 @@ class BatchedVadTicker:
                 batch = np.zeros((nb, lb), np.float32)
                 for i, (s, length) in enumerate(rows):
                     batch[i, :length] = self._audio[s][:length]
+                if self._int16_transfer:
+                    batch = to_int16_pcm(batch)
                 fb = self._fbank_fn(nb, lb)(
                     batch, read=lambda t: t.cpu().numpy())
                 self.fbanks += 1

@@ -1,6 +1,7 @@
 """Fixed-shape bucketing of utterance lengths.
 
-Own copy of the reference's `runtime/bucketing.py::Bucketer`. Every length
+Own copy of the reference's `runtime/bucketing.py` (`Bucketer`,
+`CompileCacheStats`). Every length
 rounds up to one of a small set of buckets with an explicit valid-length
 mask, so a batch of mixed lengths runs as one padded batch and the port's
 results match the reference's bucket for bucket.
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import bisect
 import logging
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -86,3 +87,18 @@ class Bucketer:
             out[i, :n] = x[:n]
             lens[i] = n
         return out, lens
+
+
+@dataclass
+class CompileCacheStats:
+    """Book-keeping for how many distinct shapes a serving path has seen."""
+
+    shapes: set = field(default_factory=set)
+
+    def record(self, *shape) -> bool:
+        """Returns True if this shape is new (on the card: a new program to
+        capture)."""
+        key = tuple(shape)
+        new = key not in self.shapes
+        self.shapes.add(key)
+        return new

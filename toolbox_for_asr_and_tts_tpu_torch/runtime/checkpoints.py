@@ -681,6 +681,11 @@ def _parse(torch_name: str) -> Tuple[str, str]:
     return torch_name, ""
 
 
+# One gap report per `convert_state_dict` call (the newest 32), read by
+# `tools/rehearse.py`: rules, tensors converted, missing and unmapped names.
+CONVERT_REPORTS: List[Dict[str, Any]] = []
+
+
 def convert_state_dict(sd: Dict[str, np.ndarray], rules: List[Rule],
                        template: Any, strict: bool = True,
                        keep_missing: bool = False) -> Any:
@@ -691,8 +696,19 @@ def convert_state_dict(sd: Dict[str, np.ndarray], rules: List[Rule],
     — for framework-only parameters real checkpoints don't carry. A
     missing tensor raises KeyError (strict) and a shape that disagrees
     with the template ValueError."""
-    missing = [name for name, _ in map(_parse, (t for _, t in rules))
-               if name not in sd]
+    names = [_parse(t)[0] for _, t in rules]
+    missing = [name for name in names if name not in sd]
+    consumed = set(names)
+    CONVERT_REPORTS.append({
+        "n_rules": len(rules),
+        "n_converted": len({p for (p, _), name in zip(rules, names)
+                            if name in sd}),
+        "missing": list(missing),
+        "unmapped": sorted(
+            k for k in sd
+            if k not in consumed and not k.endswith("num_batches_tracked")),
+    })
+    del CONVERT_REPORTS[:-32]  # bounded
     if missing:   # checked before any tensor is converted
         msg = f"{len(missing)} parameters missing from checkpoint, e.g. {missing[:5]}"
         if strict:

@@ -36,7 +36,9 @@ behind the same cache, keys and locks, so the CPU tests exercise them.
   counters, so a replay counts what the eager call would have counted.
 
 A capture that fails raises; nothing falls back to an eager run on the
-card, and there is no switch that turns graphs off there.
+card, and there is no switch that turns graphs off there. An owner on the
+card resolves the dispatch profile (`runtime/autotune.py`) when it is
+made, so a knob read inside a capture never runs the profile's probe.
 """
 from __future__ import annotations
 
@@ -227,6 +229,9 @@ class Programs:
         self.captures = 0
         self.capture_s = 0.0
         self.replays = 0
+        if self.on_card:
+            from .autotune import get_profile
+            get_profile()
         _OWNERS.add(self)
 
     @property

@@ -13,8 +13,10 @@ batched hubs (`service/hub.py`) unless VOICE_BATCH_SERVING=0.
   the reference's loud warning. Every load runs before the first hub
   thread starts.
 
-Hub capacity comes from VOICE_BATCH_CAPACITY, else 64 (the reference's
-TPU dispatch profile, `runtime/autotune.py`, is not ported). The lanes of
+Hub capacity comes from VOICE_BATCH_CAPACITY, else the caller's, else the
+dispatch profile's `batch_capacity` (`runtime/autotune.py`), which
+`build_engines` and `build_test_engines` resolve first, before any
+program is built. The lanes of
 a `LanedHub` share one `exec_cache` per family. Programs built at start-up
 (on the card: captured graphs) are built before any session can reach a
 hub: each ticker hub's in its constructor, before its tick thread starts,
@@ -31,8 +33,6 @@ from ..runtime.registry import resolve
 
 logger = logging.getLogger("toolbox.engines")
 
-DEFAULT_CAPACITY = 64
-
 
 def _batch_serving() -> bool:
     return os.getenv("VOICE_BATCH_SERVING", "1") in ("1", "true")
@@ -40,15 +40,17 @@ def _batch_serving() -> bool:
 
 def _batch_capacity(default: Optional[int] = None) -> int:
     """Serving-hub rows: VOICE_BATCH_CAPACITY, else the caller's default,
-    else 64."""
-    env = os.getenv("VOICE_BATCH_CAPACITY")
-    if env is not None:
-        return int(env)
-    return default if default is not None else DEFAULT_CAPACITY
+    else the dispatch profile's `batch_capacity`."""
+    if default is not None and os.getenv("VOICE_BATCH_CAPACITY") is None:
+        return default
+    from ..runtime.autotune import env_or_profile_int
+    return env_or_profile_int("VOICE_BATCH_CAPACITY", "batch_capacity")
 
 
 def build_test_engines(device: DeviceLike = None):
     """Small random-weight engines for tests and development, on `device`."""
+    from ..runtime.autotune import get_profile
+    get_profile()   # host context, before any program is captured
     from ..asr.diarization import Diarizer
     from ..asr.recognizer import Recognizer
     from ..asr.session import VoiceEngines
@@ -242,6 +244,8 @@ def build_engines(model_dir: Optional[str] = None,
     KWS and FSMN-VAD, each loaded from its checkpoint directory where one
     resolves under `model_dir` (or the registry's default roots), else with
     random weights. A failed load raises before any hub thread starts."""
+    from ..runtime.autotune import get_profile
+    get_profile()   # host context, before any program is captured
     from ..asr.diarization import Diarizer
     from ..asr.recognizer import Recognizer
     from ..asr.session import VoiceEngines

@@ -1,7 +1,8 @@
 """Wire-format schemas of the voice and TTS services, without pydantic.
 
 Port of `toolbox_for_asr_and_tts_tpu/service/schemas.py` (`ASRRequest`,
-`ASRResponse`, `TTSRequest`, `CancelRequest`, `TTSResponse`) as validating
+`ASRResponse`, `TTSRequest`, `CancelRequest`, `TTSResponse`,
+`TTSResultResponse`) as validating
 dataclasses (`runtime/config.py::Model`): the same field names and
 defaults, and `model_validate` refuses a missing or mistyped field (such as
 `audio_data`, `text` or `job_id`) as the pydantic model does, with
@@ -15,7 +16,7 @@ from typing import Optional
 from ..runtime.config import Model, ValidationError
 
 __all__ = ["ASRRequest", "ASRResponse", "CancelRequest", "TTSRequest",
-           "TTSResponse", "ValidationError"]
+           "TTSResponse", "TTSResultResponse", "ValidationError"]
 
 
 @dataclasses.dataclass
@@ -52,3 +53,19 @@ class TTSResponse(Model):
     job_id: str
     status: str = "pending"
     message: str = ""
+
+
+@dataclasses.dataclass
+class TTSResultResponse(Model):
+    """The body of `GET /api/v1/tts/result/{job_id}` (`service/tts_app.py`,
+    `tts/jobs.py::get_result`)."""
+    job_id: str
+    status: str
+    audio_base64: Optional[str] = None
+    text: Optional[str] = None
+    audio_size: int = 0
+    error: Optional[str] = None
+    # beyond the reference's service (streamed jobs, tts/jobs.py): progress
+    # gauges, and with ?partial=1 audio_base64 carries the audio so far
+    segments_done: int = 0
+    n_segments: Optional[int] = None

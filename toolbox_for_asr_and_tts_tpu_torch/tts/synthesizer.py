@@ -13,13 +13,12 @@ Port of `toolbox_for_asr_and_tts_tpu/tts/synthesizer.py` on the card:
   the L·frames_per_phone worst case;
 - crossfade and pause concatenation stay on the host (`tts/concat.py`).
 
-Knobs read from the environment at construction: TTS_DECODER (`nar`, the
-default, or `pnca`) and the two groupings TTS_GROUP_BY_LENGTH (one call per
-phone bucket) and TTS_MEL_GROUP (one call per mel bucket). The reference resolves the groupings with its dispatch
-profile (`runtime/autotune.py::env_or_profile`), which turns them on only
-on a directly attached TPU; the port has no such profile and reads the
-environment alone, default off, which is what the reference's profile gives
-on every other platform.
+Knobs read at construction: TTS_DECODER (`nar`, the default, or `pnca`)
+from the environment, and the two groupings TTS_GROUP_BY_LENGTH (one call
+per phone bucket) and TTS_MEL_GROUP (one call per mel bucket) from the
+environment, else the dispatch profile (`runtime/autotune.py::
+env_or_profile`), as the reference resolves them; the profile's `cuda`
+values were measured on the card (PERF.md §6).
 
 `Synthesizer.from_model_dir` loads a mounted KAN-TTS package
 (`scan_tts_package`), converting each checkpoint once into a
@@ -179,10 +178,6 @@ def _load_checkpoint(path: str, model_dir: str, cfg_cls, from_conf,
     return cfg, params
 
 
-def _env_flag(name: str, default: str) -> bool:
-    return os.getenv(name, default) in ("1", "true")
-
-
 @dataclasses.dataclass
 class SynthesisResult:
     wav: np.ndarray
@@ -216,11 +211,14 @@ class Synthesizer:
         self.cfg = tts_cfg or TTSConfig()
         self.voice_to_id = {v: i % acoustic_cfg.n_speakers
                             for i, v in enumerate(voices)}
-        self.group_by_length = _env_flag("TTS_GROUP_BY_LENGTH", "0")
+        # dispatch-bound knobs: an explicit env var wins, else the profile
+        from ..runtime.autotune import env_or_profile
+        self.group_by_length = env_or_profile("TTS_GROUP_BY_LENGTH",
+                                              "tts_group_by_length")
         # "nar" (fast mode, default) or "pnca" (KAN-TTS AR decoder — the
         # weight-compatible path for real zhitian_emo checkpoints)
         self.decoder_mode = os.getenv("TTS_DECODER", "nar")
-        self.mel_group = _env_flag("TTS_MEL_GROUP", "0")
+        self.mel_group = env_or_profile("TTS_MEL_GROUP", "tts_mel_group")
         self.bucketer = Bucketer(PHONE_BUCKETS)
         self.rtf = RTFMeter()
         self.sample_rate = self.cfg.sampling_rate
