@@ -13,6 +13,8 @@
                                       # and K1's backward kernel's per tile
                                       # (channels x frames per block) at
                                       # B 8 and 64
+    python3 chip_smoke.py --only-mesh # phases 1 and 13 alone (no result
+                                      # line)
 
 Every model call of the port runs as a program (`runtime/graphs.py`): on
 the card one captured CUDA graph per shape bucket, replayed; K1 and K2 run
@@ -230,10 +232,34 @@ Phases (any failure exits non-zero and prints no result line):
    final, a TTS WAV; the seconds of convert, boot and each drive). Phases
    8 and 9 run their engines at 64 hub rows (VOICE_BATCH_CAPACITY), the
    rehearsal at the profile's;
-12. the `streaming`, `service`, `tts`, `checkpoints`, `entry_points`,
+12. the multi-card layer at full width (phase 13), each mesh a grid of
+   `torch.device`s that repeats card 0 where it has more positions than
+   the machine has cards (every card, too, where it has several): (a)
+   phase 3's recognizer as `Recognizer(use_mesh=True)` over
+   `serving_mesh()` and over 2 positions against `use_mesh=False` on the
+   8 rows (ids and counts equal, packed floats within 1e-3, K1 66 / K2 1
+   per position, the walls); (b) `BatchedChunkedASR(capacity=64,
+   partials=True)` on a 2-position mesh, 16 sessions of 8 chunks then
+   finalized, ids equal to the meshless ticker's, K1 50 / K2 1 per step;
+   (c) phase 7's synthesizer with `use_mesh=True` on 3 segments, PCM
+   within TTS_PCM_LSB of `use_mesh=False`; (d) `encode_seq_parallel` over
+   4 positions on one 60 s row against `paraformer.encode` (max |d| within
+   2e-4) and `transcribe_long_forward`'s ids equal to `forward`'s, K1 at
+   the gathered V timed; (e) `encode_pipelined`, 49 layers in 7 stages,
+   8 microbatches of phase 10's 8 rows: outputs within 1e-4 and the stage
+   gradients (of Σ y·r, r fixed) within 1e-3 of each leaf's norm against
+   the plain encoder's, K1 and K1's backward launches, both kernels timed at the
+   microbatch's V view; (f) one dp + tp step on `make_2d_mesh(4,
+   model_parallel=2)` against the single-device eager step (loss within
+   rel 1e-4, gradients within 1e-2 of each leaf's norm, the updated
+   parameters by MESH_TP_UPDATE_TOL), the data replicas bit-equal, and a
+   `remat=True` step against the plain one. Two positions that share a
+   card give no multi-card speed figure;
+13. the `streaming`, `service`, `tts`, `checkpoints`, `entry_points`,
    `graphs` (per program owner, as first seen by a phase: programs,
    captures, capture seconds, replays, graph pool bytes at the phase's
-   end), `train`, `precision`, `dispatch` and `kernels` JSON lines, then
+   end), `train`, `precision`, `dispatch`, `mesh` and `kernels` JSON
+   lines, then
    the result line {"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": ...}}.
 
@@ -5032,6 +5058,590 @@ def dispatch_path(torch, card, reco, synth, root: str, rest_text: str):
     return out
 
 
+# ------------------------------------------------ phase 13: the mesh layer
+MESH_SEQ_SECONDS = 60.0      # (d): one long row
+MESH_SEQ_POSITIONS = 4
+MESH_SEQ_TOL = 2e-4          # (d): max |enc - encode|, the reference test's
+MESH_PIPE_STAGES = 7         # (e): 49 layers, 7 per stage
+MESH_PIPE_MICRO = 8          # (e): one row per microbatch
+MESH_PIPE_OUT_TOL = 1e-4     # (e): max |y - encode| (layernormed, O(1))
+MESH_PIPE_GRAD_REL = 1e-3    # (e): per leaf, |g - g_seq| / |g_seq| (norms,
+                             # phase 10's rule: one row per microbatch
+                             # against 8-row GEMMs, summed over 49 layers)
+MESH_TICK_CAPACITY = 64      # (b)
+MESH_TICK_SESSIONS = 16
+MESH_TICK_CHUNKS = 8
+MESH_TP_GRAD_REL = 1e-2      # (f): per leaf, |g - g_single| / |g_single|:
+                             # 4-row GEMMs and split products against 8-row
+                             # ones; a decoder layer's FFN LayerNorm over a
+                             # sparse ReLU output amplifies their rounding
+                             # (1.7e-3 at decoder layer 9, the worst)
+MESH_TP_UPDATE_TOL = 1e-6    # (f): |updated - single-device| on 99.9 % of
+                             # elements; every element within 2 lr, since
+                             # AdamW's first step moves one by about
+                             # lr·g/(|g|+eps), whose sign a near-zero
+                             # gradient decides
+
+
+class mesh_positions:
+    """Within the block, `runtime/mesh.py::serving_mesh` covers `devices`
+    (a list that may repeat one card), as the CPU tests widen it."""
+
+    def __init__(self, devices):
+        self.devices = list(devices)
+
+    def __enter__(self):
+        from toolbox_for_asr_and_tts_tpu_torch.runtime import mesh as M
+        self.saved = M.local_devices
+        M.local_devices = lambda platform="cuda": list(self.devices)
+        return self
+
+    def __exit__(self, *exc):
+        from toolbox_for_asr_and_tts_tpu_torch.runtime import mesh as M
+        M.local_devices = self.saved
+
+
+def mesh_layouts(torch):
+    """(name, positions) of the recognizer and ticker meshes: two positions
+    on card 0, and every card where the machine has more than one."""
+    n = torch.cuda.device_count()
+    c0 = torch.device("cuda", 0)
+    out = [("2 positions on cuda:0", [c0, c0])]
+    if n > 1:
+        out.append((f"{n} cards", [torch.device("cuda", i)
+                                   for i in range(n)]))
+    return out
+
+
+def position_launches(owners, key_of, before):
+    """Per position: (K1, K2) its program ran since `before` (its replays
+    times its capture's tally)."""
+    out = []
+    for owner, b in zip(owners, before):
+        prog = owner._progs[key_of]
+        runs = prog.replays - b
+        out.append((runs * prog.tally.get("fsmn_conv", 0),
+                    runs * prog.tally.get("frame_window", 0)))
+    return out
+
+
+def mesh_transcribe(torch, card, reco, wavs):
+    """(a) `Recognizer(use_mesh=True)` over `serving_mesh()` and over each
+    of `mesh_layouts`, against `use_mesh=False` on phase 3's 8 rows: ids
+    and counts equal, each position's packed floats (CIF centers) within
+    1e-3 of the meshless forward's, each position K1 66 / K2 1 per
+    transcribe; the walls (median of 5)."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.asr.recognizer import (
+        Recognizer, to_int16_pcm)
+    layers = reco.cfg.encoder_layers + reco.cfg.decoder_layers
+
+    def build(use_mesh):
+        return Recognizer(reco.params, reco.cfg, reco.tokenizer,
+                          device="cuda", use_mesh=use_mesh)
+
+    def wall(r):
+        r.transcribe(wavs)                  # captures
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.transcribe(wavs)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    def packed(r, batch, lens):
+        n = len(r._positions)
+        per = batch.shape[0] // n
+        x = to_int16_pcm(batch) if r._int16_transfer else batch
+        return np.concatenate([r._fn_for(per, batch.shape[1], i)(
+            x[i * per:(i + 1) * per], lens[i * per:(i + 1) * per],
+            read=lambda d: d["packed"].cpu().numpy()) for i in range(n)])
+
+    alone = build(False)
+    want = alone.transcribe(wavs)
+    batch, lens = alone.bucketer.pad_batch(wavs)
+    batch = np.asarray(batch, np.float32)
+    want_packed = packed(alone, batch, lens)
+    _, k_max = alone._bucket_shapes(batch.shape[1])
+    out = dict(meshless_ms=wall(alone))
+    runs = [("serving_mesh()", None)] + mesh_layouts(torch)
+    for name, positions in runs:
+        if positions is None:
+            r = build(True)
+        else:
+            with mesh_positions(positions):
+                r = build(True)
+        n = len(r._positions)
+        got = r.transcribe(wavs)
+        require([x.token_ids for x in got] == [x.token_ids for x in want],
+                 f"mesh transcribe over {name}: ids differ from use_mesh="
+                 "False")
+        b2, l2 = r.bucketer.pad_batch(wavs, batch_multiple=n)
+        p = packed(r, np.asarray(b2, np.float32), l2)[:len(wavs)]
+        q = want_packed[:len(wavs)]
+        require((p[:, :1 + k_max] == q[:, :1 + k_max]).all(),
+                f"mesh over {name}: counts or tokens differ")
+        dcenter = float(np.abs(p[:, 1 + k_max:] - q[:, 1 + k_max:]).max())
+        require(dcenter <= 1e-3, f"mesh over {name}: packed floats differ "
+                                 f"by {dcenter}")
+        per = b2.shape[0] // n
+        key = ("forward", per, b2.shape[1], r._int16_transfer)
+        before = [o._progs[key].replays for o in r._positions]
+        _, k1n, k2n = counted(torch, lambda: r.transcribe(wavs))
+        per_pos = position_launches(r._positions, key, before)
+        require(all(c == (layers, 1) for c in per_pos),
+                f"mesh over {name}: per-position K1 / K2 {per_pos}, "
+                f"expected ({layers}, 1) each")
+        require((k1n, k2n) == (layers * n, n), f"mesh over {name}: K1 / K2 "
+                f"{k1n} / {k2n} in all, expected {layers * n} / {n}")
+        ms = wall(r)
+        print(f"mesh (a) transcribe over {name} ({n} positions, "
+              f"{[str(d) for d in r.mesh.positions()]}): ids equal to "
+              f"use_mesh=False on {len(wavs)} rows, packed floats max|d| "
+              f"{dcenter:.3g} (tol 1e-3), per position K1 / K2 {per_pos}, "
+              f"wall {ms:.2f} ms (use_mesh=False {out['meshless_ms']:.2f} "
+              f"ms; {card})", flush=True)
+        out[name] = dict(positions=n, devices=[str(d) for d in
+                                               r.mesh.positions()],
+                         max_abs_dfloat=dcenter, per_position=per_pos,
+                         k1=k1n, k2=k2n, ms=ms)
+    return out
+
+
+def mesh_ticker(torch, card, params):
+    """(b) `BatchedChunkedASR(capacity=64, partials=True)` over each of
+    `mesh_layouts` against the meshless ticker: 16 sessions fed 8 chunks
+    each then finalized, every session's ids equal; K1 50 / K2 1 per
+    step, one step per position per tick."""
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer import (
+        ParaformerConfig)
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer_online import (
+        OnlineConfig)
+    from toolbox_for_asr_and_tts_tpu_torch.parallel.stream_batcher import (
+        BatchedChunkedASR)
+    from toolbox_for_asr_and_tts_tpu_torch.runtime.mesh import Mesh
+    cfg = ParaformerConfig()
+    audios = [a[:MESH_TICK_CHUNKS * CHUNK]
+              for a in session_audio(MESH_TICK_SESSIONS, seed=13)]
+
+    def run(ticker):
+        ticker.warm()
+        steps = ticker.steps
+        (ticks, ids, finals), k1n, k2n = counted(
+            torch, lambda: drive_chunked(ticker, audios))
+        n_steps = ticker.steps - steps
+        require((k1n, k2n) == (cfg.encoder_layers * n_steps, n_steps),
+                f"mesh ticker: K1 / K2 {k1n} / {k2n} over {n_steps} steps")
+        return ids, finals, n_steps, statistics.median(
+            t for t, _, full in ticks if full) * 1e3
+    ids0, fin0, steps0, ms0 = run(BatchedChunkedASR(
+        params, cfg, OnlineConfig(), capacity=MESH_TICK_CAPACITY,
+        partials=True, device="cuda"))
+    require(sum(len(v) for v in ids0.values()) > 0, "the ticker fired "
+            "no token")
+    out = dict(meshless=dict(steps=steps0, tick_ms=ms0))
+    for name, positions in mesh_layouts(torch):
+        t = BatchedChunkedASR(params, cfg, OnlineConfig(),
+                              capacity=MESH_TICK_CAPACITY, partials=True,
+                              mesh=Mesh(positions, ("data",)))
+        ids, fin, steps, ms = run(t)
+        require(ids == ids0 and fin == fin0,
+                f"mesh ticker over {name}: ids differ from the meshless "
+                "ticker's")
+        print(f"mesh (b) chunked ticker C={MESH_TICK_CAPACITY} over {name}: "
+              f"{MESH_TICK_SESSIONS} sessions x {MESH_TICK_CHUNKS} chunks, "
+              f"partial and final ids equal to the meshless ticker's "
+              f"({sum(len(v) for v in ids.values())} tokens); {steps} steps "
+              f"({steps0} meshless), K1 {cfg.encoder_layers} / K2 1 per "
+              f"step; tick median {ms:.2f} ms ({ms0:.2f} meshless; {card})",
+              flush=True)
+        out[name] = dict(steps=steps, tick_ms=ms, rows_per=t.rows_per)
+    return out
+
+
+def mesh_synth(torch, card, synth):
+    """(c) `Synthesizer(use_mesh=True)` over each of `mesh_layouts` against
+    `use_mesh=False`, both pinned as phase 7 (NAR, one call per batch): the
+    first 3 segments (3 rows pad to the positions), equal durations, PCM
+    within TTS_PCM_LSB."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.tts.synthesizer import Synthesizer
+    segs = tts_segments(synth)[:3]
+    want, dwant = tts_pin(Synthesizer(
+        synth.ap, synth.acfg, synth.vp, synth.vcfg,
+        device="cuda")).synthesize_segments(segs, "zhitian_emo")
+    out = {}
+    for name, positions in mesh_layouts(torch):
+        with mesh_positions(positions):
+            s = tts_pin(Synthesizer(synth.ap, synth.acfg, synth.vp,
+                                    synth.vcfg, device="cuda",
+                                    use_mesh=True))
+        got, dgot = s.synthesize_segments(segs, "zhitian_emo")
+        require(dgot == dwant, f"mesh synth over {name}: durations differ")
+        lsb = max(int(np.abs(np.round(a * 32767) - np.round(b * 32767))
+                      .max()) for a, b in zip(got, want))
+        require(lsb <= TTS_PCM_LSB, f"mesh synth over {name}: PCM differs "
+                                    f"by {lsb} LSB")
+        print(f"mesh (c) synthesizer over {name}: {len(segs)} segments on "
+              f"{len(s._positions)} positions, durations equal, PCM max|d| "
+              f"{lsb} LSB (limit {TTS_PCM_LSB})", flush=True)
+        out[name] = dict(segments=len(segs), lsb=lsb)
+    return out
+
+
+def long_row(wavs):
+    import numpy as np
+    x = np.concatenate(list(wavs) * 2)
+    return x[:int(MESH_SEQ_SECONDS * SR)]
+
+
+def mesh_seq_parallel(torch, card, peaks, floor_ms, params, cfg, wavs):
+    """(d) `encode_seq_parallel` over 4 positions of card 0 on one 60 s row
+    against `paraformer.encode` (max |d| within the reference test's
+    2e-4), `transcribe_long_forward`'s ids against `paraformer.forward`'s;
+    K1 once per layer per position, on the gathered V (timed beside its
+    plain version, its library yardstick and its bound)."""
+    from toolbox_for_asr_and_tts_tpu_torch.models import paraformer
+    from toolbox_for_asr_and_tts_tpu_torch.ops import frontend as fe
+    from toolbox_for_asr_and_tts_tpu_torch.ops import nn
+    from toolbox_for_asr_and_tts_tpu_torch.parallel import seqparallel as sq
+    from toolbox_for_asr_and_tts_tpu_torch.parallel.sharding import (
+        make_2d_mesh)
+    dev = torch.device("cuda", 0)
+    n = MESH_SEQ_POSITIONS
+    mesh = make_2d_mesh(n, 1, devices=[dev] * n)
+    wav = torch.from_numpy(long_row(wavs))[None].to(dev)
+    with torch.inference_mode():
+        feats = fe.compute_frontend(wav, cfg.frontend)
+        t = feats.shape[1]
+        lens = torch.tensor([t], device=dev)
+        mask = nn.length_mask(lens, t)
+        fp, mp = sq.pad_to_blocks(feats, mask, n)
+        want = paraformer.encode(params, fp, mp, cfg)
+        got, k1n, _ = counted(torch, lambda: sq.encode_seq_parallel(
+            params, fp, mp, cfg, mesh))
+        d = (got - want).abs().max().item()
+        k_max = paraformer.max_tokens_for(t)
+        long_ = sq.transcribe_long_forward(params, feats, lens, k_max, cfg,
+                                           mesh)
+        plain = paraformer.forward(params, feats, lens, k_max, cfg)
+    require(k1n == cfg.encoder_layers * n, f"seq-parallel K1 {k1n}, "
+            f"expected {cfg.encoder_layers * n}")
+    require(d <= MESH_SEQ_TOL, f"seq-parallel encode max|d| {d}")
+    same = (torch.equal(long_["tokens"], plain["tokens"])
+            and torch.equal(long_["token_count"], plain["token_count"]))
+    require(same, "transcribe_long_forward's ids differ from forward's")
+    require(int(plain["token_count"].sum()) > 0, "the long row fired no "
+                                                 "token")
+    # K1 at the gathered V: a contiguous [1, T_padded, 512] on every position
+    g = torch.Generator(device=dev).manual_seed(5)
+    xv = torch.randn((1, fp.shape[1], K1_D), generator=g, device=dev)
+    w = torch.randn((K1_D, 1, K1_K), generator=g, device=dev) * 0.02
+    row = k1_measure(torch, peaks, floor_ms, "seq-parallel gathered V", xv,
+                     w, K1_PAD, mp.float().contiguous(), 0.0,
+                     conv_plus_x(K1_PAD))
+    row["launches_per_encode"] = k1n
+    print(f"mesh (d) sequence parallel: {MESH_SEQ_SECONDS:.0f} s row, T "
+          f"{t} (padded {fp.shape[1]}) over {n} positions on cuda:0: max|enc "
+          f"- encode| {d:.3g} (tol {MESH_SEQ_TOL}), long-form ids equal "
+          f"({int(plain['token_count'].sum())} tokens), K1 {k1n} per encode "
+          f"({card})", flush=True)
+    return dict(seconds=MESH_SEQ_SECONDS, t=t, t_padded=fp.shape[1],
+                positions=n, max_abs_d=d, tol=MESH_SEQ_TOL, ids_equal=same,
+                k1_per_encode=k1n, k1_row=row)
+
+
+def mesh_batch(torch, cfg, wavs, k_max, vocab: int):
+    """Phase 10's batch: the 8 rows with random targets from a fixed seed
+    (3 tokens per second, at most k_max), features on the card."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.tools import finetune
+    rng = np.random.default_rng(9)
+    items = [(w, list(rng.integers(4, vocab, min(k_max, max(
+        1, int(3 * len(w) / SR)))))) for w in wavs]
+    return finetune._features(items, cfg.frontend, k_max,
+                              torch.device("cuda", 0))
+
+
+def mesh_pipeline(torch, card, peaks, floor_ms, params, cfg, batch):
+    """(e) `encode_pipelined`: the 49 layers after layer 0 in 7 stages on
+    7 positions of card 0, 8 microbatches of phase 10's 8 rows; outputs and
+    the stage parameters' gradients against the plain encoder's, restacked;
+    K1 and K1's backward launches. The loss is Σ y·r for a fixed random r:
+    the reference test's Σ y² has no gradient before the final LayerNorm
+    in exact arithmetic (a normalized row's Σ y² is fixed), so its
+    gradients there are rounding noise."""
+    from toolbox_for_asr_and_tts_tpu_torch.models import paraformer
+    from toolbox_for_asr_and_tts_tpu_torch.models.convert import tree_map
+    from toolbox_for_asr_and_tts_tpu_torch.ops import nn
+    from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import (
+        fsmn_conv_dw as kdw)
+    from toolbox_for_asr_and_tts_tpu_torch.parallel import pipeline as pp
+    from toolbox_for_asr_and_tts_tpu_torch.parallel.sharding import (
+        _flat_paths, make_2d_mesh)
+    dev = torch.device("cuda", 0)
+    s = MESH_PIPE_STAGES
+    mesh = make_2d_mesh(s, s, devices=[dev] * s)
+    feats = batch["feats"]
+    mask = nn.length_mask(batch["feat_lens"], feats.shape[1])
+    layers = params["encoder"]["layers"]
+    stage = tree_map(lambda a: a.detach().requires_grad_(True),
+                     pp.stack_stage_params(layers, s))
+    proj = torch.randn((feats.shape[0], feats.shape[1], cfg.d_model),
+                       generator=torch.Generator(device=dev).manual_seed(8),
+                       device=dev)
+    torch.cuda.synchronize()
+    kdw.launches = 0
+    t0 = time.perf_counter()
+    y, k1n, _ = counted(torch, lambda: pp.encode_pipelined(
+        params, stage, feats, mask, cfg, mesh, n_micro=MESH_PIPE_MICRO))
+    torch.cuda.synchronize()
+    kdw.launches = 0
+    (y * proj).sum().backward()
+    torch.cuda.synchronize()
+    bwd = kdw.launches
+    pipe_s = time.perf_counter() - t0
+    rest = [tree_map(lambda a: a.detach().requires_grad_(True), ly)
+            for ly in layers[1:]]
+    p2 = dict(params, encoder=dict(params["encoder"],
+                                   layers=[layers[0]] + rest))
+    y2 = paraformer.encode(p2, feats, mask, cfg)
+    (y2 * proj).sum().backward()
+    g_seq = pp.stack_stage_params([None] + tree_map(lambda a: a.grad, rest),
+                                  s)
+    dy = (y - y2).abs().max().item()
+    got = dict(_flat_paths(tree_map(lambda a: a.grad, stage)))
+    ref = dict(_flat_paths(g_seq))
+    rel = {k: ((got[k] - ref[k]).norm() / ref[k].norm()).item() for k in ref}
+    rel_max = {k: ((got[k] - ref[k]).abs().max()
+                   / ref[k].abs().max()).item() for k in ref}
+    worst_leaf = max(rel, key=rel.get)
+    worst = rel[worst_leaf]
+    n_pipe = cfg.encoder_layers - 1
+    want_k1 = 1 + n_pipe * MESH_PIPE_MICRO
+    require(k1n == want_k1, f"pipeline K1 {k1n}, expected {want_k1}")
+    require(bwd == n_pipe * MESH_PIPE_MICRO, f"pipeline K1 backward {bwd}, "
+            f"expected {n_pipe * MESH_PIPE_MICRO}")
+    require(dy <= MESH_PIPE_OUT_TOL, f"pipeline output max|d| {dy}")
+    require(worst <= MESH_PIPE_GRAD_REL, f"pipeline gradient rel {worst}")
+    # K1 at the per-microbatch V view: [1, T, 512] of a [1, T, 1536] qkv
+    g = torch.Generator(device=dev).manual_seed(6)
+    t = feats.shape[1]
+    xv = torch.randn((1, t, 3 * K1_D), generator=g, device=dev)[..., 2 * K1_D:]
+    w = torch.randn((K1_D, 1, K1_K), generator=g, device=dev) * 0.02
+    row = k1_measure(torch, peaks, floor_ms, "pipeline microbatch V", xv, w,
+                     K1_PAD, mask[:1].contiguous(), 0.0, conv_plus_x(K1_PAD))
+    row["launches_per_forward"] = k1n
+    el = 4
+    small = K1_D * K1_K * 4 * 2 + t * 4
+    bwd_bound, bwd_by = bound(3 * t * K1_D * el + small,
+                              (4 * K1_K + 2) * t * K1_D, peaks)
+    gv = torch.randn((1, t, K1_D), generator=g, device=dev)
+    m1 = mask[:1].contiguous()
+    bwd_ms = device_ms(torch, lambda: kdw.fsmn_conv_bwd(xv, gv, w, *K1_PAD,
+                                                        m1))
+    bwd_plain_ms = device_ms(torch, lambda: kdw.fsmn_conv_bwd_plain(
+        xv, gv, w, *K1_PAD, m1))
+    bwd_library_ms = device_ms(torch, lambda: conv_backward(
+        torch, K1_PAD, "both")(xv, gv, w))
+    print(f"mesh (e) pipeline: {n_pipe} layers in {s} stages on {s} "
+          f"positions of cuda:0, {MESH_PIPE_MICRO} microbatches of "
+          f"{feats.shape[0] // MESH_PIPE_MICRO} row(s), T {t}: max|y - "
+          f"encode| {dy:.3g} (tol {MESH_PIPE_OUT_TOL}), worst leaf gradient "
+          f"|d| / |g| {worst:.3g} ({worst_leaf}; tol {MESH_PIPE_GRAD_REL}), "
+          f"max|d| / max|g| {max(rel_max.values()):.3g} "
+          f"({max(rel_max, key=rel_max.get)}); K1 {k1n} "
+          f"forward, K1 backward {bwd}; forward + backward {pipe_s:.2f} s; "
+          f"K1 backward at [1, {t}, 512] {bwd_ms * 1e3:.2f} us, plain "
+          f"{bwd_plain_ms * 1e3:.2f} us, library {bwd_library_ms * 1e3:.2f} "
+          f"us, bound {bwd_bound * 1e3:.2f} us ({bwd_by}; {card})",
+          flush=True)
+    return dict(stages=s, layers=n_pipe, micro=MESH_PIPE_MICRO, t=t,
+                max_abs_dy=dy, out_tol=MESH_PIPE_OUT_TOL, grad_rel=worst,
+                grad_rel_leaf=worst_leaf, grad_tol=MESH_PIPE_GRAD_REL,
+                grad_max_rel=max(rel_max.values()), k1=k1n, k1_backward=bwd,
+                seconds=pipe_s, k1_row=row,
+                k1_backward_row=dict(shape=[1, t, K1_D, K1_K], ms=bwd_ms,
+                                     plain_ms=bwd_plain_ms,
+                                     library_ms=bwd_library_ms,
+                                     bound_ms=bwd_bound, bound_by=bwd_by))
+
+
+def mesh_train(torch, card, cfg, batch):
+    """(f) one dp + tp step (`make_train_step(cfg, mesh=...)`) on
+    `make_2d_mesh(4, model_parallel=2)` of card 0, from the seed-0 tree, at
+    phase 10's batch, against the single-device eager step: loss within
+    rel 1e-4, every leaf's gradient within MESH_TP_GRAD_REL of its norm, the
+    updated parameters by MESH_TP_UPDATE_TOL; the data replicas bit-equal;
+    a `remat=True` step against the plain mesh step. cuDNN deterministic,
+    as phase 10."""
+    import dataclasses
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.models import paraformer
+    from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import (
+        fsmn_conv_dw as kdw)
+    from toolbox_for_asr_and_tts_tpu_torch.parallel import trainstep as ts
+    from toolbox_for_asr_and_tts_tpu_torch.parallel.sharding import (
+        _flat_paths, make_2d_mesh, shard_params)
+    from toolbox_for_asr_and_tts_tpu_torch.runtime.mesh import Sharded
+    dev = torch.device("cuda", 0)
+    mesh = make_2d_mesh(4, model_parallel=2, devices=[dev] * 4)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        def fresh():
+            from toolbox_for_asr_and_tts_tpu_torch.models.convert import (
+                tree_to)
+            return tree_to(paraformer.init_params(
+                cfg, torch.Generator().manual_seed(0)), dev)
+
+        local = fresh()
+        init_opt, step = ts.make_train_step(cfg, ts.adamw(FT_LR), device=dev)
+        opt = init_opt(local)
+        _, _, m_local = step(local, opt, batch)
+
+        def mesh_step(c):
+            sp = shard_params(fresh(), mesh)
+            init, st = ts.make_train_step(c, ts.adamw(FT_LR), mesh=mesh)
+            o = init(sp)
+            torch.cuda.synchronize()
+            kdw.launches = 0
+            t0 = time.perf_counter()
+            (_, _, m), k1n, k2n = counted(torch, lambda: st(sp, o, batch))
+            return sp, m, (k1n, kdw.launches), time.perf_counter() - t0
+        sp, m, launches, wall_s = mesh_step(cfg)
+        sp_r, m_r, launches_r, wall_r = mesh_step(
+            dataclasses.replace(cfg, remat=True))
+        l_local, l_mesh = m_local["loss"].item(), m["loss"].item()
+        rel = abs(l_mesh - l_local) / abs(l_local)
+        require(rel <= 1e-4, f"dp + tp loss {l_mesh} vs {l_local}")
+        paths = [p for p, _ in _flat_paths(sp)]
+        leaves_sp = ts.param_leaves(sp)
+        leaves_local = ts.param_leaves(local)
+        g_rel, n_off, n_all, worst_p = {}, 0, 0, 0.0
+        for path, a, b in zip(paths, leaves_sp, leaves_local):
+            g = Sharded([t.grad if t.grad is not None else torch.zeros_like(t)
+                         for t in a.shards], a.sharding).gather()
+            g_rel[path] = ((g - b.grad).norm()
+                           / b.grad.norm().clamp_min(1e-30)).item()
+            d = (a.gather() - b.detach()).abs()
+            worst_p = max(worst_p, d.max().item())
+            n_off += int((d > MESH_TP_UPDATE_TOL).sum())
+            n_all += d.numel()
+        top = sorted(g_rel, key=g_rel.get, reverse=True)[:4]
+        worst_g = g_rel[top[0]]
+        print("mesh (f) worst gradient leaves |dg| / |g|: " + ", ".join(
+            f"{p} {g_rel[p]:.3g}" for p in top), flush=True)
+        n_data = mesh.shape["data"]
+        for leaf in leaves_sp:
+            k = len(leaf.shards) // n_data
+            for dd in range(1, n_data):
+                require(all(torch.equal(x, y) for x, y in zip(
+                    leaf.shards[:k], leaf.shards[dd * k:(dd + 1) * k])),
+                    "dp + tp: data replicas differ")
+        remat_equal = all(torch.equal(x, y) for a, b in zip(
+            leaves_sp, ts.param_leaves(sp_r)) for x, y in zip(a.shards,
+                                                               b.shards))
+        remat_d = max((x - y).abs().max().item() for a, b in zip(
+            leaves_sp, ts.param_leaves(sp_r)) for x, y in zip(a.shards,
+                                                               b.shards))
+        loss_eq = m_r["loss"].item() == l_mesh
+        layers = cfg.encoder_layers + cfg.decoder_layers
+        print(f"mesh (f) dp + tp step on {mesh.shape} of cuda:0: loss "
+              f"{l_mesh:.6f} vs single-device {l_local:.6f} (rel {rel:.3g}, "
+              f"tol 1e-4), worst leaf |dg| / |g| {worst_g:.3g} (tol "
+              f"{MESH_TP_GRAD_REL}), updated params max|d| {worst_p:.3g} (tol "
+              f"2 lr), {n_off} of {n_all} elements past "
+              f"{MESH_TP_UPDATE_TOL}; data replicas bit-equal; remat step "
+              f"{'bit-equal' if remat_equal else f'max|d| {remat_d:.3g}'} to "
+              f"the plain one (loss {'equal' if loss_eq else 'differs'}); "
+              f"K1 / backward {launches} per step, remat {launches_r}; "
+              f"step {wall_s:.2f} s, remat {wall_r:.2f} s ({card})",
+              flush=True)
+        require(worst_g <= MESH_TP_GRAD_REL, f"dp + tp gradient rel "
+                                             f"{worst_g}")
+        require(worst_p <= 2 * FT_LR, f"dp + tp update max|d| {worst_p}")
+        require(n_off <= 1e-3 * n_all, f"dp + tp: {n_off} of {n_all} "
+                f"elements off by more than {MESH_TP_UPDATE_TOL}")
+        require(remat_d <= MESH_TP_UPDATE_TOL, f"remat step max|d| {remat_d}")
+        require(launches == (layers * n_data, layers * n_data),
+                f"dp + tp K1 / backward {launches}")
+        require(launches_r == ((layers + cfg.encoder_layers) * n_data,
+                               layers * n_data),
+                f"remat K1 / backward {launches_r}")
+        return dict(mesh=mesh.shape, loss=l_mesh, loss_local=l_local,
+                    loss_rel=rel, grad_rel=worst_g, grad_rel_leaf=top[0],
+                    update_max_abs=worst_p,
+                    update_off=n_off, elements=n_all,
+                    remat_bit_equal=remat_equal, remat_max_abs=remat_d,
+                    remat_loss_equal=loss_eq, launches=list(launches),
+                    launches_remat=list(launches_r), step_s=wall_s,
+                    remat_step_s=wall_r)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def mesh_path(torch, card, peaks, floor_ms, reco, wavs, synth):
+    """Phase 13: the multi-card layer at full width."""
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    print(f"mesh phase: {n} card(s) visible; positions repeat cuda:0 where "
+          "a mesh has more positions than cards", flush=True)
+    out = dict(cards=n)
+    out["transcribe"] = mesh_transcribe(torch, card, reco, wavs)
+    out["ticker"] = mesh_ticker(torch, card, reco.params)
+    out["synth"] = mesh_synth(torch, card, synth)
+    out["seq_parallel"] = mesh_seq_parallel(torch, card, peaks, floor_ms,
+                                            reco.params, reco.cfg, wavs)
+    batch = mesh_batch(torch, reco.cfg, wavs, FT_K_MAX,
+                       len(reco.tokenizer.tokens))
+    out["pipeline"] = mesh_pipeline(torch, card, peaks, floor_ms,
+                                    reco.params, reco.cfg, batch)
+    out["train"] = mesh_train(torch, card, reco.cfg, batch)
+    graph_snapshot("mesh")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"mesh phase: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def mesh_launches(mesh, k: str):
+    """Phase 13's counts: each mesh transcribe's per position, and (K1)
+    the sequence-parallel encode's and the pipeline's."""
+    i = 0 if k == "k1" else 1
+    out = dict(launches_mesh_per_position={
+        name: [c[i] for c in run["per_position"]]
+        for name, run in mesh["transcribe"].items()
+        if isinstance(run, dict)})
+    if k == "k1":
+        out.update(launches_mesh_seq_parallel=mesh["seq_parallel"][
+                       "k1_per_encode"],
+                   launches_mesh_pipeline=mesh["pipeline"]["k1"],
+                   launches_mesh_train_step=mesh["train"]["launches"][0])
+    return out
+
+
+def only_mesh(torch, card, peaks, floor_ms, at) -> int:
+    """`--only-mesh`: phase 13 alone, over phase 3's recognizer and phase
+    7's synthesizer built afresh; prints its JSON line and no result
+    line."""
+    from toolbox_for_asr_and_tts_tpu_torch.asr.recognizer import Recognizer
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer import (
+        ParaformerConfig)
+    from toolbox_for_asr_and_tts_tpu_torch.tts.synthesizer import Synthesizer
+    try:
+        at("phase 13: the mesh layer")
+        reco = Recognizer.random(ParaformerConfig(), seed=0)
+        synth = tts_pin(Synthesizer.random(seed=0, tiny=False))
+        mesh = mesh_path(torch, card, peaks, floor_ms, reco, make_wavs(),
+                         synth)
+    except Exception:
+        traceback.print_exc()
+        return 1
+    print(json.dumps({"mesh": mesh, "card": card}))
+    return 0
+
+
 def main(argv) -> int:
     import shutil
     import tempfile
@@ -5086,6 +5696,8 @@ def main(argv) -> int:
         floor_ms = device_ms(torch, lambda: torch.cuda._sleep(1))
         print(f"launch floor of the event method (a 1-cycle spin kernel): "
               f"{floor_ms * 1e3:.2f} us per launch", flush=True)
+        if "--only-mesh" in argv:
+            return only_mesh(torch, card, peaks, floor_ms, at)
         k1_rows = check_k1(torch, peaks, floor_ms)
         k1_backward = check_k1_backward(torch, peaks, floor_ms)
         if "--sweep" in argv:
@@ -5133,6 +5745,8 @@ def main(argv) -> int:
                                      checkpoints["service"]["rest_text"])
         finally:
             shutil.rmtree(root, ignore_errors=True)
+        at("phase 13: the mesh layer")
+        mesh = mesh_path(torch, card, peaks, floor_ms, reco, wavs, synth)
     except Exception:   # every phase failure ends the run without a result
         traceback.print_exc()
         return 1
@@ -5202,7 +5816,10 @@ def main(argv) -> int:
                  s: r["k1_per_step"]
                  for s, r in precision["int8_streaming"].items()},
              **dispatch_launches("k1"),
-             shapes=k1_rows + k1_stream + k1_service),
+             **mesh_launches(mesh, "k1"),
+             shapes=k1_rows + k1_stream + k1_service + [
+                 mesh["seq_parallel"]["k1_row"],
+                 mesh["pipeline"]["k1_row"]]),
         dict(name="fsmn_conv_dw", route="cuda",
              source="toolbox_for_asr_and_tts_tpu_torch/csrc/fsmn_conv_dw.cu",
              replaces="toolbox_for_asr_and_tts_tpu/ops/pallas/fsmn_conv.py:38",
@@ -5216,7 +5833,9 @@ def main(argv) -> int:
              replay_equal=main_bwd["replay_equal"],
              replay_ms=main_bwd["replay_ms"],
              dx_by_k1_plus_dw_only_ms=main_bwd["dx_by_k1_plus_dw_only_ms"],
-             shapes=k1_backward),
+             launches_mesh_pipeline=mesh["pipeline"]["k1_backward"],
+             launches_mesh_train_step=mesh["train"]["launches"][1],
+             shapes=k1_backward + [mesh["pipeline"]["k1_backward_row"]]),
         dict(name="frame_window", route="cuda",
              source="toolbox_for_asr_and_tts_tpu_torch/csrc/frame_window.cu",
              replaces="toolbox_for_asr_and_tts_tpu/ops/pallas/frame_window.py:56",
@@ -5243,6 +5862,7 @@ def main(argv) -> int:
                  s: r["k2_per_step"]
                  for s, r in precision["int8_streaming"].items()},
              **dispatch_launches("k2"),
+             **mesh_launches(mesh, "k2"),
              shapes=[k2_row] + k2_stream + k2_service),
     ]
     graph_snapshot("end")
@@ -5256,6 +5876,7 @@ def main(argv) -> int:
     print(json.dumps({"train": train, "card": card}))
     print(json.dumps({"precision": precision, "card": card}))
     print(json.dumps({"dispatch": dispatch, "card": card}))
+    print(json.dumps({"mesh": mesh, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

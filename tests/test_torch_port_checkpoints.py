@@ -90,11 +90,8 @@ def _assert_trees_equal(ref_tree, port_tree):
 
 
 def _assert_cfg_equal(port_cfg, ref_cfg):
-    """The port's config fields equal the reference's (the reference has a
-    few more, such as Paraformer's `remat`, that the port does not keep)."""
-    got, want = dataclasses.asdict(port_cfg), dataclasses.asdict(ref_cfg)
-    assert set(got) <= set(want)
-    assert got == {k: want[k] for k in got}
+    """The port's config equals the reference's, field for field."""
+    assert dataclasses.asdict(port_cfg) == dataclasses.asdict(ref_cfg)
 
 
 def _write_mvn(path, dim, seed):

@@ -1219,3 +1219,98 @@ def test_rehearse_on_a_tiny_zoo_exits_0_on_the_card(cuda, tmp_path, capsys,
     assert report["ok"], report["strict_failures"]
     assert {v["status"] for v in report["families"].values()} == {"converted"}
     assert report["service"]["tts"]["status"] == "completed"
+
+
+# ----------------------------------------------------- the mesh layer
+def _positions(monkeypatch, devices):
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import mesh
+    monkeypatch.setattr(mesh, "local_devices",
+                        lambda platform="cuda": list(devices))
+
+
+def test_mesh_transcribe_on_two_positions_equals_one(cuda, no_tf32,
+                                                     monkeypatch):
+    """(a) at tiny width: 2 positions on card 0 (each its own programs and
+    K1 / K2 launches) give the ids of `use_mesh=False`; each position's
+    owner is card 0."""
+    from toolbox_for_asr_and_tts_tpu_torch.asr.recognizer import Recognizer
+    alone = _tiny_recognizer(cuda)
+    c0 = torch.device("cuda", 0)
+    _positions(monkeypatch, [c0, c0])
+    reco = Recognizer(alone.params, alone.cfg, alone.tokenizer,
+                      bucketer=alone.bucketer, device="cuda")
+    assert [o.device for o in reco._positions] == [c0, c0]
+    wavs = _wavs(21, (16000, 9000, 30000))
+    want = alone.transcribe(wavs)
+    before = (k1.launches, k2.launches)
+    got = reco.transcribe(wavs)
+    torch.cuda.synchronize()
+    assert [r.token_ids for r in got] == [r.token_ids for r in want]
+    layers = alone.cfg.encoder_layers + alone.cfg.decoder_layers
+    assert (k1.launches - before[0], k2.launches - before[1]) == \
+        (2 * layers, 2)
+    assert all(o.replays == 1 for o in reco._positions)
+
+
+def test_seq_parallel_on_the_card_equals_encode(cuda, no_tf32):
+    """(d) at tiny width: 4 positions of card 0, K1 on the gathered V each
+    layer; the encoding within the reference test's 2e-4 of `encode`, the
+    long-form ids equal `forward`'s."""
+    from toolbox_for_asr_and_tts_tpu_torch.models import paraformer as pf
+    from toolbox_for_asr_and_tts_tpu_torch.models.convert import tree_to
+    from toolbox_for_asr_and_tts_tpu_torch.ops import nn
+    from toolbox_for_asr_and_tts_tpu_torch.parallel import seqparallel as sq
+    from toolbox_for_asr_and_tts_tpu_torch.parallel.sharding import (
+        make_2d_mesh)
+    cfg = pf.ParaformerConfig(input_dim=24, d_model=16, n_heads=2,
+                              ffn_dim=32, encoder_layers=3, decoder_layers=1,
+                              vocab_size=32)
+    params = tree_to(pf.init_params(cfg, torch.Generator().manual_seed(0)),
+                     cuda)
+    rng = np.random.default_rng(0)
+    feats = _randn(rng, 2, 64, 24).to(cuda)
+    lens = torch.tensor([64, 41], device=cuda)
+    mask = nn.length_mask(lens, 64)
+    mesh = make_2d_mesh(4, 1, devices=[torch.device("cuda", 0)] * 4)
+    with torch.inference_mode():
+        before = k1.launches
+        got = sq.encode_seq_parallel(params, feats, mask, cfg, mesh)
+        torch.cuda.synchronize()
+        assert k1.launches - before == 4 * cfg.encoder_layers
+        want = pf.encode(params, feats, mask, cfg)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        long_ = sq.transcribe_long_forward(params, feats, lens, 12, cfg,
+                                           mesh)
+        plain = pf.forward(params, feats, lens, 12, cfg)
+    assert torch.equal(long_["tokens"], plain["tokens"])
+    assert torch.equal(long_["token_count"], plain["token_count"])
+
+
+def test_kernels_launch_on_a_second_card(cuda):
+    """K1, K1's backward and K2 launch on their tensors' card and its
+    current stream, whichever card is current (needs two cards)."""
+    from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import (
+        fsmn_conv_dw as kdw)
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second card")
+    c1 = torch.device("cuda", 1)
+    rng = np.random.default_rng(3)
+    x = _randn(rng, 2, 40, 64).to(c1)
+    w = _randn(rng, 64, 1, 11, scale=0.1).to(c1)
+    g = _randn(rng, 2, 40, 64).to(c1)
+    with torch.cuda.device(0):
+        y = k1.fsmn_depthwise(x, w, 5, 5)
+        dx, dw = kdw.fsmn_conv_bwd(x, g, w, 5, 5)
+        audio = _randn(rng, 2, 16000).to(c1)
+        win = torch.hamming_window(400, periodic=False).to(c1)
+        fr = k2.frame_window(audio, win, 98, 400, 160, 512)
+    torch.cuda.synchronize(c1)
+    assert y.device == dx.device == dw.device == fr.device == c1
+    torch.testing.assert_close(y, k1.fsmn_depthwise_plain(x, w, 5, 5),
+                               rtol=0, atol=0)
+    pdx, pdw = kdw.fsmn_conv_bwd_plain(x, g, w, 5, 5)
+    torch.testing.assert_close(dx, pdx, rtol=0, atol=0)
+    torch.testing.assert_close(dw, pdw, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        fr, k2.frame_window_plain(audio, win, 98, 400, 160, 512),
+        rtol=1e-5, atol=1e-5 * float(audio.abs().max()))

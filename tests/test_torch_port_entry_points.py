@@ -83,11 +83,12 @@ def test_cli_transcribe_itn_prints_the_reference_json(tmp_path, capsys,
     jcli.main()
     want = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     built = []
-    monkeypatch.setattr(E, "build_engines", lambda model_dir, device: (
-        built.append((model_dir, device)) or _port_engines_like(jeng)))
-    cli.main(["transcribe", *paths, "--itn", "--device", "cpu"])
+    monkeypatch.setattr(E, "build_engines", lambda model_dir, device,
+                        use_mesh: (built.append((model_dir, device, use_mesh))
+                                   or _port_engines_like(jeng)))
+    cli.main(["transcribe", *paths, "--itn", "--device", "cpu", "--no-mesh"])
     got = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
-    assert built == [(None, "cpu")]
+    assert built == [(None, "cpu", False)]
     assert got == want and len(got) == 2
     assert all(r["text"] for r in got)
 

@@ -368,19 +368,15 @@ def test_tts_entry_points_run_on_explicit_cpu():
         assert leaves and all(a.device == cpu for a in leaves), name
 
 
-# the reference's mesh names, which wait for the multi-card slice
-MESH_NAMES = {"serving_mesh", "local_device_count", "shard_batch"}
-
-
 @pytest.mark.parametrize("sub", ["ops", "models", "runtime", "utils", "asr",
                                  "tts", "service"])
 def test_subpackage_exports_match_the_reference(sub):
-    """Each subpackage exports the reference's names (less the mesh names),
-    and each name resolves."""
+    """Each subpackage exports the reference's names, and each name
+    resolves."""
     import importlib
     ref = importlib.import_module(f"{REF}.{sub}")
     ours = importlib.import_module(f"toolbox_for_asr_and_tts_tpu_torch.{sub}")
-    assert set(ours.__all__) == set(ref.__all__) - MESH_NAMES
+    assert set(ours.__all__) == set(ref.__all__)
     for name in ours.__all__:
         assert getattr(ours, name) is not None, name
 

@@ -17,6 +17,16 @@ card a captured CUDA graph, replayed with the audio copied in from pinned
 memory and the packed per-token outputs fetched in one copy. Bucketing,
 that fetch, rescoring's log-softmax and the text stay on the host.
 
+`use_mesh=True` (the default, as the reference's) serves over
+`runtime/mesh.py::serving_mesh()`: the batch pads to a multiple of the
+mesh's positions and splits into one contiguous block of rows per
+position; each position replays its own programs (its own K2 and K1
+launches) on its device's replica of the parameters (one replica per
+distinct device), and each position's outputs come back in one fetch. The
+fetches are queued before any is waited on, so distinct cards overlap. On
+a one-card host the mesh has one position: the programs and launches are
+those of `use_mesh=False`.
+
 PARAFORMER_TRANSFER_INT16 (else the dispatch profile's
 `asr_int16_transfer`, `runtime/autotune.py`), read at construction: the
 host rounds the padded batch to int16 PCM (`to_int16_pcm`), the staging
@@ -41,7 +51,8 @@ from ..models.convert import tree_to
 from ..ops import frontend as fe
 from ..ops import nn
 from ..runtime.bucketing import Bucketer
-from ..runtime.graphs import Program, Programs
+from ..runtime.graphs import Program, Programs, to_host
+from ..runtime.mesh import per_position, serving_mesh
 from ..runtime.metrics import RTFMeter, Tally, timing_log
 from .tokenizer import CharTokenizer
 
@@ -80,9 +91,12 @@ class Recognizer:
                  bucketer: Optional[Bucketer] = None,
                  device: DeviceLike = None,
                  param_dtype: Optional[torch.dtype] = None,
-                 lm=None, lm_weight: float = 0.3):
+                 lm=None, lm_weight: float = 0.3, use_mesh: bool = True):
         """params: a Paraformer tensor tree (moved to `device`); device:
-        the card unless "cpu" is passed; param_dtype: the floating leaves'
+        the card unless "cpu" is passed; use_mesh: serve over
+        `serving_mesh(device=device)`, every local device of the platform
+        (`self.device` is then the mesh's first), else on `device` alone;
+        param_dtype: the floating leaves'
         dtype (torch.bfloat16 halves the weights; the products still run
         in f32, `nn.dot`); lm: optional asr.ngram_lm.ArpaLM fused into
         decoding, loaded from $NGRAM_LM_FILE when none is passed unless
@@ -91,6 +105,10 @@ class Recognizer:
         `paraformer.quantize_encoder_int8`) after the cast, as the
         reference does; any other value leaves the tree as it is."""
         self.device = resolve_device(device)
+        self.mesh = serving_mesh(device=self.device) if use_mesh else None
+        positions = (self.mesh.positions() if self.mesh is not None
+                     else [self.device])
+        self.device = positions[0]
         self.cfg = cfg
         self.tokenizer = tokenizer
         if lm is None and os.getenv("NGRAM_LM_FILE") \
@@ -104,12 +122,15 @@ class Recognizer:
         params = tree_to(params, self.device, param_dtype)
         if os.getenv("PARAFORMER_QUANT", "") == "int8":
             params = paraformer.quantize_encoder_int8(params)
-        self.params = params
+        self.params = params          # position 0's tree
         self.cmvn = None
         if cmvn is not None:
             self.cmvn = tuple(torch.as_tensor(np.asarray(c, np.float32),
                                               device=self.device)
                               for c in cmvn)
+        # (params, cmvn) per mesh position, one copy per distinct device
+        self._replicas = list(zip(per_position(self.params, positions),
+                                  per_position(self.cmvn, positions)))
         # int16 audio upload: an explicit env var wins, else the profile
         from ..runtime.autotune import env_or_profile
         self._int16_transfer = env_or_profile("PARAFORMER_TRANSFER_INT16",
@@ -117,7 +138,10 @@ class Recognizer:
         self.rtf = RTFMeter()
         # one program per (batch, audio bucket) forward and per rescoring
         # bucket; on the card each is a captured graph
-        self._programs = Programs(self.device, "recognizer")
+        self._positions = [Programs(dev, "recognizer" if i == 0
+                                    else f"recognizer@{i}")
+                           for i, dev in enumerate(positions)]
+        self._programs = self._positions[0]
         # device programs run (telemetry): forwards (K2 once, K1 in
         # every encoder and decoder layer) and the rescoring re-decode
         self.forwards = Tally()
@@ -192,11 +216,13 @@ class Recognizer:
                    cmvn=cmvn, device=device, **kw)
 
     # ----------------------------------------------------------- forward
-    def _forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor
-                 ) -> Dict[str, torch.Tensor]:
-        """The eager forward of one bucket: padded audio [B, n_samples] f32
-        and valid lengths [B] int64 on the device → `paraformer.forward`'s
-        outputs plus `feat_lens`."""
+    def _forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor,
+                 pos: int = 0) -> Dict[str, torch.Tensor]:
+        """The eager forward of one bucket on mesh position `pos`'s
+        replica: padded audio [B, n_samples] f32 and valid lengths [B]
+        int64 on its device → `paraformer.forward`'s outputs plus
+        `feat_lens`."""
+        params, cmvn = self._replicas[pos]
         n_samples = wavs.shape[1]
         fcfg = self.fe_cfg
         t_fb = fe.num_fbank_frames(n_samples, fcfg)
@@ -208,10 +234,10 @@ class Recognizer:
         vfb = fe.num_valid_fbank_frames(wav_lens, fcfg)
         feats = fe.apply_lfr(feats, fcfg.lfr_m, fcfg.lfr_n, t_out=t_lfr,
                              valid_frames=vfb)
-        if self.cmvn is not None:
-            feats = fe.apply_cmvn(feats, self.cmvn[0], self.cmvn[1])
+        if cmvn is not None:
+            feats = fe.apply_cmvn(feats, cmvn[0], cmvn[1])
         feat_lens = fe.frontend_valid_frames(wav_lens, fcfg)
-        out = paraformer.forward(self.params, feats, feat_lens, k_max, self.cfg)
+        out = paraformer.forward(params, feats, feat_lens, k_max, self.cfg)
         out["feat_lens"] = feat_lens
         return out
 
@@ -220,16 +246,18 @@ class Recognizer:
                        ) -> Dict[str, torch.Tensor]:
         """Padded audio [B, n_samples] (one bucket) and valid lengths [B] →
         `paraformer.forward`'s outputs on the device, plus `feat_lens`: the
-        eager call, run directly (`transcribe` replays its program)."""
+        eager call, run directly on mesh position 0 (`transcribe` replays
+        its programs)."""
         self.forwards.add()
         return self._forward(
             torch.from_numpy(np.asarray(batch, np.float32)).to(self.device),
             torch.from_numpy(np.asarray(lens, np.int64)).to(self.device))
 
-    def _fn_for(self, batch: int, n_samples: int) -> Program:
+    def _fn_for(self, batch: int, n_samples: int, pos: int = 0) -> Program:
         """The forward program of one (batch, samples, int16 upload) bucket
-        (ref `_fn_for`): audio and lengths → every per-token output packed
-        into one f32 array [B, 1 + n·k_max] (one fetch), and the tensors
+        on mesh position `pos` (ref `_fn_for`): audio and lengths → every
+        per-token output packed into one f32 array [B, 1 + n·k_max] (one
+        fetch), and the tensors
         the rescoring pass re-decodes from (`enc`, `embeds`, `feat_lens`,
         `token_count`), kept on the device."""
         int16_in = self._int16_transfer
@@ -238,7 +266,7 @@ class Recognizer:
             def run(wavs, wav_lens):
                 if int16_in:
                     wavs = from_int16_pcm(wavs)
-                out = self._forward(wavs, wav_lens)
+                out = self._forward(wavs, wav_lens, pos)
                 cols = [out["token_count"][:, None], out["tokens"],
                         out["token_center"], out["token_start"],
                         out["fire_frame"]]
@@ -250,17 +278,18 @@ class Recognizer:
             return run, [((batch, n_samples),
                           torch.int16 if int16_in else torch.float32),
                          ((batch,), torch.int64)]
-        return self._programs.get(("forward", batch, n_samples, int16_in),
-                                  build)
+        return self._positions[pos].get(
+            ("forward", batch, n_samples, int16_in), build)
 
     _RESCORING_INPUTS = ("embeds", "token_count", "enc", "feat_lens")
 
     def _rescore(self, embeds: torch.Tensor, token_count: torch.Tensor,
                  enc: torch.Tensor, feat_lens: torch.Tensor,
-                 k_b: int) -> torch.Tensor:
+                 k_b: int, pos: int = 0) -> torch.Tensor:
         token_mask = nn.length_mask(torch.clamp_max(token_count, k_b), k_b)
         mem_mask = nn.length_mask(feat_lens, enc.shape[1])
-        logits = paraformer.decode(self.params, embeds[:, :k_b], token_mask,
+        logits = paraformer.decode(self._replicas[pos][0], embeds[:, :k_b],
+                                   token_mask,
                                    enc, mem_mask, self.cfg)
         return logits.to(torch.bfloat16)
 
@@ -274,18 +303,20 @@ class Recognizer:
         self.rescorings.add()
         return self._rescore(embeds, token_count, enc, feat_lens, k_b)
 
-    def _logits_fn(self, batch: int, t_lfr: int, k_b: int) -> Program:
-        """The rescoring program of one (batch, t_lfr, k_b) bucket (ref
-        `_logits_fn`)."""
+    def _logits_fn(self, batch: int, t_lfr: int, k_b: int,
+                   pos: int = 0) -> Program:
+        """The rescoring program of one (batch, t_lfr, k_b) bucket on mesh
+        position `pos` (ref `_logits_fn`)."""
         def build():
             k_max = paraformer.max_tokens_for(t_lfr)
             d = self.cfg.d_model
-            return (lambda e, n, m, f: self._rescore(e, n, m, f, k_b),
+            return (lambda e, n, m, f: self._rescore(e, n, m, f, k_b, pos),
                     [((batch, k_max, d), torch.float32),
                      ((batch,), torch.int32),
                      ((batch, t_lfr, d), torch.float32),
                      ((batch,), torch.int64)])
-        return self._programs.get(("logits", batch, t_lfr, k_b), build)
+        return self._positions[pos].get(("logits", batch, t_lfr, k_b),
+                                        build)
 
     def _bucket_shapes(self, n_samples: int) -> Tuple[int, int]:
         """(t_lfr, k_max) of an audio bucket."""
@@ -302,10 +333,12 @@ class Recognizer:
         greedy output (asr/hotword_bias.py)."""
         if not isinstance(wavs, (list, tuple)):
             wavs = [wavs]
-        batch, lens = self.bucketer.pad_batch([np.asarray(w) for w in wavs])
+        n_pos = len(self._positions)
+        batch, lens = self.bucketer.pad_batch([np.asarray(w) for w in wavs],
+                                              batch_multiple=n_pos)
         want_logits = bool(hotwords) or self.lm is not None
         t0 = time.perf_counter()
-        prog = self._fn_for(batch.shape[0], batch.shape[1])
+        per = batch.shape[0] // n_pos
         t_lfr, k_max = self._bucket_shapes(batch.shape[1])
 
         def fetch(dev):
@@ -313,13 +346,17 @@ class Recognizer:
             # rescoring inputs are copied out on the device only when needed
             kept = ({k: dev[k].clone() for k in self._RESCORING_INPUTS}
                     if want_logits and dev["packed"].is_cuda else dev)
-            return dev["packed"].cpu().numpy(), kept
+            return to_host(dev["packed"]), kept
 
         batch = np.asarray(batch, np.float32)
         if self._int16_transfer:
             batch = to_int16_pcm(batch)
-        self.forwards.add()
-        packed, dev = prog(batch, lens, read=fetch)
+        self.forwards.add(n_pos)
+        # every position's replay and fetch queued, then waited on
+        shards = [self._fn_for(per, batch.shape[1], i)(
+            batch[i * per:(i + 1) * per], lens[i * per:(i + 1) * per],
+            read=fetch) for i in range(n_pos)]
+        packed = np.concatenate([wait() for wait, _ in shards])
         out = {
             "token_count": packed[:, 0].astype(np.int32),
             "tokens": packed[:, 1: 1 + k_max].astype(np.int32),
@@ -334,10 +371,12 @@ class Recognizer:
         if want_logits and int(out["token_count"].max()) > 0:
             kb = self.K_BUCKET
             k_b = min(-(-int(out["token_count"].max()) // kb) * kb, k_max)
-            self.rescorings.add()
-            logits_np = self._logits_fn(batch.shape[0], t_lfr, k_b)(
+            self.rescorings.add(n_pos)
+            waits = [self._logits_fn(per, t_lfr, k_b, i)(
                 *(dev[k] for k in self._RESCORING_INPUTS),
-                read=lambda lg: lg.float().cpu().numpy())
+                read=lambda lg: to_host(lg.float()))
+                for i, (_, dev) in enumerate(shards)]
+            logits_np = np.concatenate([wait() for wait in waits])
         proc_s = time.perf_counter() - t0
         timing_log("offline_asr_batch", proc_s * 1000)
         sr = self.fe_cfg.sample_rate
@@ -397,10 +436,13 @@ class Recognizer:
         transcribes, so `transcribe` alone never reaches it)."""
         t_lfr, k_max = self._bucket_shapes(self.bucketer.bucket(n_samples))
         k_b = min(k_b or self.K_BUCKET, k_max)
-        prog = self._logits_fn(batch, t_lfr, k_b)
-        self.rescorings.add()
-        prog(*(torch.zeros(s, dtype=dt, device=self.device)
-               for s, dt in prog.specs), read=lambda lg: None)
+        n_pos = len(self._positions)
+        per = -(-batch // n_pos)   # the batch pads to the mesh, as served
+        for i, owner in enumerate(self._positions):
+            prog = self._logits_fn(per, t_lfr, k_b, i)
+            self.rescorings.add()
+            prog(*(torch.zeros(s, dtype=dt, device=owner.device)
+                   for s, dt in prog.specs), read=lambda lg: None)
 
     def transcribe_file(self, path: str) -> TranscribeResult:
         from ..utils.audio import ensure_mono_16k, read_wav

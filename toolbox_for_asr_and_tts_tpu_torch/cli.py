@@ -1,15 +1,16 @@
 """Command-line tools of the port, on the card unless `--device cpu`.
 
-    python -m toolbox_for_asr_and_tts_tpu_torch.cli transcribe a.wav [--itn] [--model-dir D]
+    python -m toolbox_for_asr_and_tts_tpu_torch.cli transcribe a.wav [--itn] [--model-dir D] [--no-mesh]
     python -m toolbox_for_asr_and_tts_tpu_torch.cli tts "文本" -o out.wav [--stream] [--tiny]
     python -m toolbox_for_asr_and_tts_tpu_torch.cli serve-voice / serve-tts
     python -m toolbox_for_asr_and_tts_tpu_torch.cli demo recording.wav
     python -m toolbox_for_asr_and_tts_tpu_torch.cli rehearse MODELS_DIR [--reconvert]
 
 Port of `toolbox_for_asr_and_tts_tpu/cli.py`. Every command takes
-`--device` (default `cuda`). Departures: `tts` raises when a mounted
-checkpoint fails to load (the reference logs it and synthesizes with random
-weights); the reference's `transcribe --no-mesh` is not ported yet.
+`--device` (default `cuda`); `transcribe --no-mesh` keeps the offline
+recognizer on one device instead of the serving mesh. Departure: `tts`
+raises when a mounted checkpoint fails to load (the reference logs it and
+synthesizes with random weights).
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ import sys
 
 def cmd_transcribe(args) -> None:
     from .service.engines import build_engines
-    engines = build_engines(args.model_dir, device=args.device)
+    engines = build_engines(args.model_dir, device=args.device,
+                            use_mesh=not args.no_mesh)
     try:
         for path in args.wavs:
             sents = engines.diarizer.diarize(_load(path))
@@ -127,6 +129,7 @@ def main(argv=None) -> None:
     t.add_argument("wavs", nargs="+")
     t.add_argument("--model-dir", default=None)
     t.add_argument("--itn", action="store_true")
+    t.add_argument("--no-mesh", action="store_true")
 
     s = command("tts", cmd_tts, "synthesize text to WAV")
     s.add_argument("text")

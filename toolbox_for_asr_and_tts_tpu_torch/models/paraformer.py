@@ -22,6 +22,7 @@ import dataclasses
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import nn
 from ..ops.frontend import FrontendConfig
@@ -47,6 +48,8 @@ class ParaformerConfig:
     sos_id: int = 1
     eos_id: int = 2
     unk_id: int = 8403
+    remat: bool = False            # recompute each encoder layer in the
+                                   # backward pass (fine-tuning memory)
     lfr_m: int = 7
     lfr_n: int = 6
 
@@ -188,18 +191,31 @@ def quantize_encoder_int8(params: nn.Params) -> nn.Params:
 # ----------------------------------------------------------------- encoder
 def encode(params: nn.Params, feats: torch.Tensor, mask: torch.Tensor,
            cfg: ParaformerConfig = ParaformerConfig()) -> torch.Tensor:
-    """feats: [B, T, 560]; mask: [B, T] → encoder states [B, T, 512]."""
+    """feats: [B, T, 560]; mask: [B, T] → encoder states [B, T, 512].
+
+    With `cfg.remat` under autograd, each layer runs under
+    `torch.utils.checkpoint` (non-reentrant): its activations are dropped
+    and recomputed in the backward pass, K1 included (`FsmnDepthwiseFn`
+    runs its forward again there), as the reference's `jax.checkpoint`."""
     t = feats.shape[1]
     x = feats * (cfg.d_model ** 0.5)
     x = x + nn.sinusoidal_posenc(t, feats.shape[-1], device=feats.device)[None]
-    for i, layer in enumerate(params["encoder"]["layers"]):
+
+    def layer_fn(layer, x, first: bool):
         residual = x
         h = nn.layernorm(layer["norm1"], x)
         h = nn.sanm_attention(layer["attn"], h, cfg.n_heads, mask,
                               cfg.kernel_size, cfg.sanm_shift)
-        x = h if i == 0 else residual + h  # no residual when in_dim ≠ d_model
+        x = h if first else residual + h  # no residual when in_dim ≠ d_model
         residual = x
-        x = residual + nn.ffn(layer["ffn"], nn.layernorm(layer["norm2"], x))
+        return residual + nn.ffn(layer["ffn"], nn.layernorm(layer["norm2"], x))
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i, layer in enumerate(params["encoder"]["layers"]):
+        if remat:   # keep only each layer's input; recompute in backward
+            x = checkpoint(layer_fn, layer, x, i == 0, use_reentrant=False)
+        else:
+            x = layer_fn(layer, x, i == 0)
     x = nn.layernorm(params["encoder"]["after_norm"], x)
     return x * mask[..., None]
 

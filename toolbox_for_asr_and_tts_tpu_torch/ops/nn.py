@@ -69,6 +69,8 @@ def linear_init(g: torch.Generator, d_in: int, d_out: int,
 
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    if not isinstance(p, dict):   # a tensor-parallel product
+        return p(x)               # (parallel/sharding.py::TPLinear)
     if p["w"].dtype == torch.int8:
         return _linear_int8(p, x)
     y = dot(x, p["w"])
@@ -148,6 +150,8 @@ def embedding_init(g: torch.Generator, n_vocab: int, d: int) -> Params:
 
 
 def embedding(p: Params, ids: torch.Tensor) -> torch.Tensor:
+    if not isinstance(p, dict):   # a vocabulary-parallel table
+        return p(ids)             # (parallel/sharding.py::TPEmbedding)
     return p["table"][ids.long()]
 
 

@@ -1,9 +1,9 @@
 """Batched multi-session streaming: many connections, one step per tick.
 
 Port of `toolbox_for_asr_and_tts_tpu/parallel/stream_batcher.py`, in its
-single-card, fused form. Session states are stacked tensors ([S, …] rows,
-the stacked caches [layers, S, …]); live sessions occupy the contiguous row
-prefix [0, n_live) — `leave` moves the last live row into the vacated one —
+fused form. Session states are stacked tensors ([S, …] rows, the stacked
+caches [layers, S, …]); without a mesh, live sessions occupy the contiguous
+row prefix [0, n_live) — `leave` moves the last live row into the vacated one —
 so a tick steps the pow-2 prefix that covers its highest ready row and
 writes the result back into the state in place, masked to the rows that had
 a chunk (`torch.where(..., out=)` into the prefix view; the reference's
@@ -28,8 +28,15 @@ PARAFORMER_TRANSFER_INT16 (else the dispatch profile's
 as int16 PCM (`asr/recognizer.py::to_int16_pcm`) into int16 staging rows,
 and each program turns them back into f32 · 2^-15 before the fbank.
 
-Left out against the reference: the mesh path and the unfused
-`fused=False` path.
+`mesh=` (a `runtime/mesh.py::Mesh` with a "data" axis) shards
+`BatchedChunkedASR`'s rows by position over that axis, as the reference's
+mesh path: each position holds capacity / n rows of state, a replica of the
+weights per distinct device and its own step program; a slot keeps its row
+(slot = row), and every tick steps every position's rows in full, masked,
+since rows are placed by position (the reference's `:130-133`). A capacity
+that does not divide over the axis raises.
+
+Left out against the reference: the unfused `fused=False` path.
 """
 from __future__ import annotations
 
@@ -51,6 +58,7 @@ from ..models.paraformer_streaming import StreamingFrontend
 from ..ops import frontend as fe
 from ..runtime.autotune import env_or_profile
 from ..runtime.graphs import Programs
+from ..runtime.mesh import Mesh, per_position
 
 logger = logging.getLogger("toolbox.stream_batcher")
 
@@ -166,6 +174,38 @@ class _PackedRows:
         return min(_pow2(need), self.capacity)
 
 
+class _FixedRows(_PackedRows):
+    """Slot = row for good (a mesh ticker: rows live on their positions, so
+    none moves); every step covers every row."""
+
+    def claim(self) -> int:
+        if not self.free:
+            raise AtCapacity(f"{self.name} ticker at capacity")
+        slot = self.free.pop()
+        self.slot_row[slot] = self.row_slot[slot] = slot
+        self.n_live += 1
+        return slot
+
+    def release(self, slot: int) -> Tuple[int, Optional[int]]:
+        self.slot_row.pop(slot)
+        self.row_slot.pop(slot)
+        self.n_live -= 1
+        return slot, None
+
+    def cover(self, slots) -> int:
+        return self.capacity
+
+
+class _Shard:
+    """One mesh position of a ticker: its device, its replica of the
+    weights and CMVN, its rows of the state and its step programs."""
+
+    def __init__(self, device: torch.device, params, cmvn, state,
+                 programs: Programs):
+        self.device, self.params, self.cmvn = device, params, cmvn
+        self.state, self.programs = state, programs
+
+
 class BatchedChunkedASR:
     """Fixed-capacity batched chunked Paraformer over live sessions.
 
@@ -185,10 +225,14 @@ class BatchedChunkedASR:
 
     exec_cache: a dict shared by identically configured tickers (the lanes
     of one `LanedHub`). The signature holds capacity, partials, the int16
-    upload, both configs, a CMVN fingerprint, the device and the weights'
+    upload, both configs, a CMVN fingerprint, the devices and the weights'
     buffers; a mismatch raises ValueError. Each lane's tick programs bind
     its own state rows and are its own; the finalize "tail" decode, which
     copies its row's decoder state in, is shared.
+
+    mesh: rows shard over its "data" axis (see the module's docstring);
+    the finalize tail runs on the first position, its row's decoder state
+    copied in.
     """
 
     def __init__(self, params, cfg: Optional[pf.ParaformerConfig] = None,
@@ -196,12 +240,21 @@ class BatchedChunkedASR:
                  cmvn: Optional[Tuple[np.ndarray, np.ndarray]] = None,
                  partials: bool = False, pipelined: bool = False,
                  exec_cache: Optional[dict] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh: Optional[Mesh] = None):
         """params: a Paraformer tensor tree (moved to `device`, the card
-        unless "cpu" is passed). partials=True also decodes the fired
-        tokens in the same step; `tick` then returns per-slot token ids
-        instead of embeddings."""
-        self.device = resolve_device(device)
+        unless "cpu" is passed, or to each device of `mesh`'s data axis).
+        partials=True also decodes the fired tokens in the same step;
+        `tick` then returns per-slot token ids instead of embeddings."""
+        if mesh is not None:
+            positions = mesh.along("data")
+            if capacity % len(positions):
+                raise ValueError(f"capacity {capacity} not divisible by "
+                                 f"data axis {len(positions)}")
+            self.device = positions[0]
+        else:
+            self.device = resolve_device(device)
+            positions = [self.device]
+        self.mesh = mesh
         self.cfg = cfg or pf.ParaformerConfig()
         self.ocfg = ocfg or po.OnlineConfig()
         self.capacity = capacity
@@ -218,16 +271,27 @@ class BatchedChunkedASR:
                                               "asr_int16_transfer")
         fcfg = self.cfg.frontend
         self.chunk_samples = self.ocfg.c1 * fcfg.lfr_n * fcfg.frame_shift
-        with torch.inference_mode():
-            self.state = po.init_fused_state(self.cfg, self.ocfg, capacity,
-                                             partials, self.device)
-        self._rows = _PackedRows(capacity, "chunked-ASR")
+        self.rows_per = capacity // len(positions)   # rows per position
+        self._shards: List[_Shard] = []
+        for i, (dev, params_i, cmvn_i) in enumerate(zip(
+                positions, per_position(self.params, positions),
+                per_position(self.cmvn, positions))):
+            with torch.inference_mode():
+                state = po.init_fused_state(self.cfg, self.ocfg,
+                                            self.rows_per, partials, dev)
+            self._shards.append(_Shard(
+                dev, params_i, cmvn_i, state,
+                Programs(dev, "chunked-tick" if i == 0
+                         else f"chunked-tick@{i}")))
+        self.state = self._shards[0].state
+        self.programs = self._shards[0].programs
+        self._rows = (_PackedRows if mesh is None else _FixedRows)(
+            capacity, "chunked-ASR")
         self._audio: Dict[int, np.ndarray] = {}
         self.steps = 0            # device steps run (one fused_step each)
-        self.programs = Programs(self.device, "chunked-tick")
         sig = ("chunked", capacity, partials, self._int16_transfer,
-               self.cfg, self.ocfg, _fingerprint(self.cmvn), str(self.device),
-               _weights_id(self.params))
+               self.cfg, self.ocfg, _fingerprint(self.cmvn),
+               tuple(str(d) for d in positions), _weights_id(self.params))
         self.shared = _share(exec_cache, sig, self.device, "chunked-shared")
         # the step's fired outputs, copied out per dispatch into one of two
         # host buffers (pinned on the card)
@@ -254,15 +318,22 @@ class BatchedChunkedASR:
         """Device row a slot currently owns."""
         return self._rows.slot_row[slot]
 
+    def _at(self, row: int) -> Tuple[Dict[str, torch.Tensor], int]:
+        """(state of the position holding `row`, the row there)."""
+        shard = self._shards[row // self.rows_per]
+        return shard.state, row % self.rows_per
+
     @torch.inference_mode()
     def _zero_row(self, row: int) -> None:
-        for key, a in self.state.items():
+        state, row = self._at(row)
+        for key, a in state.items():
             a.select(po.batch_dim(key), row).zero_()
 
     @torch.inference_mode()
     def _move_row(self, src: int, dst: int) -> None:
         """Copy row src → dst, then zero src (the vacated tail row must not
-        leak a finished session's caches into a masked prefix step)."""
+        leak a finished session's caches into a masked prefix step); the
+        packed path's, whose rows share one position."""
         for key, a in self.state.items():
             d = po.batch_dim(key)
             a.select(d, dst).copy_(a.select(d, src))
@@ -318,37 +389,43 @@ class BatchedChunkedASR:
         self._audio[slot] = np.zeros(0, np.float32)
 
     def warm(self) -> None:
-        """Build the step program of every pow-2 prefix up to capacity, and
-        the finalize tail, so no tick waits on a build (on the card: a
-        capture, which runs all-masked steps and leaves the state as it
-        was)."""
-        b = 1
-        while True:
-            b = min(b, self.capacity)
-            self._tick_fn(b)
-            if b == self.capacity:
-                break
-            b *= 2
+        """Build the step program of every pow-2 prefix up to capacity (on
+        a mesh: each position's full step), and the finalize tail, so no
+        tick waits on a build (on the card: a capture, which runs
+        all-masked steps and leaves the state as it was)."""
+        if self.mesh is not None:
+            for i in range(len(self._shards)):
+                self._tick_fn(self.rows_per, i)
+        else:
+            b = 1
+            while True:
+                b = min(b, self.capacity)
+                self._tick_fn(b)
+                if b == self.capacity:
+                    break
+                b *= 2
         if self.partials:
             self._tail_fn()
 
     # ------------------------------------------------------------ step
-    def _tick_fn(self, b: int):
-        """The step program of the prefix of b rows (ref `_prefix_exec`):
-        audio [b, chunk] and row activity [b] → (fired ids [b, k_cap] int32
-        or embeddings [b, k_cap, d] f32, fired counts [b] int32), the state
-        prefix merged in place for the active rows."""
+    def _tick_fn(self, b: int, pos: int = 0):
+        """The step program of the prefix of b rows of mesh position `pos`
+        (ref `_prefix_exec`, `_full_exec`): audio [b, chunk] and row
+        activity [b] → (fired ids [b, k_cap] int32 or embeddings
+        [b, k_cap, d] f32, fired counts [b] int32), the state prefix merged
+        in place for the active rows."""
         int16_in = self._int16_transfer
+        shard = self._shards[pos]
 
         def build():
             sub = {k: a.narrow(po.batch_dim(k), 0, b)
-                   for k, a in self.state.items()}
+                   for k, a in shard.state.items()}
 
             def run(audio, active):
                 if int16_in:
                     audio = from_int16_pcm(audio)
-                res = po.fused_step(self.params, sub, audio, self.cfg,
-                                    self.ocfg, cmvn=self.cmvn,
+                res = po.fused_step(shard.params, sub, audio, self.cfg,
+                                    self.ocfg, cmvn=shard.cmvn,
                                     k_cap=self.ocfg.tokens_per_chunk,
                                     decode_partials=self.partials)
                 keep = active.bool()
@@ -360,7 +437,7 @@ class BatchedChunkedASR:
             return run, [((b, self.chunk_samples),
                           torch.int16 if int16_in else torch.float32),
                          ((b,), torch.float32)]
-        return self.programs.get(("tick", b), build)
+        return shard.programs.get(("tick", b), build)
 
     def _tail_fn(self):
         """The finalize tail (ref "tail"): one CIF embedding [1, 1, d] and
@@ -382,34 +459,46 @@ class BatchedChunkedASR:
         return self.shared.get(("tail",), build)
 
     def _dispatch(self, batch: np.ndarray, row_active: np.ndarray) -> tuple:
-        """Run one step over the prefix of len(batch) rows; its fired
-        outputs are copied toward the host (async on the card)."""
+        """Run one step over the prefix of len(batch) rows (on a mesh: all
+        rows, each position's own); its fired outputs are copied toward
+        the host (async on the card). Returns (outputs, counts, the copies'
+        events)."""
         b = batch.shape[0]
         host_out, host_n = self._host[self._flip]
         self._flip ^= 1
-
-        def read(outs):
-            out, n = outs
-            if not out.is_cuda:
-                return out.numpy(), n.numpy(), None
-            host_out[:b].copy_(out, non_blocking=True)
-            host_n[:b].copy_(n, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            return host_out[:b].numpy(), host_n[:b].numpy(), done
         if self._int16_transfer:
             batch = to_int16_pcm(batch)
-        res = self._tick_fn(b)(batch, row_active, read=read)
-        self.steps += 1
-        return res
+        per = b // len(self._shards) if self.mesh is not None else b
+        events, outs, ns = [], [], []
+        for i in range(b // per):
+            rows = slice(i * per, (i + 1) * per)
+
+            def read(res, rows=rows):
+                out, n = res
+                if not out.is_cuda:
+                    return out.numpy(), n.numpy()
+                host_out[rows].copy_(out, non_blocking=True)
+                host_n[rows].copy_(n, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                events.append(done)
+                return host_out[rows].numpy(), host_n[rows].numpy()
+            out, n = self._tick_fn(per, i)(batch[rows], row_active[rows],
+                                           read=read)
+            outs.append(out)
+            ns.append(n)
+            self.steps += 1
+        if events:
+            return host_out[:b].numpy(), host_n[:b].numpy(), events
+        return np.concatenate(outs), np.concatenate(ns), events
 
     def _harvest(self) -> None:
         """Read the in-flight step's fired outputs into the carry."""
         if self._inflight is None:
             return
-        pos, (out, n, done) = self._inflight
+        pos, (out, n, events) = self._inflight
         self._inflight = None
-        if done is not None:
+        for done in events:
             done.synchronize()
         for s, r in pos.items():
             k = int(n[r])
@@ -438,13 +527,13 @@ class BatchedChunkedASR:
             fired = self.tick({slot: np.zeros(pad, np.float32)})
         finally:
             self.pipelined = pipelined
-        row = self.row_of(slot)
-        mass = float(self.state["cif_mass"][row])
+        state, row = self._at(self.row_of(slot))
+        mass = float(state["cif_mass"][row])
         frac = mass - np.floor(mass)
         if frac > 0 and frac + self.cfg.predictor_tail_threshold >= 1.0:
-            acc = self.state["cif_acc"][row]
+            acc = state["cif_acc"][row]
             if self.partials:
-                dstate = [self.state[k].narrow(po.batch_dim(k), row, 1)
+                dstate = [state[k].narrow(po.batch_dim(k), row, 1)
                           for k in po.DECODER_KEYS]
                 ids = self._tail_fn()(acc.float()[None, None, :], *dstate,
                                       read=lambda t: t.cpu().numpy())

@@ -8,7 +8,11 @@ function at the bucket's shapes and replayed with static input and output
 buffers; on the CPU, the eager function itself, with no capture. Both run
 behind the same cache, keys and locks, so the CPU tests exercise them.
 
-`Programs` is one owner's cache (one recognizer, one ticker, one spotter):
+`Programs` is one owner's cache (one recognizer, one ticker, one spotter,
+or one mesh position of a recognizer or a ticker, since a graph binds its
+own position's buffers). An owner belongs to one card: its builds and
+replays make that card current, so its side stream, its pool's segments
+and its events are that card's whichever card the caller had current:
 - a double-checked lookup by bucket key; the build runs under the
   process-wide `COMPILE_LOCK` (`runtime/compile_lock.py`);
 - a build makes the static inputs, runs the function eagerly on the
@@ -109,7 +113,10 @@ class Program:
     def _capture(self) -> None:
         dev = self.owner.device
         t0 = time.perf_counter()
-        with self.owner.lock, torch.inference_mode():
+        # the position's card is current for the whole build, whichever
+        # card the calling thread had current: the static buffers, the side
+        # stream, the capture and the events all belong to it
+        with self.owner.lock, torch.inference_mode(), torch.cuda.device(dev):
             self._static_in = [torch.zeros(s, dtype=dt, device=dev)
                                for s, dt in self.specs]
             self._staging = [None] * len(self.specs)
@@ -194,7 +201,7 @@ class Program:
                 if read is None:
                     read = _identity
             else:
-                with torch.inference_mode():
+                with torch.inference_mode(), torch.cuda.device(owner.device):
                     self._fill(args)
                     self.graph.replay()
                 for name, n in self.tally.items():
@@ -205,7 +212,28 @@ class Program:
             self.replays += 1
             owner.replays += 1
             with torch.inference_mode():
-                return read(out)
+                if self.graph is None:
+                    return read(out)
+                with torch.cuda.device(owner.device):
+                    return read(out)
+
+
+def to_host(t: torch.Tensor):
+    """Queue a copy of t to the host; returns a function that waits for it
+    and gives the numpy array (a CPU tensor's own array at once). Call it
+    inside a program's `read`, where t's card is current."""
+    if not t.is_cuda:
+        a = t.numpy()
+        return lambda: a
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait() -> np.ndarray:
+        done.synchronize()
+        return host.numpy()
+    return wait
 
 
 def _identity(x: Any) -> Any:
@@ -222,6 +250,9 @@ class Programs:
 
     def __init__(self, device, name: str):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # "cuda": the card current now, fixed for the owner's life
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.name = name
         self.lock = threading.RLock()
         self._progs: Dict[Hashable, Program] = {}
@@ -239,6 +270,9 @@ class Programs:
         return self.device.type == "cuda"
 
     def pool(self):
+        """The owner's graph memory pool. The handle is only an id: the
+        pool's segments are allocated on the card current at the capture,
+        which `Program._capture` makes the owner's."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool

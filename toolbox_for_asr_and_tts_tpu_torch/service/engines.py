@@ -63,7 +63,7 @@ def build_test_engines(device: DeviceLike = None):
     reco = Recognizer.random(
         ParaformerConfig(input_dim=560, d_model=32, n_heads=2, ffn_dim=64,
                          encoder_layers=2, decoder_layers=2, vocab_size=64),
-        device=dev)
+        device=dev, use_mesh=False)
     sv = SpeakerVerifier.random(device=dev)
     punc = Punctuator.random(device=dev)
     diar = Diarizer(reco, sv, punctuator=punc)
@@ -169,7 +169,7 @@ def _online_recognizer(reco, model_dir: Optional[str] = None,
         logger.warning("no online (paraformer-zh-streaming) checkpoint dir —"
                        " streaming partials reuse the offline ASR weights")
         return reco
-    online = Recognizer.from_model_dir(d, device=dev)
+    online = Recognizer.from_model_dir(d, device=dev, use_mesh=False)
     logger.info("streaming partials use the online checkpoint %s", d)
     return online
 
@@ -238,12 +238,16 @@ def _streaming_factory(reco, capacity=None, device: DeviceLike = None):
 
 
 def build_engines(model_dir: Optional[str] = None,
-                  device: DeviceLike = None):
+                  device: DeviceLike = None, use_mesh: bool = True):
     """Full-width engines on `device`: Paraformer-large (offline, and the
     online checkpoint for the partials), CAM++, CT-Transformer (large),
     KWS and FSMN-VAD, each loaded from its checkpoint directory where one
     resolves under `model_dir` (or the registry's default roots), else with
-    random weights. A failed load raises before any hub thread starts."""
+    random weights. A failed load raises before any hub thread starts.
+    use_mesh: the offline recognizer serves over every local device of
+    `device`'s platform (`Recognizer(use_mesh=True)`); the online
+    checkpoint's recognizer, which feeds the streaming partials, does not,
+    as in the reference."""
     from ..runtime.autotune import get_profile
     get_profile()   # host context, before any program is captured
     from ..asr.diarization import Diarizer
@@ -256,8 +260,9 @@ def build_engines(model_dir: Optional[str] = None,
 
     dev = resolve_device(device)
     reco = _load("paraformer_offline", model_dir, "ASR (Paraformer-large)",
-                 lambda d: Recognizer.from_model_dir(d, device=dev),
-                 lambda: Recognizer.random(device=dev))
+                 lambda d: Recognizer.from_model_dir(d, device=dev,
+                                                     use_mesh=use_mesh),
+                 lambda: Recognizer.random(device=dev, use_mesh=use_mesh))
     sv = _load("sv", model_dir, "speaker verification (CAM++)",
                lambda d: SpeakerVerifier.from_model_dir(d, device=dev),
                lambda: SpeakerVerifier.random(CampPlusConfig(), device=dev))

@@ -219,12 +219,13 @@ class ChunkedHub(_TickLoop):
     """Batched streaming partials: every partial-enabled session's speech
     chunk joins one `BatchedChunkedASR.tick` (fused step with partials) per
     serving tick. Decoded ids accumulate per slot; `submit` returns the
-    session's partial text so far."""
+    session's partial text so far. Rows shard over an optional mesh's
+    "data" axis (`BatchedChunkedASR(mesh=...)`)."""
 
     def __init__(self, params, cfg, ocfg, tokenizer, cmvn=None,
                  capacity: int = 16, tick_ms: float = 10.0,
                  exec_cache: Optional[dict] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         from ..parallel.stream_batcher import BatchedChunkedASR
         # serving default: double-buffered dispatch, the fetch of tick t−1
         # overlapping tick t; partials lag one tick, finalize drains
@@ -232,7 +233,7 @@ class ChunkedHub(_TickLoop):
         self.ticker = BatchedChunkedASR(
             params, cfg, ocfg, capacity=capacity, cmvn=cmvn, partials=True,
             pipelined=os.getenv("CHUNKED_PIPELINE", "1") in ("1", "true"),
-            exec_cache=exec_cache, device=device)
+            exec_cache=exec_cache, device=device, mesh=mesh)
         if _aot_ticks():
             # the step program of every pow-2 occupancy and the finalize
             # tail, before the tick thread starts

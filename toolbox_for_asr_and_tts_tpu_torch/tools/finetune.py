@@ -117,13 +117,14 @@ def main(argv=None) -> Dict[str, Any]:
 
     dev = resolve_device(args.device)
     if args.model_dir:
-        reco = Recognizer.from_model_dir(args.model_dir, device=dev)
+        reco = Recognizer.from_model_dir(args.model_dir, device=dev,
+                                         use_mesh=False)
     else:
         cfg = (paraformer.ParaformerConfig(
             d_model=32, n_heads=2, ffn_dim=64, encoder_layers=2,
             decoder_layers=1, vocab_size=64) if args.tiny
             else paraformer.ParaformerConfig())
-        reco = Recognizer.random(cfg=cfg, device=dev)
+        reco = Recognizer.random(cfg=cfg, device=dev, use_mesh=False)
     cfg, params, tokenizer = reco.cfg, reco.params, reco.tokenizer
     fe_cfg = cfg.frontend
 

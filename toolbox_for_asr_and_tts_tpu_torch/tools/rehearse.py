@@ -77,9 +77,10 @@ def _loaders(device: DeviceLike):
     from ..tts.synthesizer import Synthesizer
     on = {"device": device}
     return [
-        ("paraformer_offline", lambda d: Recognizer.from_model_dir(d, **on)),
+        ("paraformer_offline",
+         lambda d: Recognizer.from_model_dir(d, use_mesh=False, **on)),
         ("paraformer_streaming",
-         lambda d: Recognizer.from_model_dir(d, **on)),
+         lambda d: Recognizer.from_model_dir(d, use_mesh=False, **on)),
         ("fsmn_vad", lambda d: fsmn_vad.from_model_dir(d, **on)),
         ("sv", lambda d: SpeakerVerifier.from_model_dir(d, **on)),
         ("punc", lambda d: Punctuator.from_model_dir(d, **on)),
@@ -345,7 +346,7 @@ def drive_services(models_dir: str, golden_wav: Optional[str] = None,
     # the apps and their hubs are torn down in the finally below: a
     # rehearsal leaves no serving thread behind
     t0 = time.perf_counter()
-    engines = build_engines(models_dir, device=device)
+    engines = build_engines(models_dir, device=device, use_mesh=False)
     report["boot_seconds"] = round(time.perf_counter() - t0, 3)
     servers = []
     try:

@@ -25,9 +25,14 @@ values were measured on the card (PERF.md §6).
 `<ckpt>.torch.npz` cache beside it (with its config in
 `<ckpt>.torch.cfg.json`).
 
-Left out against the reference: the mesh path (`use_mesh`),
-`param_dtype`, and the single-phase path (TTS_TWO_PHASE=0, which decodes
-and vocodes every row at the worst-case length).
+`use_mesh=True` synthesizes over `runtime/mesh.py::serving_mesh()`, as the
+reference's: a group's rows pad up to a multiple of the positions (padding
+rows yield no segment), each position runs its block of rows through its
+own probe and synthesis programs on its device's replica of the weights,
+and mel grouping (TTS_MEL_GROUP) applies only without a mesh.
+
+Left out against the reference: the single-phase path (TTS_TWO_PHASE=0,
+which decodes and vocodes every row at the worst-case length).
 
 The duration probe and the synthesis are programs (`runtime/graphs.py`)
 keyed as the reference keys its compiled functions: a probe per (b, l), a
@@ -54,7 +59,8 @@ from ..models.convert import params_from_numpy, tree_to
 from ..runtime import checkpoints as ckpt
 from ..runtime.bucketing import Bucketer
 from ..runtime.config import TTSConfig
-from ..runtime.graphs import Program, Programs
+from ..runtime.graphs import Program, Programs, to_host
+from ..runtime.mesh import per_position, serving_mesh
 from ..runtime.metrics import RTFMeter, Tally, timing_log
 from .concat import StreamingConcat, concat_segments
 from .text_frontend import (G2P, LingVocab, pause_after, split_text_for_tts,
@@ -198,13 +204,23 @@ class Synthesizer:
                  tts_cfg: Optional[TTSConfig] = None,
                  voices: Sequence[str] = VOICES,
                  device: DeviceLike = None,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 use_mesh: bool = False):
         """device: the card unless "cpu" is passed; param_dtype: the
         floating leaves' dtype of both trees (torch.bfloat16 halves the
-        weights; products and convolutions still run in f32)."""
+        weights; products and convolutions still run in f32); use_mesh:
+        synthesize over `serving_mesh(device=device)` (`self.device` is
+        then its first position)."""
         self.device = resolve_device(device)
+        self.mesh = serving_mesh(device=self.device) if use_mesh else None
+        positions = (self.mesh.positions() if self.mesh is not None
+                     else [self.device])
+        self.device = positions[0]
         self.ap = tree_to(acoustic_params, self.device, param_dtype)
         self.vp = tree_to(vocoder_params, self.device, param_dtype)
+        # (ap, vp) per mesh position, one copy per distinct device
+        self._replicas = list(zip(per_position(self.ap, positions),
+                                  per_position(self.vp, positions)))
         self.acfg, self.vcfg = acoustic_cfg, vocoder_cfg
         self.g2p = g2p or G2P()
         self.vocab = vocab or LingVocab.default()
@@ -230,7 +246,10 @@ class Synthesizer:
         self.ar_steps = Tally()
         self.mel_frames = Tally()
         # one program per probe and synthesis bucket; on the card a graph
-        self.programs = Programs(self.device, "synthesizer")
+        self._positions = [Programs(dev, "synthesizer" if i == 0
+                                    else f"synthesizer@{i}")
+                           for i, dev in enumerate(positions)]
+        self.programs = self._positions[0]
 
     @classmethod
     def random(cls, seed: int = 0, tiny: bool = True,
@@ -314,7 +333,8 @@ class Synthesizer:
 
     # ------------------------------------------------------ device programs
     def _synth(self, ids: torch.Tensor, lens: torch.Tensor,
-               spk: torch.Tensor, t_mel: int, pnca: bool) -> torch.Tensor:
+               spk: torch.Tensor, t_mel: int, pnca: bool,
+               pos: int = 0) -> torch.Tensor:
         """Acoustic model → vocoder → int16 PCM for a [b, l] phone batch:
         returns one int16 tensor [b, t_mel·hop + 1] whose last column holds
         the mel lengths (≤ t_mel < 2^15), so one fetch brings both back."""
@@ -322,8 +342,9 @@ class Synthesizer:
         if t_mel + acfg.outputs_per_step >= 1 << 15:
             raise ValueError(f"t_mel {t_mel} does not fit the int16 fetch")
         acoustic = sambert.forward_ar if pnca else sambert.forward
-        out = acoustic(self.ap, ids, lens, spk, acfg, t_mel=t_mel)
-        wav = hifigan.forward(self.vp, out["mel"], self.vcfg)
+        ap, vp = self._replicas[pos]
+        out = acoustic(ap, ids, lens, spk, acfg, t_mel=t_mel)
+        wav = hifigan.forward(vp, out["mel"], self.vcfg)
         # int16 on the card: the final PCM format, and half the bytes of
         # the f32 waveform to fetch
         pcm = torch.clamp(torch.round(wav * 32767.0), -32768, 32767)
@@ -332,29 +353,44 @@ class Synthesizer:
 
     @torch.inference_mode()
     def _dur_fn(self, ids: torch.Tensor, lens: torch.Tensor,
-                spk: torch.Tensor) -> torch.Tensor:
+                spk: torch.Tensor, pos: int = 0) -> torch.Tensor:
         """The duration probe of a [b, l] batch → mel frame counts [b]."""
-        return sambert.predict_mel_lens(self.ap, ids, lens, spk, self.acfg)
+        return sambert.predict_mel_lens(self._replicas[pos][0], ids, lens,
+                                        spk, self.acfg)
 
     def _batch_specs(self, b: int, l: int):
         return [((b, l, 4), torch.int32), ((b,), torch.int32),
                 ((b,), torch.int32)]
 
-    def _synth_prog(self, b: int, l: int, t_mel: int) -> Program:
-        """The synthesis program of one (decoder, b, l, t_mel) bucket."""
+    def _synth_prog(self, b: int, l: int, t_mel: int,
+                    pos: int = 0) -> Program:
+        """The synthesis program of one (decoder, b, l, t_mel) bucket on
+        mesh position `pos`."""
         pnca = self.decoder_mode == "pnca"
 
         def build():
-            return ((lambda i, n, s: self._synth(i, n, s, t_mel, pnca)),
+            return ((lambda i, n, s: self._synth(i, n, s, t_mel, pnca, pos)),
                     self._batch_specs(b, l))
-        return self.programs.get(("synth", self.decoder_mode, b, l, t_mel),
-                                 build)
+        return self._positions[pos].get(
+            ("synth", self.decoder_mode, b, l, t_mel), build)
 
-    def _dur_prog(self, b: int, l: int) -> Program:
-        """The duration probe program of one (b, l) bucket."""
+    def _dur_prog(self, b: int, l: int, pos: int = 0) -> Program:
+        """The duration probe program of one (b, l) bucket on mesh
+        position `pos`."""
         def build():
-            return self._dur_fn, self._batch_specs(b, l)
-        return self.programs.get(("dur", b, l), build)
+            return ((lambda i, n, s: self._dur_fn(i, n, s, pos)),
+                    self._batch_specs(b, l))
+        return self._positions[pos].get(("dur", b, l), build)
+
+    def _sharded(self, prog_for, *arrays: np.ndarray) -> np.ndarray:
+        """Run `prog_for(rows per position, position)` on each position's
+        block of rows of `arrays`, every fetch queued before any wait, and
+        join the fetched outputs in row order."""
+        n_pos = len(self._positions)
+        per = arrays[0].shape[0] // n_pos
+        waits = [prog_for(per, i)(*(a[i * per:(i + 1) * per] for a in arrays),
+                                  read=to_host) for i in range(n_pos)]
+        return np.concatenate([wait() for wait in waits])
 
     def _to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
         return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -382,10 +418,12 @@ class Synthesizer:
         wavs: List[Optional[np.ndarray]] = [None] * len(segments)
         durs: List[float] = [0.0] * len(segments)
         t0 = time.perf_counter()
+        n_pos = len(self._positions)
         for l, idxs in sorted(groups.items()):
             # exact batch rows (b ≤ batch_size): padded rows would
-            # synthesize full-length garbage mels
-            b = len(idxs)
+            # synthesize full-length garbage mels; on a mesh, rows pad up
+            # to the positions so that each takes a block
+            b = -(-len(idxs) // n_pos) * n_pos
             ids = np.zeros((b, l, 4), np.int32)
             lens = np.ones((b,), np.int32)
             for row, idx in enumerate(idxs):
@@ -399,27 +437,31 @@ class Synthesizer:
             # regroup by predicted mel bucket under TTS_MEL_GROUP
             t_cap = l * self.acfg.frames_per_phone
             mb = self.MEL_BUCKET
-            self.probes.add()
-            probe = self._dur_prog(b, l)(ids, lens, spk,
-                                         read=lambda t: t.cpu().numpy())
+            self.probes.add(n_pos)
+            probe = self._sharded(lambda per, i: self._dur_prog(per, l, i),
+                                  ids, lens, spk)
             t_rows = np.minimum(-(-probe // mb) * mb, t_cap)
             t_rows = np.maximum(t_rows, mb).astype(int)
             mel_groups: Dict[int, List[int]] = {}
-            if self.mel_group:
+            if self.mel_group and self.mesh is None:
                 for row in range(b):
                     mel_groups.setdefault(int(t_rows[row]), []).append(row)
             else:
                 mel_groups[int(t_rows.max())] = list(range(b))
             for t_mel, rows in sorted(mel_groups.items()):
-                self.synths.add()
+                n_prog = n_pos if self.mesh is not None else 1
+                self.synths.add(n_prog)
                 if self.decoder_mode == "pnca":
-                    self.ar_steps.add(-(-t_mel // self.acfg.outputs_per_step))
+                    self.ar_steps.add(
+                        n_prog * -(-t_mel // self.acfg.outputs_per_step))
                 self.mel_frames.add(len(rows) * t_mel)
-                packed = self._synth_prog(len(rows), l, t_mel)(
-                    ids[rows], lens[rows], spk[rows],
-                    read=lambda t: t.cpu().numpy())
+                packed = self._sharded(
+                    lambda per, i: self._synth_prog(per, l, t_mel, i),
+                    ids[rows], lens[rows], spk[rows])
                 pcm, mel_lens = packed[:, :-1], packed[:, -1]
                 for g_row, row in enumerate(rows):
+                    if row >= len(idxs):
+                        continue   # mesh padding: no segment behind it
                     idx = idxs[row]
                     n = int(mel_lens[g_row]) * hop
                     wavs[idx] = pcm[g_row, :n].astype(np.float32) / 32767.0
