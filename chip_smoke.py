@@ -15,6 +15,9 @@
                                       # B 8 and 64
     python3 chip_smoke.py --only-mesh # phases 1 and 13 alone (no result
                                       # line)
+    python3 chip_smoke.py --only-paths
+                                      # phase 1, K2 at the unfused quantum
+                                      # and phase 14 alone (no result line)
 
 Every model call of the port runs as a program (`runtime/graphs.py`): on
 the card one captured CUDA graph per shape bucket, replayed; K1 and K2 run
@@ -255,7 +258,26 @@ Phases (any failure exits non-zero and prints no result line):
    parameters by MESH_TP_UPDATE_TOL), the data replicas bit-equal, and a
    `remat=True` step against the plain one. Two positions that share a
    card give no multi-card speed figure;
-13. the `streaming`, `service`, `tts`, `checkpoints`, `entry_points`,
+13. the reference's remaining serving paths at full width (phase 14), on
+   phase 3's weights, TF32 off: (a) `BatchedChunkedASR(capacity=64,
+   fused=False)` (the host-frontend ticker: one fbank program per ready
+   count over 24-frame quanta of [n, 4080] audio, LFR drained per session
+   on the host, a full-capacity encoder + CIF step) on phase 4's S = 16
+   sessions cut to 8 chunks: K1 50 per step and K2 1 per fbank call, held
+   to the steps and calls; sessions 0 and 1 against a per-session
+   `OnlineRecognizer` on the card (fired counts equal, embeddings within
+   1e-3 of each one's max |x|); step and tick walls (median, p95), the
+   card's busy share of a tick (torch.profiler over 3 ticks), beside the
+   fused ticker's on the same sessions and phase 4's S = 16 figures; (b)
+   `BatchedChunkedASR(capacity=64, partials=True, bucketed=False)` and the
+   bucketed ticker on the same sessions, finalized: ids equal, K1 50 / K2
+   1 per step; (c) phase 7's synthesizer built under TTS_TWO_PHASE=0 beside
+   a two-phase one on its weights, on the 14-segment paragraph: per batch
+   no probe and one synthesis program, sample counts equal to two-phase's,
+   PCM within TTS_PCM_LSB wherever two-phase's t_mel was the cap; the
+   walls and the graph pools of both. K2 at the unfused quantum [64,
+   4080] → 24 frames joins phase 2;
+14. the `streaming`, `service`, `tts`, `checkpoints`, `entry_points`,
    `graphs` (per program owner, as first seen by a phase: programs,
    captures, capture seconds, replays, graph pool bytes at the phase's
    end), `train`, `precision`, `dispatch`, `mesh` and `kernels` JSON
@@ -724,8 +746,9 @@ def check_streaming_kernels(torch, peaks, floor_ms: float):
     buffer, K 11, no mask) at S 64 and 1, and in FSMN-VAD's streaming step
     ([cache ‖ h] = [64, 19 + 40, 128], K 20, pad (19, 0), of which the path
     keeps rows 19 onward; yardstick: the reference's h + valid conv); K2 on
-    the fused step's audio ring [64, 4320] → 25 frames and on the first
-    0.4 s VAD tick [64, 6400] → 38 frames."""
+    the fused step's audio ring [64, 4320] → 25 frames, on the first
+    0.4 s VAD tick [64, 6400] → 38 frames and on the unfused ticker's
+    fbank quantum [64, 4080] → 24 frames."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4)
@@ -753,7 +776,9 @@ def check_streaming_kernels(torch, peaks, floor_ms: float):
     row["slice_vs_valid_conv_err"] = lib_err
     rows.append(row)
     k2_rows = [check_k2(torch, peaks, STREAM_S, 4320, 25, "stream_ring"),
-               check_k2(torch, peaks, STREAM_S, 6400, 38, "stream_vad_tick")]
+               check_k2(torch, peaks, STREAM_S, 6400, 38, "stream_vad_tick"),
+               check_k2(torch, peaks, STREAM_S, 4080, 24,
+                        "stream_unfused_quantum")]
     return rows, k2_rows
 
 
@@ -1341,6 +1366,21 @@ def step_stats(ticks):
     return stats(rest), stats([t for t in rest if t[2]])
 
 
+def wall_stats(walls_s):
+    """Median and p95 (ms) of walls in seconds, and their count."""
+    import numpy as np
+    ms = [w * 1e3 for w in walls_s]
+    return dict(median_ms=float(np.median(ms)),
+                p95_ms=float(np.percentile(ms, 95)), n=len(ms))
+
+
+def tick_stats(ticks):
+    """`wall_stats` of the ticks after the first in which every session
+    was fed (None without one)."""
+    walls = [w for w, _, full in ticks[1:] if full]
+    return wall_stats(walls) if walls else None
+
+
 def profile_steps(torch, asr, audios, n_ticks: int = 3):
     """Card busy time per step (torch.profiler) over n_ticks ticks of fresh
     sessions, against those ticks' unprofiled-like wall."""
@@ -1437,6 +1477,7 @@ def streaming_path(torch, card, params, profile: bool):
                    steps=n_steps, feed_steps=steps,
                    k1_per_step=k1_n / n_steps, k2_per_step=k2_n / n_steps,
                    step=every, step_all_live=all_live,
+                   tick_all_live=tick_stats(ticks),
                    rt_share=every["median_ms"] / 1e3 / STEP_S,
                    tokens=tokens,
                    final_tokens=sum(len(v) for v in finals.values()))
@@ -4603,9 +4644,9 @@ def probe_profile(torch, card):
                 knobs=knobs)
 
 
-def busy_per_step(torch, asr, audios, n_ticks: int = 2):
-    """The card's busy time per chunked step (torch.profiler) over n_ticks
-    ticks of fresh sessions after a warm-up tick."""
+def busy_ticks(torch, asr, audios, n_ticks: int = 2):
+    """The card's busy time (ms, torch.profiler) over n_ticks ticks of
+    fresh sessions after a warm-up tick, and the steps they ran."""
     slots = [asr.join() for _ in audios]
     try:
         asr.tick({s: a[:CHUNK] for s, a in zip(slots, audios)})
@@ -4619,7 +4660,13 @@ def busy_per_step(torch, asr, audios, n_ticks: int = 2):
             asr.leave(s)
     busy = sum(e.self_device_time_total for e in _device_events(prof)) / 1e3
     require(busy > 0, "profiler saw no device time in the chunked steps")
-    return busy / (asr.steps - steps)
+    return busy, asr.steps - steps
+
+
+def busy_per_step(torch, asr, audios, n_ticks: int = 2):
+    """The card's busy time per chunked step over n_ticks ticks."""
+    busy, steps = busy_ticks(torch, asr, audios, n_ticks)
+    return busy / steps
 
 
 def feed_ticks(asr, audios, n_ticks: int):
@@ -5642,6 +5689,306 @@ def only_mesh(torch, card, peaks, floor_ms, at) -> int:
     return 0
 
 
+# ---------------------------------- phase 14: the remaining serving paths
+PATHS_CAPACITY = 64
+PATHS_SESSIONS = 16       # phase 4's S = 16 sessions (seed 116), each cut
+PATHS_CHUNKS = 8          # to its first 8 chunks of 0.4 s (3.2 s)
+PATHS_COMPARE = (0, 1)    # sessions held against an OnlineRecognizer
+PATHS_EMBED_REL = 1e-3    # |d| <= this * max |x| per embedding (phase 13(a))
+PATHS_BUSY_TICKS = 3      # profiled ticks for the card's busy share
+
+
+def paths_audio():
+    return [a[:PATHS_CHUNKS * CHUNK]
+            for a in session_audio(PATHS_SESSIONS, seed=100 + PATHS_SESSIONS)]
+
+
+def unfused_ticker(torch, card, params):
+    """(a) `BatchedChunkedASR(capacity=64, fused=False)` on 16 sessions x 8
+    chunks: K1 50 per step and K2 1 per fbank quantum call; sessions
+    PATHS_COMPARE against a per-session `OnlineRecognizer` on the card
+    (fired counts equal, embeddings within PATHS_EMBED_REL of each one's
+    max |x|, the recognizer's first max_tokens); step and tick walls, the
+    card's busy share of a tick."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.asr.tokenizer import CharTokenizer
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer import (
+        ParaformerConfig)
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer_online import (
+        OnlineConfig, OnlineRecognizer)
+    from toolbox_for_asr_and_tts_tpu_torch.parallel.stream_batcher import (
+        BatchedChunkedASR)
+    cfg, ocfg = ParaformerConfig(), OnlineConfig()
+    audios = paths_audio()
+    asr = BatchedChunkedASR(params, cfg, ocfg, capacity=PATHS_CAPACITY,
+                            fused=False)
+    asr.warm()
+    require(len(asr.programs) == 0 and len(asr.shared) == 0,
+            "warm() built a program on the unfused ticker")
+    # each step call's wall, from its inputs to the fetch of its outputs
+    # (the program is built before the clock starts)
+    step_walls, get = [], asr._unfused_fn
+
+    def timed():
+        prog = get()
+
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = prog(*args, **kw)
+            step_walls.append(time.perf_counter() - t0)
+            return out
+        return call
+    asr._unfused_fn = timed
+    steps0, fb0 = asr.steps, asr.fbanks
+    (ticks, fired), k1n, k2n = counted(
+        torch, lambda: feed_ticks(asr, audios, PATHS_CHUNKS))
+    steps, fbanks = asr.steps - steps0, asr.fbanks - fb0
+    require(steps > 0 and fbanks > 0, f"unfused: {steps} steps, {fbanks} "
+                                      "fbank calls")
+    require(k1n == cfg.encoder_layers * steps and k2n == fbanks,
+            f"unfused: K1 {k1n} / K2 {k2n} launches over {steps} steps and "
+            f"{fbanks} fbank calls")
+    tokens = sum(len(v) for v in fired.values())
+    require(tokens > 0, "the unfused ticker fired no token")
+    require(all(np.isfinite(e).all() and e.shape == (cfg.d_model,)
+                for v in fired.values() for e in v),
+            "unfused embeddings not finite or not [d_model]")
+    worst, compared = 0.0, []
+    for i in PATHS_COMPARE:
+        reco = OnlineRecognizer(params, cfg, CharTokenizer.dummy(
+            cfg.vocab_size), ocfg)
+        for c in range(PATHS_CHUNKS):
+            reco.push_audio(audios[i][c * CHUNK:(c + 1) * CHUNK])
+        want, got = reco._embeds, fired[i][:ocfg.max_tokens]
+        require(len(got) == len(want), f"unfused session {i}: {len(got)} "
+                f"fired, the recognizer {len(want)}")
+        for a, b in zip(got, want):
+            err = float(np.abs(a - b).max())
+            scale = float(np.abs(b).max())
+            require(err <= PATHS_EMBED_REL * scale,
+                    f"unfused session {i}: embedding |d| {err} beyond "
+                    f"{PATHS_EMBED_REL} of {scale}")
+            worst = max(worst, err / scale)
+        compared.append(len(want))
+    step = wall_stats(step_walls[1:])    # the first replay apart
+    busy, _ = busy_ticks(torch, asr, audios, PATHS_BUSY_TICKS)
+    tick = tick_stats(ticks)
+    return dict(sessions=PATHS_SESSIONS, chunks=PATHS_CHUNKS, steps=steps,
+                fbank_calls=fbanks, fbank_captures=asr.shared.captures,
+                k1_per_step=k1n / steps, k2_per_fbank=k2n / fbanks,
+                tokens=tokens, compared_tokens=compared,
+                max_rel_embed_err=worst, step=step,
+                tick=tick, busy_ms_per_tick=busy / PATHS_BUSY_TICKS,
+                busy_share=busy / PATHS_BUSY_TICKS / tick["median_ms"])
+
+
+def unbucketed_ticker(torch, card, params):
+    """(b) `BatchedChunkedASR(capacity=64, partials=True, bucketed=False)`
+    and the bucketed ticker on the same 16 sessions, finalized: ids equal,
+    K1 50 / K2 1 per step in both; walls and busy shares."""
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer import (
+        ParaformerConfig)
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer_online import (
+        OnlineConfig)
+    from toolbox_for_asr_and_tts_tpu_torch.parallel.stream_batcher import (
+        BatchedChunkedASR)
+    cfg = ParaformerConfig()
+    audios = paths_audio()
+    out, got = {}, {}
+    for name, bucketed in (("unbucketed", False), ("bucketed", True)):
+        asr = BatchedChunkedASR(params, cfg, OnlineConfig(),
+                                capacity=PATHS_CAPACITY, partials=True,
+                                bucketed=bucketed)
+        require(asr.bucketed is bucketed, f"{name}: bucketed={asr.bucketed}")
+        t0 = time.perf_counter()
+        asr.warm()
+        warm_s = time.perf_counter() - t0
+        if not bucketed:
+            require(sorted(asr.programs) == [("tick", PATHS_CAPACITY)],
+                    f"unbucketed programs {sorted(asr.programs)}")
+        steps0 = asr.steps
+        (ticks, ids, finals), k1n, k2n = counted(
+            torch, lambda: drive_chunked(asr, audios))
+        n = asr.steps - steps0
+        require((k1n, k2n) == (cfg.encoder_layers * n, n),
+                f"{name}: K1 / K2 {k1n} / {k2n} over {n} steps")
+        busy, _ = busy_ticks(torch, asr, audios, PATHS_BUSY_TICKS)
+        tick = tick_stats(ticks)
+        got[name] = (ids, finals)
+        out[name] = dict(steps=n, k1_per_step=k1n / n, k2_per_step=k2n / n,
+                         programs=len(asr.programs), warm_s=warm_s,
+                         step=step_stats(ticks)[1], tick=tick,
+                         busy_ms_per_tick=busy / PATHS_BUSY_TICKS,
+                         busy_share=busy / PATHS_BUSY_TICKS
+                         / tick["median_ms"],
+                         tokens=sum(len(v) for v in ids.values()),
+                         final_tokens=sum(len(v) for v in finals.values()))
+    require(got["unbucketed"] == got["bucketed"],
+            "unbucketed ids differ from the bucketed ticker's")
+    require(out["bucketed"]["tokens"] > 0, "no token fired")
+    return out
+
+
+def single_phase_tts(torch, card, synth):
+    """(c) phase 7's synthesizer built under TTS_TWO_PHASE=0 beside a
+    two-phase one on the same weights, both pinned as phase 7, on the
+    14-segment paragraph: per batch (one phone group each) no probe and
+    one synthesis, sample counts equal to two-phase's, PCM within
+    TTS_PCM_LSB where two-phase's t_mel was t_cap; walls and pools."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.tts.synthesizer import Synthesizer
+    saved = os.environ.get("TTS_TWO_PHASE")
+    os.environ["TTS_TWO_PHASE"] = "0"
+    try:
+        single = tts_pin(Synthesizer(synth.ap, synth.acfg, synth.vp,
+                                     synth.vcfg, device="cuda"))
+    finally:
+        if saved is None:
+            del os.environ["TTS_TWO_PHASE"]
+        else:
+            os.environ["TTS_TWO_PHASE"] = saved
+    two = tts_pin(Synthesizer(synth.ap, synth.acfg, synth.vp, synth.vcfg,
+                              device="cuda"))
+    require(not single.two_phase and two.two_phase,
+            f"two_phase {single.two_phase} / {two.two_phase}")
+    segments = tts_segments(synth)
+    bs = synth.cfg.batch_size
+    groups = [segments[i:i + bs] for i in range(0, len(segments), bs)]
+    rows, covered, other_lsb = [], 0, 0
+    for g in groups:
+        (w2, _), n2 = tts_counted(torch, two, lambda: two.synthesize_segments(
+            g, MOUNT_VOICE))
+        (w1, _), n1 = tts_counted(torch, single,
+                                  lambda: single.synthesize_segments(
+                                      g, MOUNT_VOICE))
+        require((n1["probes"], n1["synths"], n1["k1"], n1["k2"])
+                == (0, 1, 0, 0), f"single-phase programs {n1}")
+        require((n2["probes"], n2["synths"]) == (1, 1),
+                f"two-phase programs {n2}")
+        require([len(w) for w in w1] == [len(w) for w in w2],
+                "single-phase sample counts differ from two-phase's")
+        require(all(np.isfinite(w).all() for w in w1), "samples not finite")
+        t_two, t_cap = n2["mel_frames"] // len(g), n1["mel_frames"] // len(g)
+        lsb = max(int(np.abs(pcm16(a) - pcm16(b)).max())
+                  for a, b in zip(w1, w2))
+        if t_two == t_cap:
+            require(lsb <= TTS_PCM_LSB, f"single vs two-phase at t_mel "
+                                        f"{t_cap}: PCM differs by {lsb} LSB")
+            covered += 1
+        else:
+            other_lsb = max(other_lsb, lsb)
+        rows.append(dict(segments=len(g), t_mel_two_phase=t_two,
+                         t_cap=t_cap, lsb=lsb))
+
+    def walls(s):
+        s.synthesize(TTS_TEXT)
+        out = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res, n = tts_counted(torch, s, lambda: s.synthesize(TTS_TEXT))
+            out.append((time.perf_counter() - t0) * 1e3)
+            check_tts(s, res, segments)
+        return statistics.median(out), n
+    single_ms, n1 = walls(single)
+    two_ms, n2 = walls(two)
+    require(n1["probes"] == 0 and n1["synths"] == len(groups),
+            f"single-phase synthesize ran {n1}")
+    return dict(groups=rows, covered=covered, other_max_lsb=other_lsb,
+                wall_ms=single_ms, two_phase_wall_ms=two_ms,
+                mel_frames=n1["mel_frames"],
+                two_phase_mel_frames=n2["mel_frames"],
+                pool_bytes=single.programs.pool_bytes(),
+                two_phase_pool_bytes=two.programs.pool_bytes())
+
+
+def paths_path(torch, card, params, synth, s16=None, tts7=None):
+    """Phase 14: the reference's remaining serving paths at full width;
+    `s16` is phase 4's S = 16 row and `tts7` phase 7's line (None when the
+    phase runs alone)."""
+    t_phase = time.perf_counter()
+    unfused = unfused_ticker(torch, card, params)
+    unbucketed = unbucketed_ticker(torch, card, params)
+    fused = dict(phase14=unbucketed["bucketed"])
+    if s16 is not None:
+        fused.update(phase4_step=s16["step_all_live"],
+                     phase4_tick=s16["tick_all_live"])
+    u, b = unfused, unbucketed["bucketed"]
+    print(f"streaming unfused (capacity {PATHS_CAPACITY}, "
+          f"{PATHS_SESSIONS} sessions x {PATHS_CHUNKS} chunks): "
+          f"{u['steps']} steps, {u['fbank_calls']} fbank calls "
+          f"({u['fbank_captures']} captured), K1 {u['k1_per_step']:g}/step, "
+          f"K2 {u['k2_per_fbank']:g}/fbank call; step median "
+          f"{u['step']['median_ms']:.2f} ms, p95 {u['step']['p95_ms']:.2f}; "
+          f"tick median {u['tick']['median_ms']:.2f} ms, p95 "
+          f"{u['tick']['p95_ms']:.2f}; busy {u['busy_ms_per_tick']:.2f} "
+          f"ms/tick, share {u['busy_share']:.3f}; sessions "
+          f"{list(PATHS_COMPARE)} = OnlineRecognizer ({u['compared_tokens']} "
+          f"tokens, max rel |d| {u['max_rel_embed_err']:.3g}) | fused "
+          f"(bucketed, same sessions): step median "
+          f"{b['step']['median_ms']:.2f} ms, p95 {b['step']['p95_ms']:.2f}; "
+          f"tick median {b['tick']['median_ms']:.2f} ms, p95 "
+          f"{b['tick']['p95_ms']:.2f}; busy share {b['busy_share']:.3f}"
+          + ("" if s16 is None else
+             f" | phase 4 S=16 all live: step median "
+             f"{s16['step_all_live']['median_ms']:.2f} ms, p95 "
+             f"{s16['step_all_live']['p95_ms']:.2f}; tick median "
+             f"{s16['tick_all_live']['median_ms']:.2f} ms, p95 "
+             f"{s16['tick_all_live']['p95_ms']:.2f}")
+          + f" on {card}", flush=True)
+    f = unbucketed["unbucketed"]
+    print(f"streaming unbucketed (partials, finalized): ids equal to the "
+          f"bucketed ticker's ({f['tokens']} + {f['final_tokens']} tokens); "
+          f"{f['steps']} steps ({b['steps']} bucketed), K1 "
+          f"{f['k1_per_step']:g} / K2 {f['k2_per_step']:g} per step; "
+          f"{f['programs']} program (warm {f['warm_s']:.1f} s, bucketed "
+          f"{b['programs']} in {b['warm_s']:.1f} s); tick median "
+          f"{f['tick']['median_ms']:.2f} ms ({b['tick']['median_ms']:.2f} "
+          f"bucketed), busy share {f['busy_share']:.3f} on {card}",
+          flush=True)
+    tts = single_phase_tts(torch, card, synth)
+    print(f"tts single-phase (TTS_TWO_PHASE=0): {len(tts['groups'])} phone "
+          f"groups, 0 probes, one synthesis each; t_mel two-phase / cap "
+          f"{[(r['t_mel_two_phase'], r['t_cap']) for r in tts['groups']]}; "
+          f"sample counts equal; PCM within {TTS_PCM_LSB} LSB in "
+          f"{tts['covered']} group(s) at the cap (max |d| "
+          f"{[r['lsb'] for r in tts['groups']]} LSB), max |d| elsewhere "
+          f"{tts['other_max_lsb']} LSB; synthesize wall {tts['wall_ms']:.1f} "
+          f"ms (two-phase {tts['two_phase_wall_ms']:.1f}"
+          + ("" if tts7 is None else
+             f", phase 7 {tts7['one_shot']['wall_ms']:.1f}")
+          + f"), mel frames {tts['mel_frames']} ({tts['two_phase_mel_frames']}"
+          f"), graph pool {tts['pool_bytes']} bytes (two-phase "
+          f"{tts['two_phase_pool_bytes']}) on {card}", flush=True)
+    graph_snapshot("paths")
+    out = dict(unfused=unfused, unbucketed=unbucketed["unbucketed"],
+               fused=fused, tts=tts)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"paths phase: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def only_paths(torch, card, peaks, at) -> int:
+    """`--only-paths`: K2 at the unfused quantum, then phase 14 alone over
+    phase 3's weights and phase 7's synthesizer built afresh; prints its
+    JSON line and no result line."""
+    from toolbox_for_asr_and_tts_tpu_torch.asr.recognizer import Recognizer
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer import (
+        ParaformerConfig)
+    from toolbox_for_asr_and_tts_tpu_torch.tts.synthesizer import Synthesizer
+    try:
+        row = check_k2(torch, peaks, STREAM_S, 4080, 24,
+                       "stream_unfused_quantum")
+        at("phase 14: the remaining serving paths")
+        reco = Recognizer.random(ParaformerConfig(), seed=0)
+        synth = tts_pin(Synthesizer.random(seed=0, tiny=False))
+        paths = paths_path(torch, card, reco.params, synth)
+    except Exception:
+        traceback.print_exc()
+        return 1
+    print(json.dumps({"paths": paths, "k2_row": row, "card": card}))
+    return 0
+
+
 def main(argv) -> int:
     import shutil
     import tempfile
@@ -5698,6 +6045,8 @@ def main(argv) -> int:
               f"{floor_ms * 1e3:.2f} us per launch", flush=True)
         if "--only-mesh" in argv:
             return only_mesh(torch, card, peaks, floor_ms, at)
+        if "--only-paths" in argv:
+            return only_paths(torch, card, peaks, at)
         k1_rows = check_k1(torch, peaks, floor_ms)
         k1_backward = check_k1_backward(torch, peaks, floor_ms)
         if "--sweep" in argv:
@@ -5747,6 +6096,14 @@ def main(argv) -> int:
             shutil.rmtree(root, ignore_errors=True)
         at("phase 13: the mesh layer")
         mesh = mesh_path(torch, card, peaks, floor_ms, reco, wavs, synth)
+        at("phase 14: the remaining serving paths")
+        paths = paths_path(torch, card, reco.params, synth, streaming["S16"],
+                           tts)
+        streaming["unfused_vs_fused"] = dict(
+            unfused=paths["unfused"], fused=paths["fused"],
+            unbucketed=paths["unbucketed"])
+        tts["single_phase"] = dict(paths["tts"],
+                                   phase7_wall_ms=tts["one_shot"]["wall_ms"])
     except Exception:   # every phase failure ends the run without a result
         traceback.print_exc()
         return 1
@@ -5817,6 +6174,8 @@ def main(argv) -> int:
                  for s, r in precision["int8_streaming"].items()},
              **dispatch_launches("k1"),
              **mesh_launches(mesh, "k1"),
+             launches_per_unfused_step=paths["unfused"]["k1_per_step"],
+             launches_per_unbucketed_step=paths["unbucketed"]["k1_per_step"],
              shapes=k1_rows + k1_stream + k1_service + [
                  mesh["seq_parallel"]["k1_row"],
                  mesh["pipeline"]["k1_row"]]),
@@ -5863,6 +6222,8 @@ def main(argv) -> int:
                  for s, r in precision["int8_streaming"].items()},
              **dispatch_launches("k2"),
              **mesh_launches(mesh, "k2"),
+             launches_per_unfused_fbank=paths["unfused"]["k2_per_fbank"],
+             launches_per_unbucketed_step=paths["unbucketed"]["k2_per_step"],
              shapes=[k2_row] + k2_stream + k2_service),
     ]
     graph_snapshot("end")

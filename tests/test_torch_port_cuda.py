@@ -1314,3 +1314,115 @@ def test_kernels_launch_on_a_second_card(cuda):
     torch.testing.assert_close(
         fr, k2.frame_window_plain(audio, win, 98, 400, 160, 512),
         rtol=1e-5, atol=1e-5 * float(audio.abs().max()))
+
+
+# ------------------- the unfused and unbucketed tickers, single-phase TTS
+def _chunked_on(device, **kw):
+    """`_tickers_on`'s chunked ticker (50 encoder layers, tiny width),
+    with the given flags."""
+    from toolbox_for_asr_and_tts_tpu_torch.models import paraformer as pf
+    from toolbox_for_asr_and_tts_tpu_torch.parallel import stream_batcher as sb
+    cfg = pf.ParaformerConfig(d_model=32, n_heads=2, ffn_dim=64,
+                              encoder_layers=50, decoder_layers=2,
+                              vocab_size=64)
+    p = pf.init_params(cfg, torch.Generator().manual_seed(0))
+    return sb.BatchedChunkedASR(p, cfg, capacity=4, device=device, **kw)
+
+
+def test_frame_window_kernel_unfused_quantum(cuda):
+    """The unfused ticker's fbank quantum: [64, 4080] → 24 frames."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy((0.3 * rng.standard_normal((64, 4080)) * 32768.0)
+                         .astype(np.float32)).to(cuda)
+    win = torch.from_numpy(fe._window_coeffs(fe.FrontendConfig())).to(cuda)
+    before = k2.launches
+    got = k2.frame_window(x, win, 24, 400, 160, 512)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1 and got.shape == (64, 24, 512)
+    want = k2.frame_window_plain(x, win, 24, 400, 160, 512)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * x.abs().max().item())
+
+
+def test_unfused_ticker_on_card_matches_cpu(cuda, no_tf32):
+    """`fused=False` on the card against the CPU, 3 sessions of 0.4 s
+    chunks and a reset: fired counts equal tick for tick, embeddings
+    within 1e-4; K1 +50 per step and K2 +1 per fbank quantum call."""
+    rng = np.random.default_rng(19)
+    audio = [(0.1 * rng.standard_normal(19200)).astype(np.float32)
+             for _ in range(3)]
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        asr = _chunked_on(dev, fused=False)
+        slots = [asr.join() for _ in audio]
+        fired = []
+        for s in range(0, 19200, 6400):
+            if s == 12800:
+                asr.reset_slot(slots[1])
+            k1_0, k2_0 = k1.launches, k2.launches
+            steps_0, fb_0 = asr.steps, asr.fbanks
+            fired.append(asr.tick({sl: a[s:s + 6400]
+                                   for sl, a in zip(slots, audio)}))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                assert k1.launches - k1_0 == 50 * (asr.steps - steps_0)
+                assert k2.launches - k2_0 == asr.fbanks - fb_0 > 0
+        outs[dev.type] = fired
+    assert sum(len(v) for t in outs["cpu"] for v in t.values()) > 0
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert {s: len(v) for s, v in a.items()} == \
+            {s: len(v) for s, v in b.items()}
+        for s in b:
+            if b[s]:
+                np.testing.assert_allclose(np.stack(a[s]), np.stack(b[s]),
+                                           rtol=0, atol=1e-4)
+
+
+def test_unbucketed_ticker_on_card_equals_bucketed(cuda, no_tf32):
+    """`bucketed=False` on the card: every step one full 4-row program (K1
+    50 / K2 1), the ids of the bucketed ticker, finalize included."""
+    rng = np.random.default_rng(20)
+    audio = [(0.1 * rng.standard_normal(12800)).astype(np.float32)
+             for _ in range(3)]
+    got = {}
+    for bucketed in (False, True):
+        asr = _chunked_on(cuda, partials=True, bucketed=bucketed)
+        slots = [asr.join() for _ in audio]
+        ids = {i: [] for i in range(3)}
+        back = {s: i for i, s in enumerate(slots)}
+        k1_0, k2_0, steps_0 = k1.launches, k2.launches, asr.steps
+        for s in range(0, 12800, 6400):
+            for sl, v in asr.tick({sl: a[s:s + 6400] for sl, a in
+                                   zip(slots[:1 + s // 6400], audio)}).items():
+                ids[back[sl]].extend(v)
+        for sl in slots:
+            for sl2, v in asr.finalize_slot(sl).items():
+                ids[back[sl2]].extend(v)
+        torch.cuda.synchronize()
+        n = asr.steps - steps_0
+        assert (k1.launches - k1_0, k2.launches - k2_0) == (50 * n, n)
+        if not bucketed:
+            assert list(asr.programs) == [("tick", 4)]
+        got[bucketed] = ids
+    assert got[False] == got[True]
+    assert sum(len(v) for v in got[False].values()) > 0
+
+
+@pytest.mark.parametrize("mode", ["nar", "pnca"])
+def test_single_phase_synthesis_on_card_matches_cpu(cuda, no_tf32, mode,
+                                                    monkeypatch):
+    """TTS_TWO_PHASE=0 on the card: no probe, one synthesis per phone
+    group, PCM within 1 LSB of the CPU's single-phase run, no K1 or K2."""
+    monkeypatch.setenv("TTS_TWO_PHASE", "0")
+    cpu, card = _tts_pair(cuda, mode)
+    assert not card.two_phase and not cpu.two_phase
+    text = "今天天气很好。病人血压一百二，心率正常,没有出血。请多休息，按时吃药。谢谢。"
+    probes, synths = card.probes.n, card.synths.n
+    got, n1, n2 = _counted(lambda: card.synthesize(text))
+    assert (n1, n2) == (0, 0)
+    assert card.probes.n == probes and card.synths.n > synths
+    want = cpu.synthesize(text)
+    assert got.seg_durations_s == want.seg_durations_s
+    pcm = lambda w: np.round(w.astype(np.float64) * 32767.0)  # noqa: E731
+    assert len(got.wav) == len(want.wav)
+    assert np.abs(pcm(got.wav) - pcm(want.wav)).max() <= 1

@@ -1,10 +1,15 @@
 """The port's `tools/make_frontend_goldens.py` reproduces the vendored
 goldens (tests/data/frontend_goldens.npz) array for array, written into a
-temporary directory; and the two names the port took over last:
+temporary directory; the two names the port took over last:
 `service/schemas.py::TTSResultResponse` and
-`runtime/bucketing.py::CompileCacheStats`, against the reference's."""
+`runtime/bucketing.py::CompileCacheStats`, against the reference's; and,
+per module present in both packages, the public keyword names of every
+function and method present in both (by AST), so that a keyword the port
+lacks fails here, save the listed idiom renames, each with its reason."""
+import ast
 import dataclasses
 import json
+import os
 
 import numpy as np
 import pytest
@@ -76,3 +81,104 @@ def test_compile_cache_stats_record_matches_reference():
     assert [ours.record(*s) for s in shapes] == \
         [ref.record(*s) for s in shapes] == [True, False, True, True, False]
     assert ours.shapes == ref.shapes
+
+
+# ------------------------------------------------ public keyword names
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REF_PKG = os.path.join(ROOT, "toolbox_for_asr_and_tts_tpu")
+PORT_PKG = os.path.join(ROOT, "toolbox_for_asr_and_tts_tpu_torch")
+# keywords the port names otherwise wherever they occur, and why
+RENAMED = {
+    "key": (("g", "generator"), "a torch.Generator draws the weights in "
+            "place of a JAX PRNG key"),
+    "fns": (("programs",), "a runtime/graphs.py Programs owner caches the "
+            "compiled programs in place of a dict of jitted functions"),
+}
+# keywords one port function leaves out, and why
+DROPPED = {
+    ("runtime/profiling.py", "trace_to"): (
+        {"create_perfetto_link"}, "a jax.profiler option; torch.profiler "
+        "writes a Chrome trace, which Perfetto opens as it is"),
+    ("models/paraformer_streaming.py", "nar_redecode"): (
+        {"fns"}, "the re-decode runs eagerly on the params' device: no "
+        "compiled function to cache"),
+    ("tools/start_all.py", "serve_all"): (
+        {"voice_port", "tts_port"}, "it serves the apps `main` built on "
+        "the chosen device, each at its (host, port) address"),
+}
+# public top-level functions of a shared module that the port leaves out
+LEFT_OUT = {
+    ("launch.py", "setup_compilation_cache"): "XLA's persistent "
+    "compilation cache; a CUDA graph is captured per process",
+}
+
+
+def _signatures(path):
+    """Public top-level functions and public methods (and __init__) of
+    public classes → their parameter names (self and cls left out)."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+
+    def names(fn):
+        a = fn.args
+        return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs
+                if x.arg not in ("self", "cls")]
+    fns = (ast.FunctionDef, ast.AsyncFunctionDef)
+    out = {}
+    for node in tree.body:
+        if isinstance(node, fns) and not node.name.startswith("_"):
+            out[node.name] = names(node)
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            for m in node.body:
+                if isinstance(m, fns) and (not m.name.startswith("_")
+                                           or m.name == "__init__"):
+                    out[f"{node.name}.{m.name}"] = names(m)
+    return out
+
+
+def _shared_modules():
+    out = []
+    for root, _, files in os.walk(REF_PKG):
+        for f in files:
+            rel = os.path.relpath(os.path.join(root, f), REF_PKG)
+            if f.endswith(".py") and os.path.exists(
+                    os.path.join(PORT_PKG, rel)):
+                out.append(rel.replace(os.sep, "/"))
+    return sorted(out)
+
+
+SHARED = _shared_modules()
+
+
+def test_every_listed_difference_exists():
+    """No stale entry: each dropped keyword and left-out function names a
+    module present in both packages."""
+    assert len(SHARED) > 50
+    for rel, _ in list(DROPPED) + list(LEFT_OUT):
+        assert rel in SHARED, rel
+
+
+@pytest.mark.parametrize("rel", SHARED)
+def test_public_keywords_match_reference(rel):
+    """Every keyword a reference function or method of `rel` takes, the
+    port's function or method of the same name takes too (renamed only as
+    RENAMED lists, or left out only as DROPPED lists); every public
+    top-level function of the reference module is in the port's, save
+    LEFT_OUT; and every DROPPED / LEFT_OUT entry still applies."""
+    ref = _signatures(os.path.join(REF_PKG, rel))
+    port = _signatures(os.path.join(PORT_PKG, rel))
+    missing = {}
+    for name in sorted(set(ref) & set(port)):
+        dropped = DROPPED.get((rel, name), (set(), ""))[0]
+        lacks = [k for k in ref[name] if k not in port[name]
+                 and k not in dropped
+                 and not set(RENAMED.get(k, ((),))[0]) & set(port[name])]
+        if lacks:
+            missing[name] = lacks
+        assert dropped <= set(ref[name]) - set(port[name]), (name, dropped)
+    assert not missing, f"{rel}: keywords the port lacks: {missing}"
+    top = {n for n in ref if "." not in n} - {n for n in port if "." not in n}
+    assert top == {n for r, n in LEFT_OUT if r == rel}, (rel, top)
+    for r, name in DROPPED:
+        if r == rel:
+            assert name in ref and name in port, name

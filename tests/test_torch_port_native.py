@@ -7,6 +7,7 @@ reference's engines (same weights), model errors closing with 1011, hub
 rows released, the native WAV ingest against the reference's decoder, and
 the epoll load generator against the port's voice app."""
 import base64
+import ctypes
 import json
 import os
 import struct
@@ -58,6 +59,25 @@ def test_build_is_safe_from_six_processes_at_once(tmp_path):
         os.path.join(str(tmp_path), bridge._digest())}
     assert sorted(os.listdir(os.path.dirname(built[0]))) == sorted(
         bridge.TARGETS)   # no temporary directory left behind
+
+
+def test_force_rebuilds_every_target(tmp_path, monkeypatch):
+    """build_library(force=True) (the reference's `force=`) rebuilds every
+    target into the versioned directory even when a build exists; without
+    it an existing build is kept."""
+    monkeypatch.setattr(bridge, "BUILD_ROOT", str(tmp_path))
+    paths = [bridge.build_library(t) for t in bridge.TARGETS]
+    built = [os.stat(p).st_mtime_ns for p in paths]
+    assert bridge.build_library() == paths[0]
+    assert [os.stat(p).st_mtime_ns for p in paths] == built
+    assert bridge.build_library(force=True) == paths[0]
+    rebuilt = [os.stat(p).st_mtime_ns for p in paths]
+    assert all(r > b for r, b in zip(rebuilt, built)), (built, rebuilt)
+    assert os.path.dirname(paths[0]) == os.path.join(str(tmp_path),
+                                                     bridge._digest())
+    assert sorted(os.listdir(os.path.dirname(paths[0]))) == sorted(
+        bridge.TARGETS)
+    ctypes.CDLL(paths[0], mode=ctypes.RTLD_LOCAL)
 
 
 def test_default_build_lands_in_the_package():

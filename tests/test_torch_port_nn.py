@@ -213,6 +213,25 @@ def test_cross_attention():
                                jnp.asarray(mask)))
 
 
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_mha_over_kv_matches_reference(with_mask):
+    """`mha(..., kv=)`: queries from x, keys and values from kv (the
+    reference's `ops/nn.py:329-337`), with and without a key mask."""
+    p = jnn.mha_init(jax.random.PRNGKey(3), 32, 4)
+    x, kv = _x(2, 5, 32, seed=1), _x(2, 9, 32, seed=2)
+    mask = _mask(2, 9, [9, 4]) if with_mask else None
+    want = jnn.mha(p, jnp.asarray(x), 4,
+                   None if mask is None else jnp.asarray(mask),
+                   kv=jnp.asarray(kv))
+    got = nn.mha(_pt(p), torch.from_numpy(x), 4,
+                 None if mask is None else torch.from_numpy(mask),
+                 kv=torch.from_numpy(kv))
+    assert tuple(got.shape) == (2, 5, 32)
+    _close(got, want)
+    _close(nn.mha(_pt(p), torch.from_numpy(x), 4),
+           jnn.mha(p, jnp.asarray(x), 4))
+
+
 def test_ffn():
     p = jnn.ffn_init(jax.random.PRNGKey(6), 32, 64)
     x = _x(2, 5, 32)

@@ -85,17 +85,19 @@ def build_dir() -> str:
     return os.path.join(BUILD_ROOT, _digest())
 
 
-def build_library(name: str = WS_LIB) -> str:
+def build_library(name: str = WS_LIB, force: bool = False) -> str:
     """Path of the built target `name` (one of TARGETS), building all three
-    from the package's sources first if this version is not built yet."""
+    from the package's sources first if this version is not built yet, or
+    always with force=True (every target rebuilt and replaced in the
+    versioned build directory)."""
     if name not in TARGETS:
         raise ValueError(f"unknown native target {name!r}")
     out = build_dir()
     path = os.path.join(out, name)
-    if os.path.exists(path):
+    if os.path.exists(path) and not force:
         return path
     with _build_lock:
-        if os.path.exists(path):
+        if os.path.exists(path) and not force:
             return path
         os.makedirs(out, exist_ok=True)
         tmp = tempfile.mkdtemp(prefix=".build-", dir=out)

@@ -347,10 +347,13 @@ def mha_init(g: torch.Generator, d: int, n_heads: int) -> Params:
 
 
 def mha(p: Params, x: torch.Tensor, n_heads: int,
-        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Self-attention. mask: [B, Tk] key validity or [B, Tq, Tk], applied
-    additively through `attend`."""
-    q, k, v = linear(p["q"], x), linear(p["k"], x), linear(p["v"], x)
+        mask: Optional[torch.Tensor] = None,
+        kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Self-attention, or attention over `kv` [B, Tk, D] when given (keys
+    and values from it, queries from x). mask: [B, Tk] key validity or
+    [B, Tq, Tk], applied additively through `attend`."""
+    src = x if kv is None else kv
+    q, k, v = linear(p["q"], x), linear(p["k"], src), linear(p["v"], src)
     out = attend(_split_heads(q, n_heads), _split_heads(k, n_heads),
                  _split_heads(v, n_heads), mask)
     return linear(p["out"], _merge_heads(out))

@@ -1,13 +1,13 @@
 """Batched multi-session streaming: many connections, one step per tick.
 
-Port of `toolbox_for_asr_and_tts_tpu/parallel/stream_batcher.py`, in its
-fused form. Session states are stacked tensors ([S, …] rows, the stacked
-caches [layers, S, …]); without a mesh, live sessions occupy the contiguous
-row prefix [0, n_live) — `leave` moves the last live row into the vacated one —
-so a tick steps the pow-2 prefix that covers its highest ready row and
-writes the result back into the state in place, masked to the rows that had
-a chunk (`torch.where(..., out=)` into the prefix view; the reference's
-donated `dynamic_update_slice`).
+Port of `toolbox_for_asr_and_tts_tpu/parallel/stream_batcher.py`. In the
+fused form (the default), session states are stacked tensors ([S, …] rows,
+the stacked caches [layers, S, …]); without a mesh, live sessions occupy
+the contiguous row prefix [0, n_live) — `leave` moves the last live row
+into the vacated one — so a tick steps the pow-2 prefix that covers its
+highest ready row and writes the result back into the state in place,
+masked to the rows that had a chunk (`torch.where(..., out=)` into the
+prefix view; the reference's donated `dynamic_update_slice`).
 
 Each prefix bucket's step is one program (`runtime/graphs.py`; the
 reference's AOT-compiled `_prefix_exec` / `_exec`): on the card a captured
@@ -36,7 +36,17 @@ weights per distinct device and its own step program; a slot keeps its row
 since rows are placed by position (the reference's `:130-133`). A capacity
 that does not divide over the axis raises.
 
-Left out against the reference: the unfused `fused=False` path.
+`bucketed=False` runs the fused step as the mesh path does on one device:
+slot = row, every step covers all `capacity` rows, masked.
+
+`fused=False` is the reference's host-frontend ticker: each session keeps
+its LFR frontend and a feature queue on the host; a tick computes the fbank
+of every ready row in fixed quanta of `FBANK_QUANTA` frames (one program
+per ready count, kernel K2, shared through `exec_cache`), drains LFR per
+session, then runs full-capacity encoder + CIF steps (K1 in every layer)
+over the rows holding c1 frames, slot = row. The unfused state is
+`paraformer_online.init_state`'s; on a mesh it stays on the first
+position, as the reference neither shards nor splits it.
 """
 from __future__ import annotations
 
@@ -176,7 +186,8 @@ class _PackedRows:
 
 class _FixedRows(_PackedRows):
     """Slot = row for good (a mesh ticker: rows live on their positions, so
-    none moves); every step covers every row."""
+    none moves; an unbucketed or unfused one); every step covers every
+    row."""
 
     def claim(self) -> int:
         if not self.free:
@@ -233,14 +244,23 @@ class BatchedChunkedASR:
     mesh: rows shard over its "data" axis (see the module's docstring);
     the finalize tail runs on the first position, its row's decoder state
     copied in.
+
+    fused=False: the host-frontend ticker (see the module's docstring);
+    `partials` and `pipelined` take effect only with `fused`, and
+    `finalize_slot` needs it. bucketed (default: fused and no mesh; an
+    explicit value is ANDed with that): the packed pow-2 prefix steps;
+    off, every step covers every row, slot = row.
     """
+
+    FBANK_QUANTA = 24   # fbank frames per unfused fbank call: one shape
 
     def __init__(self, params, cfg: Optional[pf.ParaformerConfig] = None,
                  ocfg: Optional[po.OnlineConfig] = None, capacity: int = 16,
                  cmvn: Optional[Tuple[np.ndarray, np.ndarray]] = None,
                  partials: bool = False, pipelined: bool = False,
                  exec_cache: Optional[dict] = None,
-                 device: DeviceLike = None, mesh: Optional[Mesh] = None):
+                 device: DeviceLike = None, mesh: Optional[Mesh] = None,
+                 fused: bool = True, bucketed: Optional[bool] = None):
         """params: a Paraformer tensor tree (moved to `device`, the card
         unless "cpu" is passed, or to each device of `mesh`'s data axis).
         partials=True also decodes the fired tokens in the same step;
@@ -258,52 +278,68 @@ class BatchedChunkedASR:
         self.cfg = cfg or pf.ParaformerConfig()
         self.ocfg = ocfg or po.OnlineConfig()
         self.capacity = capacity
-        self.partials = partials
-        self.pipelined = pipelined
+        self.fused = fused
+        self.partials = partials and fused
+        self.pipelined = pipelined and fused
+        self.bucketed = (fused and mesh is None) if bucketed is None \
+            else (bucketed and fused and mesh is None)
         self.params = tree_to(params, self.device)
         self.cmvn = None
         if cmvn is not None:
             self.cmvn = tuple(torch.as_tensor(np.asarray(c, np.float32),
                                               device=self.device)
                               for c in cmvn)
+        # the unfused sessions' host frontends take the CMVN as numpy
+        self._cmvn_host = None if cmvn is None else tuple(
+            np.asarray(c, np.float32) for c in cmvn)
         # int16 upload: an explicit env var wins, else the profile
         self._int16_transfer = env_or_profile("PARAFORMER_TRANSFER_INT16",
                                               "asr_int16_transfer")
         fcfg = self.cfg.frontend
         self.chunk_samples = self.ocfg.c1 * fcfg.lfr_n * fcfg.frame_shift
+        if not fused:
+            positions = positions[:1]   # the unfused state is not sharded
         self.rows_per = capacity // len(positions)   # rows per position
         self._shards: List[_Shard] = []
         for i, (dev, params_i, cmvn_i) in enumerate(zip(
                 positions, per_position(self.params, positions),
                 per_position(self.cmvn, positions))):
             with torch.inference_mode():
-                state = po.init_fused_state(self.cfg, self.ocfg,
-                                            self.rows_per, partials, dev)
+                state = (po.init_fused_state(self.cfg, self.ocfg,
+                                             self.rows_per, self.partials,
+                                             dev) if fused
+                         else po.init_state(self.cfg, self.ocfg, capacity,
+                                            dev))
             self._shards.append(_Shard(
                 dev, params_i, cmvn_i, state,
                 Programs(dev, "chunked-tick" if i == 0
                          else f"chunked-tick@{i}")))
         self.state = self._shards[0].state
         self.programs = self._shards[0].programs
-        self._rows = (_PackedRows if mesh is None else _FixedRows)(
+        self._rows = (_PackedRows if self.bucketed else _FixedRows)(
             capacity, "chunked-ASR")
         self._audio: Dict[int, np.ndarray] = {}
-        self.steps = 0            # device steps run (one fused_step each)
-        sig = ("chunked", capacity, partials, self._int16_transfer,
-               self.cfg, self.ocfg, _fingerprint(self.cmvn),
-               tuple(str(d) for d in positions), _weights_id(self.params))
+        # unfused: each slot's host frontend and LFR feature queue
+        self._frontends: Dict[int, StreamingFrontend] = {}
+        self._queues: Dict[int, np.ndarray] = {}
+        self.steps = 0            # device steps run (K1 in every layer)
+        self.fbanks = 0           # unfused fbank quantum calls (one K2 each)
+        sig = ("chunked", capacity, fused, self.partials, self.bucketed,
+               self._int16_transfer, self.cfg, self.ocfg,
+               _fingerprint(self.cmvn), tuple(str(d) for d in positions),
+               _weights_id(self.params))
         self.shared = _share(exec_cache, sig, self.device, "chunked-shared")
-        # the step's fired outputs, copied out per dispatch into one of two
-        # host buffers (pinned on the card)
+        # the fused step's fired outputs, copied out per dispatch into one
+        # of two host buffers (pinned on the card)
         k_cap = self.ocfg.tokens_per_chunk
         pin = self.device.type == "cuda"
-        out_shape = ((capacity, k_cap) if partials
+        out_shape = ((capacity, k_cap) if self.partials
                      else (capacity, k_cap, self.cfg.d_model))
-        out_dtype = torch.int32 if partials else torch.float32
-        self._host = [(torch.empty(out_shape, dtype=out_dtype,
-                                   pin_memory=pin),
-                       torch.empty((capacity,), dtype=torch.int32,
-                                   pin_memory=pin)) for _ in range(2)]
+        out_dtype = torch.int32 if self.partials else torch.float32
+        self._host = [] if not fused else [
+            (torch.empty(out_shape, dtype=out_dtype, pin_memory=pin),
+             torch.empty((capacity,), dtype=torch.int32, pin_memory=pin))
+            for _ in range(2)]
         self._flip = 0
         # (slot → row of the dispatch, (outputs, counts, event))
         self._inflight: Optional[Tuple[Dict[int, int], tuple]] = None
@@ -343,11 +379,17 @@ class BatchedChunkedASR:
         with self._rows.lock:
             slot = self._rows.claim()
         try:
+            if not self.fused:
+                self._frontends[slot] = StreamingFrontend(
+                    self.cfg.frontend, self._cmvn_host, self.device)
+                self._queues[slot] = self._no_feats()
             self._audio[slot] = np.zeros(0, np.float32)
             self._reset_slot(slot)
         except BaseException:
             # setup failed: the row is clean state-wise, so return it
             with self._rows.lock:
+                self._frontends.pop(slot, None)
+                self._queues.pop(slot, None)
                 self._audio.pop(slot, None)
                 try:
                     self._release_row_locked(slot)
@@ -374,6 +416,8 @@ class BatchedChunkedASR:
     def leave(self, slot: int) -> None:
         self._drop_results(slot)
         with self._rows.lock:
+            self._frontends.pop(slot, None)
+            self._queues.pop(slot, None)
             self._audio.pop(slot, None)
             self._release_row_locked(slot)
             self._rows.free.append(slot)
@@ -381,19 +425,30 @@ class BatchedChunkedASR:
     def _reset_slot(self, slot: int) -> None:
         self._zero_row(self.row_of(slot))
 
+    def _no_feats(self) -> np.ndarray:
+        return np.zeros((0, self.cfg.input_dim), np.float32)
+
     def reset_slot(self, slot: int) -> None:
-        """Session reset: the device state row and the host audio
-        remainder."""
+        """Session reset: the device state row, the host audio remainder
+        and, unfused, the host frontend and feature queue."""
         self._drop_results(slot)
         self._reset_slot(slot)
         self._audio[slot] = np.zeros(0, np.float32)
+        if not self.fused:
+            frontend = self._frontends.get(slot)
+            if frontend is not None:
+                frontend.reset()
+            self._queues[slot] = self._no_feats()
 
     def warm(self) -> None:
-        """Build the step program of every pow-2 prefix up to capacity (on
-        a mesh: each position's full step), and the finalize tail, so no
+        """Build the step program of every pow-2 prefix up to capacity (not
+        bucketed: each position's full step), and the finalize tail, so no
         tick waits on a build (on the card: a capture, which runs
-        all-masked steps and leaves the state as it was)."""
-        if self.mesh is not None:
+        all-masked steps and leaves the state as it was). The unfused
+        ticker builds nothing here, as the reference's."""
+        if not self.fused:
+            return
+        if not self.bucketed:
             for i in range(len(self._shards)):
                 self._tick_fn(self.rows_per, i)
         else:
@@ -518,6 +573,9 @@ class BatchedChunkedASR:
         embeddings when partials=False) for every row the drain advanced,
         carried results of earlier steps first. The slot's state is not
         reset here; callers follow with reset_slot or leave."""
+        if not self.fused:
+            raise ValueError("finalize_slot requires the fused ticker "
+                             "(fused=True)")
         a_len = self.chunk_samples
         rem = len(self._audio.get(slot, ()))
         pad = (-rem) % a_len + 2 * a_len
@@ -542,6 +600,94 @@ class BatchedChunkedASR:
                 fired.setdefault(slot, []).append(acc.float().cpu().numpy())
         return fired
 
+    # ------------------------------------------------------------ unfused
+    def _fbank_quantum_fn(self, n: int):
+        """The unfused fbank of n ready rows (ref `_fbank_fns[n]`): audio
+        [n, span] f32 → FBANK_QUANTA frames [n, FBANK_QUANTA, n_mels]. It
+        reads no state, so it is shared through `exec_cache`."""
+        fcfg, q = self.cfg.frontend, self.FBANK_QUANTA
+        span = (q - 1) * fcfg.frame_shift + fcfg.frame_length
+
+        def build():
+            return ((lambda a: fe.fbank(a, fcfg, t_frames=q)),
+                    [((n, span), torch.float32)])
+        return self.shared.get(("fbank", n), build)
+
+    def _batched_fbank(self, slots: List[int]) -> None:
+        """One fbank call per quantum over every ready slot of `slots`; each
+        session's frontend then drains LFR on the host into its queue. The
+        upload stays f32 whatever PARAFORMER_TRANSFER_INT16 says, as the
+        reference's."""
+        fcfg, q = self.cfg.frontend, self.FBANK_QUANTA
+        span = (q - 1) * fcfg.frame_shift + fcfg.frame_length
+        consume = q * fcfg.frame_shift
+        while True:
+            ready = [s for s in slots if len(self._audio[s]) >= span]
+            if not ready:
+                return
+            batch = np.stack([self._audio[s][:span] for s in ready])
+            fb = self._fbank_quantum_fn(len(ready))(
+                batch, read=lambda t: t.cpu().numpy())
+            self.fbanks += 1
+            for i, s in enumerate(ready):
+                self._audio[s] = self._audio[s][consume:]
+                feats = self._frontends[s].push_fbank(fb[i])
+                if len(feats):
+                    self._queues[s] = np.concatenate([self._queues[s], feats])
+
+    def _unfused_fn(self):
+        """The unfused step over all `capacity` rows (ref `_step`): LFR
+        features [capacity, c1, input_dim] and row activity [capacity] →
+        (fired embeddings [capacity, k_cap, d] f32, fired counts [capacity]
+        int32); `encode_chunk`, then `predictor_chunk` over the window's
+        active region, every state leaf merged in place for the active
+        rows."""
+        shard = self._shards[0]
+        c, o = self.cfg, self.ocfg
+
+        def build():
+            state = shard.state
+            active_win = torch.zeros((o.window,), device=shard.device)
+            active_win[o.c0:o.c0 + o.c1] = 1.0
+
+            def run(feats, row_active):
+                new, enc = po.encode_chunk(shard.params, state, feats, c, o)
+                active = active_win[None, :] * row_active[:, None]
+                new, embeds, n = po.predictor_chunk(
+                    shard.params, enc, active, new, c, o.tokens_per_chunk)
+                keep = row_active.bool()
+                for key, a in new.items():
+                    _masked_merge(state[key], a, keep, po.batch_dim(key))
+                return embeds.float(), n.int() * row_active.int()
+            return run, [((self.capacity, o.c1, c.input_dim), torch.float32),
+                         ((self.capacity,), torch.float32)]
+        return shard.programs.get(("unfused", self.capacity), build)
+
+    def _tick_unfused(self, chunks: Dict[int, np.ndarray],
+                      fired: Dict[int, list]) -> Dict[int, list]:
+        """The unfused tick (ref `tick`'s second half): the batched fbank of
+        this tick's slots, then a full-capacity step while any queue holds
+        c1 frames."""
+        self._batched_fbank(list(chunks))
+        c1, d_in = self.ocfg.c1, self.cfg.input_dim
+        while True:
+            slots = [s for s, q in self._queues.items() if len(q) >= c1]
+            if not slots:
+                return fired
+            batch = np.zeros((self.capacity, c1, d_in), np.float32)
+            row_active = np.zeros((self.capacity,), np.float32)
+            for s in slots:                  # slot = row
+                batch[s] = self._queues[s][:c1]
+                self._queues[s] = self._queues[s][c1:]
+                row_active[s] = 1.0
+            embeds, n = self._unfused_fn()(
+                batch, row_active,
+                read=lambda r: (r[0].cpu().numpy(), r[1].cpu().numpy()))
+            self.steps += 1
+            for s in slots:
+                if n[s] > 0:
+                    fired.setdefault(s, []).extend(embeds[s, :n[s]])
+
     # ------------------------------------------------------------ tick
     def tick(self, chunks: Dict[int, np.ndarray]) -> Dict[int, list]:
         """chunks: slot → new audio. Returns slot → the CIF-fired token
@@ -553,6 +699,8 @@ class BatchedChunkedASR:
                 [self._audio.get(slot, np.zeros(0, np.float32)),
                  np.asarray(audio, np.float32)])
         fired: Dict[int, list] = {s: [] for s in chunks}
+        if not self.fused:
+            return self._tick_unfused(chunks, fired)
         a_len = self.chunk_samples
         while True:
             slots = [s for s, a in self._audio.items() if len(a) >= a_len]

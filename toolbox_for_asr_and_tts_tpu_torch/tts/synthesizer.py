@@ -8,17 +8,20 @@ Port of `toolbox_for_asr_and_tts_tpu/tts/synthesizer.py` on the card:
   group's audio and lengths back;
 - a job's segments are synthesized as padded batches of up to
   `TTSConfig.batch_size` rows;
-- two-phase synthesis, always: a duration probe first, then mel lengths
-  rounded up to `MEL_BUCKET` frames, so the decoder and vocoder do not run
-  the L·frames_per_phone worst case;
+- two-phase synthesis (TTS_TWO_PHASE, default on): a duration probe
+  first, then mel lengths rounded up to `MEL_BUCKET` frames, so the
+  decoder and vocoder do not run the L·frames_per_phone worst case;
+  single-phase (TTS_TWO_PHASE=0) runs no probe and decodes and vocodes
+  every row of a phone group at that worst case, in one mel group;
 - crossfade and pause concatenation stay on the host (`tts/concat.py`).
 
 Knobs read at construction: TTS_DECODER (`nar`, the default, or `pnca`)
-from the environment, and the two groupings TTS_GROUP_BY_LENGTH (one call
-per phone bucket) and TTS_MEL_GROUP (one call per mel bucket) from the
-environment, else the dispatch profile (`runtime/autotune.py::
-env_or_profile`), as the reference resolves them; the profile's `cuda`
-values were measured on the card (PERF.md §6).
+and TTS_TWO_PHASE (on for "1" or "true", the default "1") from the
+environment, as the reference reads them, and the two groupings
+TTS_GROUP_BY_LENGTH (one call per phone bucket) and TTS_MEL_GROUP (one
+call per mel bucket) from the environment, else the dispatch profile
+(`runtime/autotune.py::env_or_profile`), as the reference resolves them;
+the profile's `cuda` values were measured on the card (PERF.md §6).
 
 `Synthesizer.from_model_dir` loads a mounted KAN-TTS package
 (`scan_tts_package`), converting each checkpoint once into a
@@ -30,9 +33,6 @@ reference's: a group's rows pad up to a multiple of the positions (padding
 rows yield no segment), each position runs its block of rows through its
 own probe and synthesis programs on its device's replica of the weights,
 and mel grouping (TTS_MEL_GROUP) applies only without a mesh.
-
-Left out against the reference: the single-phase path (TTS_TWO_PHASE=0,
-which decodes and vocodes every row at the worst-case length).
 
 The duration probe and the synthesis are programs (`runtime/graphs.py`)
 keyed as the reference keys its compiled functions: a probe per (b, l), a
@@ -234,6 +234,7 @@ class Synthesizer:
         # "nar" (fast mode, default) or "pnca" (KAN-TTS AR decoder — the
         # weight-compatible path for real zhitian_emo checkpoints)
         self.decoder_mode = os.getenv("TTS_DECODER", "nar")
+        self.two_phase = os.getenv("TTS_TWO_PHASE", "1") in ("1", "true")
         self.mel_group = env_or_profile("TTS_MEL_GROUP", "tts_mel_group")
         self.bucketer = Bucketer(PHONE_BUCKETS)
         self.rtf = RTFMeter()
@@ -434,20 +435,24 @@ class Synthesizer:
                 lens[row] = max(n, 1)
             spk = np.full((b,), spk_id, np.int32)
             # two-phase: the duration probe picks tight mel buckets; rows
-            # regroup by predicted mel bucket under TTS_MEL_GROUP
+            # regroup by predicted mel bucket under TTS_MEL_GROUP.
+            # Single-phase: every row at the worst case, in one group
             t_cap = l * self.acfg.frames_per_phone
             mb = self.MEL_BUCKET
-            self.probes.add(n_pos)
-            probe = self._sharded(lambda per, i: self._dur_prog(per, l, i),
-                                  ids, lens, spk)
-            t_rows = np.minimum(-(-probe // mb) * mb, t_cap)
-            t_rows = np.maximum(t_rows, mb).astype(int)
             mel_groups: Dict[int, List[int]] = {}
-            if self.mel_group and self.mesh is None:
-                for row in range(b):
-                    mel_groups.setdefault(int(t_rows[row]), []).append(row)
+            if not self.two_phase:
+                mel_groups[t_cap] = list(range(b))
             else:
-                mel_groups[int(t_rows.max())] = list(range(b))
+                self.probes.add(n_pos)
+                probe = self._sharded(
+                    lambda per, i: self._dur_prog(per, l, i), ids, lens, spk)
+                t_rows = np.minimum(-(-probe // mb) * mb, t_cap)
+                t_rows = np.maximum(t_rows, mb).astype(int)
+                if self.mel_group and self.mesh is None:
+                    for row in range(b):
+                        mel_groups.setdefault(int(t_rows[row]), []).append(row)
+                else:
+                    mel_groups[int(t_rows.max())] = list(range(b))
             for t_mel, rows in sorted(mel_groups.items()):
                 n_prog = n_pos if self.mesh is not None else 1
                 self.synths.add(n_prog)
