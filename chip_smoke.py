@@ -6,9 +6,8 @@
                                       # transcribe by CUDA kernel, the
                                       # card's busy time per streaming step,
                                       # over an S = 16 service run and over
-                                      # one TTS synthesize, the stages
-                                      # of a Paraformer-large load, and
-                                      # one fine-tuning step
+                                      # one TTS synthesize, and the stages
+                                      # of a Paraformer-large load
     python3 chip_smoke.py --sweep     # also: K1's device time per tile,
                                       # and K1's backward kernel's per tile
                                       # (channels x frames per block) at
@@ -18,6 +17,13 @@
     python3 chip_smoke.py --only-paths
                                       # phase 1, K2 at the unfused quantum
                                       # and phase 14 alone (no result line)
+    python3 chip_smoke.py --only-train
+                                      # phases 1 and 10 alone (no result
+                                      # line)
+    python3 chip_smoke.py --only-train-eager
+                                      # phase 1 and phase 10's eager steps
+                                      # alone (copied beside an older tree,
+                                      # times that tree's eager step)
 
 Every model call of the port runs as a program (`runtime/graphs.py`): on
 the card one captured CUDA graph per shape bucket, replayed; K1 and K2 run
@@ -175,11 +181,32 @@ Phases (any failure exits non-zero and prints no result line):
    zeroed just before each and read just after (K1 66, `fsmn_conv_dw` 66,
    K2 1 per step; a finite loss, lower at the end than at the start); a
    fresh seed-0 tree restored from the save at step 4 and continued to 8,
-   equal to the uninterrupted run; `tools/finetune.py` with `--export`,
-   whose export loaded by `Recognizer.from_model_dir` transcribes the 8
-   rows with the ids of a Recognizer on the CLI's tuned tree in memory.
-   cuDNN runs deterministic in this phase. `--profile` adds the card's busy
-   time over one step;
+   equal to the uninterrupted run; the eager step's busy time (profiler);
+   the card's AdamW made capturable (`train_graph.capturable`) and as it
+   is against optax's adamw in float64 over 3 steps (within 1e-2 lr); the
+   captured step (`runtime/train_graph.py::capture_train_step`, the
+   reference's `jax.jit(train_step)`) on a fresh seed-0 tree over the same
+   8 steps: the first the eager step, the second the eager step and the
+   capture, then 6 replays each adding K1 66 / dw 66 (K2 1 per step from
+   the features), losses, parameters and AdamW state bit-equal to 8 eager
+   steps of the same capturable AdamW; a fresh tree whose step has
+   captured, restored from the captured run's step-4 save (its program
+   dropped and made again) and continued to 8, bit-equal; captured and
+   eager step walls (median, p95), capture seconds, the pool's bytes, the
+   card's busy time and idle share of one captured and one eager step of
+   each AdamW with K1's and K1's backward's time per launch inside each
+   (profiler); a `remat=True` pair, 3 eager steps against 3 captured,
+   bit-equal with the replay's tally equal to the eager launches; a step
+   that syncs inside its capture raising on every capture, saying the
+   step was applied, with no graph kept; `tools/finetune.py` with
+   `--export` over 4 steps whose T comes back (eager first steps, a
+   capture, a replay, as its draws predict), whose export loaded by
+   `Recognizer.from_model_dir` transcribes the 8 rows with the ids of a
+   Recognizer on the CLI's tuned tree in memory; the share of the CLI's
+   steps at a new T on a 1000-row manifest of durations uniform over 1-20
+   s (host only), with the steps' time projected from this phase's unit
+   costs. cuDNN runs
+   deterministic in this phase;
 10. reduced precision at full width (phase 11): `Recognizer.random(
    ParaformerConfig(), seed=0, param_dtype=torch.bfloat16)` and, with
    PARAFORMER_QUANT=int8 set before construction, the W8A8 one, beside
@@ -3861,9 +3888,12 @@ def ft_steps(torch, step, params, opt, items, cfg, on_step=None):
     return losses, walls, launches, batch
 
 
-def profile_train_step(torch, step, params, opt, items, cfg, wall_ms: float):
-    """Device time of one fine-tuning step by kernel (torch.profiler),
-    against the unprofiled median step wall; K1's and dw's per launch."""
+def profile_train_step(torch, step, params, opt, items, cfg, wall_ms: float,
+                       what: str = "eager"):
+    """Device time of one fine-tuning step (`what`: "eager", or "captured"
+    for a replay of `capture_train_step`'s graph) by kernel
+    (torch.profiler), features included, against the unprofiled median
+    step wall; K1's and dw's per launch."""
     from torch.profiler import ProfilerActivity, profile
     from toolbox_for_asr_and_tts_tpu_torch.tools import finetune
     with profile(activities=[ProfilerActivity.CPU,
@@ -3876,14 +3906,16 @@ def profile_train_step(torch, step, params, opt, items, cfg, wall_ms: float):
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     require(busy_ms > 0, "profiler saw no device time")
     n = sum(e.count for e in rows)
-    print(f"profile: one fine-tuning step, device busy {busy_ms:.1f} ms of "
-          f"{wall_ms:.1f} ms unprofiled median wall (idle share "
-          f"{100 * (1 - busy_ms / wall_ms):.1f}%), {n} kernel launches")
+    print(f"profile: one {what} fine-tuning step, device busy "
+          f"{busy_ms:.1f} ms of {wall_ms:.1f} ms unprofiled median wall "
+          f"(idle share {100 * (1 - busy_ms / wall_ms):.1f}%), {n} kernel "
+          f"launches")
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[:15]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms "
               f"{e.count:5d}x  {e.key[:90]}")
-    out = dict(busy_ms=busy_ms, wall_ms=wall_ms, launches=n)
+    out = dict(busy_ms=busy_ms, wall_ms=wall_ms, launches=n,
+               idle_share=1 - busy_ms / wall_ms)
     for name, sym in (("fsmn_conv", "fsmn_conv_kernel"),
                       ("fsmn_conv_dw", "fsmn_bwd_"),
                       ("frame_window", "frame_window_kernel")):
@@ -3892,23 +3924,462 @@ def profile_train_step(torch, step, params, opt, items, cfg, wall_ms: float):
         if k:
             out[name] = dict(ms_total=sum(e.self_device_time_total
                                           for e in hits) / 1e3, launches=k)
-    print("profile: inside one step: " + ", ".join(
-        f"{k} {v['ms_total']:.3f} ms over {v['launches']} kernel launches"
+    for v in out.values():
+        if isinstance(v, dict):
+            v["us_per_launch"] = 1e3 * v["ms_total"] / v["launches"]
+    print(f"profile: inside one {what} step: " + ", ".join(
+        f"{k} {v['ms_total']:.3f} ms over {v['launches']} kernel launches "
+        f"({v['us_per_launch']:.2f} us each)"
         for k, v in out.items() if isinstance(v, dict)), flush=True)
     return out
 
 
-def finetune_path(torch, card, wavs, profile: bool = False):
+FT_REMAT_STEPS = 3           # steps of the remat pair (eager and captured;
+                             # the captured run's third is its first replay)
+FT_ADAMW_STEPS = 3           # capturable AdamW against optax's formula
+FT_ADAMW_ATOL = 1e-2         # in units of lr (test_three_adamw_steps_match_
+                             # optax's bound on the parameters)
+FT_CLI_STEPS = 4             # the CLI on the 8-row manifest, batch 8: enough
+                             # draws for a T to come back twice
+FT_MIXED_ROWS = 1000         # the mixed-length manifest of the shape count:
+FT_MIXED_SECONDS = (1.0, 20.0)   # durations uniform over the CLI's --max-secs
+FT_MIXED_STEPS = (100, 1000)     # the CLI's default --steps, and ten times it
+FT_MIXED_BATCHES = (4, 8)        # the CLI's default --batch, and phase 10's
+
+
+_FT_TREES = {}   # geometry → its seed-0 tree on the card, drawn once
+
+
+def ft_fresh(torch, cfg):
+    """A fresh seed-0 tree on the card (`Recognizer.random(cfg, seed=0)`'s
+    weights: drawn on the CPU once per geometry, then cloned on the card),
+    its optimizer (`adamw(FT_LR)`) and its eager step."""
+    import dataclasses
+    from toolbox_for_asr_and_tts_tpu_torch.models import paraformer
+    from toolbox_for_asr_and_tts_tpu_torch.models.convert import (
+        tree_map, tree_to)
+    from toolbox_for_asr_and_tts_tpu_torch.parallel import trainstep as ts
+    key = repr(dataclasses.replace(cfg, remat=False))
+    if key not in _FT_TREES:
+        _FT_TREES[key] = tree_to(paraformer.init_params(
+            cfg, torch.Generator().manual_seed(0)), torch.device("cuda"))
+    params = tree_map(torch.clone, _FT_TREES[key])
+    init_opt, step = ts.make_train_step(cfg, ts.adamw(FT_LR))
+    return params, init_opt(params), step
+
+
+def ft_state(torch, params, opt):
+    """Every parameter, then every AdamW state tensor, in the tree's
+    order."""
+    from toolbox_for_asr_and_tts_tpu_torch.parallel import trainstep as ts
+    leaves = ts.param_leaves(params)
+    return leaves + [opt.state[p][k] for p in leaves
+                     for k in sorted(opt.state[p])]
+
+
+def ft_differ(torch, got, want):
+    """(tensors that differ in any bit, max |d| over all)."""
+    n, worst = 0, 0.0
+    for a, b in zip(got, want):
+        if not torch.equal(a, b):
+            n += 1
+            worst = max(worst, (a.float() - b.float()).abs().max().item())
+    return n, worst
+
+
+def adamw_capturable_check(torch, card):
+    """`trainstep.adamw` on the card made capturable (`train_graph.
+    capturable`, what a captured step does to its optimizer: bias
+    corrections by tensor ops, step counts on the card) and as it is
+    (`capturable=False`, Python floats) against optax's adamw in float64
+    (numpy), FT_ADAMW_STEPS steps on fixed gradients of magnitudes
+    1e-9..10 (eps matters at the small ones): each within FT_ADAMW_ATOL·lr,
+    and how many elements the two torch versions differ in."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.parallel import trainstep as ts
+    from toolbox_for_asr_and_tts_tpu_torch.runtime.train_graph import (
+        capturable)
+    rng = np.random.default_rng(5)
+    n = 1 << 16
+    p0 = (0.05 * rng.standard_normal(n)).astype(np.float32)
+    grads = [(rng.standard_normal(n) * 10.0 ** rng.uniform(-9, 1, n)
+              ).astype(np.float32) for _ in range(FT_ADAMW_STEPS)]
+    hp = ts.ADAMW_DEFAULTS
+    b1, b2 = hp["betas"]
+    p, m, v = p0.astype(np.float64), np.zeros(n), np.zeros(n)
+    for t, g in enumerate(grads, 1):
+        g = g.astype(np.float64)
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        u = (m / (1 - b1 ** t)) / (np.sqrt(v / (1 - b2 ** t)) + hp["eps"])
+        p = p - FT_LR * (u + hp["weight_decay"] * p)
+    out = {}
+    for name, capture in (("capturable", True), ("plain", False)):
+        w = torch.tensor(p0, device="cuda", requires_grad=True)
+        opt = ts.adamw(FT_LR)([w])
+        if capture:
+            capturable(opt)
+        require(bool(opt.param_groups[0]["capturable"]) is capture,
+                f"adamw on the card: capturable {not capture}")
+        for g in grads:
+            w.grad = torch.tensor(g, device="cuda")
+            opt.step()
+        out[name] = w.detach().cpu().numpy()
+    err = {k: float(np.abs(v_.astype(np.float64) - p).max()) / FT_LR
+           for k, v_ in out.items()}
+    bits = int((out["capturable"] != out["plain"]).sum())
+    for k, e in err.items():
+        require(e <= FT_ADAMW_ATOL, f"AdamW {k}: {e:.3g} lr from optax's "
+                                    f"formula")
+    print(f"AdamW on the card, {FT_ADAMW_STEPS} steps on {n} elements: "
+          f"capturable {err['capturable']:.3g} lr and capturable=False "
+          f"{err['plain']:.3g} lr from optax's adamw in float64 (tol "
+          f"{FT_ADAMW_ATOL} lr); the two differ in {bits} elements, max "
+          f"|d| {np.abs(out['capturable'] - out['plain']).max():.3g} "
+          f"({card})", flush=True)
+    return dict(steps=FT_ADAMW_STEPS, elements=n, tol_lr=FT_ADAMW_ATOL,
+                capturable_err_lr=err["capturable"],
+                plain_err_lr=err["plain"], elements_differing=bits)
+
+
+def ft_sights(seq):
+    """A captured step's calls over a sequence of batch shapes: (first
+    sights: eager steps, second sights: eager step and capture, later
+    sights: replays, distinct shapes)."""
+    seen = {}
+    for key in seq:
+        seen[key] = seen.get(key, 0) + 1
+    calls = list(seen.values())
+    first = len(calls)
+    second = sum(1 for n in calls if n >= 2)
+    return first, second, len(seq) - first - second, first
+
+
+def ft_frames(n: int, fe_cfg) -> int:
+    """T_lfr of a batch whose longest row has n samples (`_features`')."""
+    from toolbox_for_asr_and_tts_tpu_torch.ops import frontend as fe
+    return fe.num_lfr_frames(fe.num_fbank_frames(n, fe_cfg), fe_cfg.lfr_n)
+
+
+def ft_cli_shapes(items, fe_cfg, steps: int, batch: int):
+    """T of each of the CLI's first `steps` batches: its draw
+    (`finetune._draw` from `default_rng(0)`), padded to the longest row."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.tools import finetune
+    rng = np.random.default_rng(0)
+    return [ft_frames(max(len(w) for w, _ in finetune._draw(items, batch,
+                                                            rng)), fe_cfg)
+            for _ in range(steps)]
+
+
+def ft_shape_share(cfg, eager_s: float, capture_s: float, replay_s: float):
+    """The share of the CLI's steps at a new batch shape on a manifest of
+    mixed lengths: FT_MIXED_ROWS rows of durations uniform over
+    FT_MIXED_SECONDS (seed 17; host only: the draw and T, no audio), at
+    each of FT_MIXED_BATCHES and FT_MIXED_STEPS. For each, the captured
+    step's calls (first sights eager, second eager and capture, later
+    replays) and the steps' seconds projected with this run's phase-10
+    unit costs (8 rows, T 167): eager only, capture at a shape's first
+    sight, and at its second, as `train_graph` does."""
+    import numpy as np
+    rng = np.random.default_rng(17)
+    lo, hi = FT_MIXED_SECONDS
+    items = [(np.empty(int(s * SR), np.float32), [4]) for s in
+             rng.uniform(lo, hi, FT_MIXED_ROWS)]
+    out = []
+    for batch in FT_MIXED_BATCHES:
+        seq = ft_cli_shapes(items, cfg.frontend, max(FT_MIXED_STEPS), batch)
+        for steps in FT_MIXED_STEPS:
+            first, second, later, distinct = ft_sights(seq[:steps])
+            row = dict(
+                batch=batch, steps=steps, distinct_T=distinct,
+                new_shape_share=first / steps, eager=first, captures=second,
+                replays=later,
+                projected_s=dict(
+                    eager=steps * eager_s,
+                    capture_at_first=(first * (eager_s + capture_s)
+                                      + (steps - first) * replay_s),
+                    capture_at_second=(first * eager_s + second * (
+                        eager_s + capture_s) + later * replay_s)))
+            out.append(row)
+            p = row["projected_s"]
+            print(f"fine-tuning shapes, mixed lengths ({FT_MIXED_ROWS} rows "
+                  f"uniform {lo}-{hi} s), batch {batch}, {steps} steps: "
+                  f"{distinct} distinct T, {100 * first / steps:.1f}% of "
+                  f"the steps at a new shape; {first} eager, {second} "
+                  f"captures, {later} replays; projected at phase 10's unit "
+                  f"costs: eager {p['eager']:.1f} s, capture at the first "
+                  f"sight {p['capture_at_first']:.1f} s, at the second "
+                  f"{p['capture_at_second']:.1f} s", flush=True)
+    return dict(rows=FT_MIXED_ROWS, seconds=list(FT_MIXED_SECONDS),
+                unit_s=dict(eager=eager_s, capture=capture_s,
+                            replay=replay_s), runs=out)
+
+
+def ft_captured(torch, card, cfg, items, ck):
+    """Two fresh seed-0 trees whose AdamW is capturable (`train_graph.
+    capturable`, as a captured step makes it): FT_STEPS eager steps on one,
+    FT_STEPS calls of the captured step (`capture_train_step`) on the other
+    on phase 10's fixed batch, the first the eager step, the second the
+    eager step and its capture, the rest replays (K1 66, dw 66 each, K2 1
+    per step from the features), saving at FT_RESUME_AT into `ck`. Losses,
+    parameters and AdamW state bit-equal; walls, capture seconds, the
+    pool; then the card's busy time over one captured step (a replay) and
+    one eager step of the capturable optimizer. → (its line, the captured
+    run's parameters and state)."""
+    import numpy as np
+    from toolbox_for_asr_and_tts_tpu_torch.parallel import trainstep as ts
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import train_ckpt as tc
+    from toolbox_for_asr_and_tts_tpu_torch.runtime.train_graph import (
+        capturable, capture_train_step)
+    layers = cfg.encoder_layers + cfg.decoder_layers
+    e_params, e_opt, e_step = ft_fresh(torch, cfg)
+    capturable(e_opt)
+    e_losses, e_walls, _, _ = ft_steps(torch, e_step, e_params, e_opt, items,
+                                       cfg)
+    params, opt, step = ft_fresh(torch, cfg)
+    cstep = capture_train_step(step, params, opt)
+    require(opt.param_groups[0]["capturable"], "the captured step's AdamW "
+                                               "is not capturable")
+
+    def save_at(i):
+        if i == FT_RESUME_AT:
+            tc.save_train_state(ck, i, params, opt)
+    losses, walls, launches, _ = ft_steps(torch, cstep, params, opt, items,
+                                          cfg, save_at)
+    progs = cstep.programs
+    prog = progs._progs[next(iter(progs))]
+    require((len(progs), progs.captures, progs.replays, cstep.eager)
+            == (1, 1, FT_STEPS - 2, 1),
+            f"captured step: {cstep.stats()}, expected 1 eager step, 1 "
+            f"capture and {FT_STEPS - 2} replays")
+    require(prog.tally == {"fsmn_conv": layers, "fsmn_conv_dw": layers},
+            f"captured step's tally {prog.tally}")
+    for i, n in enumerate(launches):
+        require(n == (layers, layers, 1), f"captured step {i}: K1 / dw / K2 "
+                                          f"{n}, expected {(layers, layers, 1)}")
+    require(all(p.grad is None for p in ts.param_leaves(params)),
+            "a captured step left gradients behind")
+    require(losses == e_losses, f"captured losses {losses} against eager "
+                                f"{e_losses}")
+    n_diff, worst = ft_differ(torch, ft_state(torch, params, opt),
+                              ft_state(torch, e_params, e_opt))
+    require(n_diff == 0, f"captured run against the eager one: {n_diff} "
+                         f"tensors differ, max |d| {worst}")
+    # the run's end, before the profile steps on
+    want = [t.detach().clone() for t in ft_state(torch, params, opt)]
+    shapes = {n: list(shape) for n, shape, _ in prog.key}
+    replays = walls[2:]
+    med, p95 = statistics.median(replays), float(np.percentile(replays, 95))
+    e_med = statistics.median(e_walls)
+    e_p95 = float(np.percentile(e_walls, 95))
+    pool = progs.pool_bytes()
+    print(f"fine-tuning captured: {FT_STEPS} steps (the first the eager "
+          f"step at feats {shapes['feats']} / targets {shapes['targets']}, "
+          f"{walls[0] * 1e3:.1f} ms, the second the eager step and its "
+          f"capture, {walls[1] * 1e3:.1f} ms of which the capture "
+          f"{progs.capture_s:.2f} s, then {progs.replays} replays): losses "
+          f"and all {len(ft_state(torch, params, opt))} parameter and AdamW "
+          f"state tensors bit-equal to {FT_STEPS} eager steps of the same "
+          f"capturable AdamW, no gradient left behind; K1 / dw / K2 "
+          f"{launches[2]} per replayed step, tally {prog.tally}; replay "
+          f"step wall median {med * 1e3:.1f} ms, p95 {p95 * 1e3:.1f} ms "
+          f"(eager, capturable AdamW: {e_med * 1e3:.1f} / {e_p95 * 1e3:.1f} "
+          f"ms); graph pool {pool} bytes ({card})", flush=True)
+    prof = profile_train_step(torch, cstep, params, opt, items, cfg,
+                              med * 1e3, "captured")
+    e_prof = profile_train_step(torch, e_step, e_params, e_opt, items, cfg,
+                                e_med * 1e3, "eager capturable")
+    return dict(
+        steps=FT_STEPS, shapes=shapes,
+        capture_s=progs.capture_s, first_call_ms=walls[0] * 1e3,
+        capture_call_ms=walls[1] * 1e3,
+        step_wall_ms_median=med * 1e3, step_wall_ms_p95=p95 * 1e3,
+        step_wall_ms=[w * 1e3 for w in walls],
+        eager_capturable_step_wall_ms_median=e_med * 1e3,
+        eager_capturable_step_wall_ms_p95=e_p95 * 1e3,
+        pool_bytes=pool, tally=dict(prog.tally),
+        launches_per_step={"fsmn_conv": launches[2][0],
+                           "fsmn_conv_dw": launches[2][1],
+                           "frame_window": launches[2][2]},
+        equal_to_eager=True, profile=prof,
+        eager_capturable_profile=e_prof), want
+
+
+def ft_captured_resume(torch, cfg, items, ck, want):
+    """A fresh seed-0 tree whose captured step has captured (two calls at
+    the batch's shape), restored from the captured run's save at
+    FT_RESUME_AT: the parameters copied into their storages, the optimizer
+    given the saved state, so the step drops its program; continued to
+    FT_STEPS (an eager step, the step and its capture, replays): every
+    parameter and state tensor bit-equal to `want` (the uninterrupted
+    captured run's)."""
+    from toolbox_for_asr_and_tts_tpu_torch.parallel import trainstep as ts
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import train_ckpt as tc
+    from toolbox_for_asr_and_tts_tpu_torch.runtime.train_graph import (
+        capture_train_step)
+    from toolbox_for_asr_and_tts_tpu_torch.tools import finetune
+    t0 = time.perf_counter()
+    params, opt, step = ft_fresh(torch, cfg)
+    cstep = capture_train_step(step, params, opt)
+
+    def batch():
+        return finetune._features(items, cfg.frontend, FT_K_MAX,
+                                  torch.device("cuda"))
+    for _ in range(2):
+        cstep(params, opt, batch())
+    require(cstep.programs.captures == 1, f"no capture before the restore: "
+                                          f"{cstep.stats()}")
+    ptrs = [p.data_ptr() for p in ts.param_leaves(params)]
+    got = tc.restore_train_state(ck, params, opt)
+    require(got is not None and got[0] == FT_RESUME_AT,
+            f"restored {got and got[0]}, saved {FT_RESUME_AT}")
+    require([p.data_ptr() for p in ts.param_leaves(params)] == ptrs,
+            "a restore moved a parameter's storage")
+    for _ in range(FT_RESUME_AT, FT_STEPS):
+        cstep(params, opt, batch())
+    torch.cuda.synchronize()
+    stats = cstep.stats()
+    want_calls = (2, 2, FT_STEPS - FT_RESUME_AT - 2)
+    require((stats["eager"], stats["captures"], stats["replays"])
+            == want_calls, f"captured resume: {stats}, expected eager / "
+                           f"captures / replays {want_calls}")
+    n_diff, worst = ft_differ(torch, ft_state(torch, params, opt), want)
+    require(n_diff == 0, f"captured resume against the uninterrupted run: "
+                         f"{n_diff} tensors differ, max |d| {worst}")
+    seconds = time.perf_counter() - t0
+    print(f"fine-tuning captured resume: a fresh tree captured at its "
+          f"second step, restored from the captured run's step "
+          f"{FT_RESUME_AT} (parameters in place, the optimizer's state "
+          f"replaced, the program dropped), continued to {FT_STEPS}: "
+          f"bit-equal to the uninterrupted run; eager / captures / replays "
+          f"{want_calls} over both halves, {seconds:.1f} s", flush=True)
+    return dict(equal=True, parameter_storages_kept=True,
+                eager=stats["eager"], captures=stats["captures"],
+                replays=stats["replays"], seconds=seconds)
+
+
+def ft_remat(torch, cfg, items):
+    """`cfg.remat=True` (each encoder layer under torch.utils.checkpoint,
+    recomputed in the backward pass on autograd's thread) on two fresh
+    seed-0 trees with capturable AdamW: FT_REMAT_STEPS eager steps against
+    as many calls of the captured step (its third a replay): losses,
+    parameters and state bit-equal, and the replay's tally equal to an
+    eager step's launches."""
+    import dataclasses
+    from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import fsmn_conv as k1
+    from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import (
+        fsmn_conv_dw as kdw)
+    from toolbox_for_asr_and_tts_tpu_torch.runtime.train_graph import (
+        capturable, capture_train_step)
+    from toolbox_for_asr_and_tts_tpu_torch.tools import finetune
+    t0 = time.perf_counter()
+    cfg_r = dataclasses.replace(cfg, remat=True)
+    batch = finetune._features(items, cfg.frontend, FT_K_MAX,
+                               torch.device("cuda"))
+    runs = {}
+    for name in ("eager", "captured"):
+        params, opt, step = ft_fresh(torch, cfg_r)
+        if name == "captured":
+            step = capture_train_step(step, params, opt)
+        else:
+            capturable(opt)
+        losses = []
+        for _ in range(FT_REMAT_STEPS):
+            torch.cuda.synchronize()
+            a, b = k1.launches, kdw.launches
+            losses.append(step(params, opt, batch)[2]["loss"].item())
+            launched = (k1.launches - a, kdw.launches - b)
+        runs[name] = (losses, ft_state(torch, params, opt), launched, step)
+    (l_e, s_e, n_e, _), (l_c, s_c, n_c, cstep) = (runs["eager"],
+                                                  runs["captured"])
+    prog = cstep.programs._progs[next(iter(cstep.programs))]
+    tally = (prog.tally.get("fsmn_conv"), prog.tally.get("fsmn_conv_dw"))
+    require(cstep.programs.replays == FT_REMAT_STEPS - 2,
+            f"remat captured step: {cstep.stats()}")
+    require(n_c == n_e == tally, f"remat launches: eager {n_e}, replay "
+                                 f"{n_c}, tally {tally}")
+    require(l_c == l_e, f"remat losses captured {l_c} against eager {l_e}")
+    n_diff, worst = ft_differ(torch, s_c, s_e)
+    require(n_diff == 0, f"remat captured against eager: {n_diff} tensors "
+                         f"differ, max |d| {worst}")
+    seconds = time.perf_counter() - t0
+    print(f"fine-tuning remat: {FT_REMAT_STEPS} steps captured (the third "
+          f"a replay) bit-equal to {FT_REMAT_STEPS} eager steps (losses "
+          f"{l_c}); K1 / dw {n_e} per step (the encoder's "
+          f"{cfg.encoder_layers} recomputed), "
+          f"the replay's tally the same; {seconds:.1f} s", flush=True)
+    return dict(steps=FT_REMAT_STEPS, equal=True, launches_per_step=list(n_e),
+                seconds=seconds)
+
+
+def ft_sync_raises(torch, items):
+    """A step that fetches its loss inside the captured function (a host
+    sync) on a narrow tree: its first call is the eager step and passes;
+    its second runs the eager step and the capture, which raises, saying
+    that the step was applied; so does the third. The program stays
+    without a graph, and nothing runs eagerly in a capture's place."""
+    from toolbox_for_asr_and_tts_tpu_torch.models.paraformer import (
+        ParaformerConfig)
+    from toolbox_for_asr_and_tts_tpu_torch.runtime.train_graph import (
+        capture_train_step)
+    from toolbox_for_asr_and_tts_tpu_torch.tools import finetune
+    cfg = ParaformerConfig(d_model=32, n_heads=2, ffn_dim=64,
+                           encoder_layers=2, decoder_layers=1)
+    params, opt, step = ft_fresh(torch, cfg)
+    capturing = []
+
+    def syncing(p, o, b):
+        out = step(p, o, b)
+        capturing.append(torch.cuda.is_current_stream_capturing())
+        float(out[2]["loss"])
+        return out
+    cstep = capture_train_step(syncing, params, opt)
+    batch = finetune._features(items[:2], cfg.frontend, FT_K_MAX,
+                               torch.device("cuda"))
+    cstep(params, opt, batch)
+    errors, notes = [], []
+    for _ in range(2):
+        try:
+            cstep(params, opt, batch)
+        except Exception as e:   # the capture's failure, as raised
+            errors.append(f"{type(e).__name__}: {str(e).splitlines()[0]}")
+            notes.append(" ".join(getattr(e, "__notes__", [])))
+        progs = cstep.programs
+        require(len(progs) == 1 and all(progs._progs[k].graph is None
+                                        for k in progs)
+                and capturing[-1] is True,
+                "a capture that syncs left a graph or did not capture")
+    torch.cuda.synchronize()
+    require(len(errors) == 2, "a step that syncs inside its capture did "
+                              "not raise")
+    require(all("advanced one step" in n for n in notes),
+            f"the failed capture's error does not say the step ran: {notes}")
+    print(f"fine-tuning capture that syncs: the first call's eager step "
+          f"ran; the capture raised on both later calls, saying the step "
+          f"was applied, no graph kept ({errors[0][:120]})", flush=True)
+    return dict(raised=len(errors), error=errors[0], note=notes[0])
+
+
+def finetune_path(torch, card, wavs, eager_only: bool = False):
     """Fine-tuning at full width (Paraformer-large, the 8 rows of
     `make_wavs` with random targets, k_max 32): card vs CPU gradients;
-    FT_STEPS steps on one fixed batch (K1 66, dw 66, K2 1 per step; a
+    FT_STEPS eager steps on one fixed batch (K1 66, dw 66, K2 1 per step; a
     finite loss that falls); a fresh seed-0 tree restored from the save at
     step FT_RESUME_AT continued to FT_STEPS equal to the uninterrupted run;
-    `tools/finetune.py` with `--export`, whose export served by
-    `Recognizer.from_model_dir` gives the ids of a Recognizer on the CLI's
-    tuned tree in memory. cuDNN runs deterministic here (the predictor
-    conv's weight gradient), so a resumed run can equal the uninterrupted
-    one bit for bit."""
+    the eager step's profile; the card's AdamW against optax's formula;
+    the captured step (`ft_captured`: bit-equal to the eager run of the
+    same capturable AdamW, its resume, its profile, `ft_remat`,
+    `ft_sync_raises`); `tools/finetune.py` with `--export`, running
+    captured, whose export served by `Recognizer.from_model_dir` gives the
+    ids of a Recognizer on the CLI's tuned tree in memory; the share of
+    the CLI's steps at a new shape on a mixed-length manifest. cuDNN runs
+    deterministic here (the predictor conv's weight gradient), so a
+    resumed run can equal the uninterrupted one bit for bit.
+
+    eager_only: the eager steps, their resume and their profile alone,
+    which a tree without `runtime/train_graph.py` also runs (so this
+    script copied beside an older tree times that tree's eager step)."""
     import shutil
     import tempfile
     import numpy as np
@@ -3932,7 +4403,8 @@ def finetune_path(torch, card, wavs, profile: bool = False):
         init_opt, step = ts.make_train_step(cfg, ts.adamw(FT_LR))
         params = reco.params
         opt = init_opt(params)
-        vs_cpu = ft_card_vs_cpu(torch, cfg, params, items)
+        vs_cpu = (None if eager_only
+                  else ft_card_vs_cpu(torch, cfg, params, items))
 
         ck = os.path.join(root, "ck")
         torch.cuda.reset_peak_memory_stats()
@@ -3996,33 +4468,9 @@ def finetune_path(torch, card, wavs, profile: bool = False):
               f"({restore_s:.1f} s), continued to step {FT_STEPS}: max |d| "
               f"against the uninterrupted run {resume_d:.3g}", flush=True)
         del reco2, params2, opt2
-        prof = (profile_train_step(torch, step, params, opt, items, cfg,
-                                   med * 1e3) if profile else None)
-
-        # the CLI with --export, then the export served
-        t = time.perf_counter()
-        mount = os.path.join(root, "mount")
-        res = finetune.main(
-            ["--manifest", manifest, "--ckpt-dir", os.path.join(root, "cli"),
-             "--steps", "2", "--batch", "8", "--save-every", "2",
-             "--k-max", str(FT_K_MAX), "--max-secs", "10",
-             "--export", os.path.join(mount, "torch_params.npz")])
-        cli_s = time.perf_counter() - t
-        require(len(res["losses"]) == 2 and all(np.isfinite(res["losses"])),
-                f"finetune CLI losses {res['losses']}")
-        served = Recognizer.from_model_dir(mount)
-        tuned = Recognizer(res["params"], res["cfg"], res["tokenizer"])
-        a, b = served.transcribe(wavs), tuned.transcribe(wavs)
-        ids = [r.token_ids for r in a]
-        require(ids == [r.token_ids for r in b], "the exported tree served "
-                "other ids than the tuned tree in memory")
-        print(f"fine-tuning CLI: 2 steps with --export in {cli_s:.1f} s "
-              f"(losses {res['losses']}); Recognizer.from_model_dir on the "
-              f"export: ids equal to the tuned tree's in memory on all 8 "
-              f"rows ({sum(len(i) for i in ids)} tokens)", flush=True)
-        print(f"fine-tuning phase: {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        return dict(
+        prof = profile_train_step(torch, step, params, opt, items, cfg,
+                                  med * 1e3)
+        out = dict(
             config="ParaformerConfig()", rows=len(items), audio_s=audio_s,
             target_tokens=tokens, k_max=FT_K_MAX, lr=FT_LR, steps=FT_STEPS,
             step_wall_ms_median=med * 1e3, step_wall_ms_p95=p95 * 1e3,
@@ -4034,12 +4482,73 @@ def finetune_path(torch, card, wavs, profile: bool = False):
                                "fsmn_conv_dw": launches[0][1],
                                "frame_window": launches[0][2]},
             card_vs_cpu=vs_cpu, resume_max_abs_diff=resume_d,
-            save_s=save_s[0], restore_s=restore_s, cli_s=cli_s,
-            cli_losses=res["losses"], export_ids_equal=True,
-            **({"profile": prof} if prof else {}))
+            save_s=save_s[0], restore_s=restore_s, profile=prof)
+        if eager_only:
+            print(f"fine-tuning phase (eager only): "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            return out
+
+        # the captured step (runtime/train_graph.py)
+        adamw_check = adamw_capturable_check(torch, card)
+        ck_captured = os.path.join(root, "ck-captured")
+        captured, captured_end = ft_captured(torch, card, cfg, items,
+                                             ck_captured)
+        captured["resume"] = ft_captured_resume(torch, cfg, items,
+                                                ck_captured, captured_end)
+        del captured_end
+        captured["remat"] = ft_remat(torch, cfg, items)
+        captured["sync_raises"] = ft_sync_raises(torch, items)
+        captured["mixed_lengths"] = ft_shape_share(
+            cfg, med, captured["capture_s"],
+            captured["step_wall_ms_median"] / 1e3)
+
+        # the CLI with --export (its draws bring a T back twice, so it
+        # captures and replays), then the export served
+        seq = ft_cli_shapes(items, cfg.frontend, FT_CLI_STEPS, 8)
+        cli_want = ft_sights(seq)[:3]
+        require(cli_want[2] >= 1, f"the CLI's batches {seq} bring no T back "
+                                  f"twice")
+        t = time.perf_counter()
+        mount = os.path.join(root, "mount")
+        res = finetune.main(
+            ["--manifest", manifest, "--ckpt-dir", os.path.join(root, "cli"),
+             "--steps", str(FT_CLI_STEPS), "--batch", "8",
+             "--save-every", str(FT_CLI_STEPS),
+             "--k-max", str(FT_K_MAX), "--max-secs", "10",
+             "--export", os.path.join(mount, "torch_params.npz")])
+        cli_s = time.perf_counter() - t
+        require(len(res["losses"]) == FT_CLI_STEPS
+                and all(np.isfinite(res["losses"])),
+                f"finetune CLI losses {res['losses']}")
+        cli_graphs = res["train_graphs"]
+        got_calls = (cli_graphs["eager"], cli_graphs["captures"],
+                     cli_graphs["replays"])
+        require(got_calls == cli_want, f"finetune CLI over T {seq}: eager / "
+                                       f"captures / replays {got_calls}, "
+                                       f"expected {cli_want}")
+        served = Recognizer.from_model_dir(mount)
+        tuned = Recognizer(res["params"], res["cfg"], res["tokenizer"])
+        a, b = served.transcribe(wavs), tuned.transcribe(wavs)
+        ids = [r.token_ids for r in a]
+        require(ids == [r.token_ids for r in b], "the exported tree served "
+                "other ids than the tuned tree in memory")
+        print(f"fine-tuning CLI: {FT_CLI_STEPS} steps with --export in "
+              f"{cli_s:.1f} s (losses {res['losses']}; batch T {seq}: "
+              f"{cli_graphs['eager']} eager first steps, "
+              f"{cli_graphs['captures']} captures, {cli_graphs['replays']} "
+              f"replays); Recognizer.from_model_dir on the export: ids equal "
+              f"to the tuned tree's in memory on all 8 rows "
+              f"({sum(len(i) for i in ids)} tokens)", flush=True)
+        print(f"fine-tuning phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        graph_snapshot("finetune")
+        return dict(out, cli_s=cli_s, cli_losses=res["losses"],
+                    cli_graphs=cli_graphs, cli_T=seq, export_ids_equal=True,
+                    captured=captured, adamw=adamw_check)
     finally:
         torch.backends.cudnn.deterministic = deterministic
         shutil.rmtree(root, ignore_errors=True)
+        _FT_TREES.clear()
 
 
 # ---------------------------------------- phase 11: reduced precision
@@ -5689,6 +6198,20 @@ def only_mesh(torch, card, peaks, floor_ms, at) -> int:
     return 0
 
 
+def only_train(torch, card, at, eager_only: bool = False) -> int:
+    """`--only-train`: phase 10 alone on phase 3's rows; prints its JSON
+    line and no result line. `--only-train-eager`: its eager steps alone
+    (`finetune_path(eager_only=True)`)."""
+    try:
+        at("phase 10: fine-tuning")
+        train = finetune_path(torch, card, make_wavs(), eager_only)
+    except Exception:
+        traceback.print_exc()
+        return 1
+    print(json.dumps({"train": train, "card": card}))
+    return 0
+
+
 # ---------------------------------- phase 14: the remaining serving paths
 PATHS_CAPACITY = 64
 PATHS_SESSIONS = 16       # phase 4's S = 16 sessions (seed 116), each cut
@@ -6047,6 +6570,8 @@ def main(argv) -> int:
             return only_mesh(torch, card, peaks, floor_ms, at)
         if "--only-paths" in argv:
             return only_paths(torch, card, peaks, at)
+        if "--only-train" in argv or "--only-train-eager" in argv:
+            return only_train(torch, card, at, "--only-train-eager" in argv)
         k1_rows = check_k1(torch, peaks, floor_ms)
         k1_backward = check_k1_backward(torch, peaks, floor_ms)
         if "--sweep" in argv:
@@ -6086,7 +6611,7 @@ def main(argv) -> int:
                 if mounted is not None:
                     mounted[0].stop()
             at("phase 10: fine-tuning")
-            train = finetune_path(torch, card, wavs, profile)
+            train = finetune_path(torch, card, wavs)
             at("phase 11: reduced precision")
             precision = precision_path(torch, card, peaks, reco, wavs, synth)
             at("phase 12: the dispatch profile and the rehearsal")
@@ -6114,6 +6639,12 @@ def main(argv) -> int:
     main_bwd = next(r for r in k1_backward
                     if r["site"] == "encoder" and r["dtype"] == "float32")
     per_step = train["launches_per_step"]
+    captured = train["captured"]
+
+    def in_train_replay(k):
+        """ms per launch inside a replayed training step (profiler)."""
+        row = captured["profile"].get(k)
+        return None if row is None else row["us_per_launch"] / 1e3
     served = {run: service[run]["launches"]
               for run in ("S1", "S16_first", "S16_unpipelined", "S16",
                           "four_modes", "rest")}
@@ -6167,6 +6698,8 @@ def main(argv) -> int:
              ms_in_step_replay=streaming["S64"].get("profile", {}).get(
                  "in_replay", {}).get("fsmn_conv"),
              launches_per_train_step=per_step["fsmn_conv"],
+             launches_per_captured_train_step=captured["tally"]["fsmn_conv"],
+             ms_in_train_step_replay=in_train_replay("fsmn_conv"),
              launches_bf16=precision["bf16"]["k1_per_transcribe"],
              launches_int8=precision["int8"]["k1_per_transcribe"],
              launches_per_chunked_step_int8={
@@ -6188,6 +6721,9 @@ def main(argv) -> int:
              dw_only_bound_ms=main_bwd["dw_only_bound_ms"],
              launch_floor_ms=main_bwd["launch_floor_ms"],
              launches_per_train_step=per_step["fsmn_conv_dw"],
+             launches_per_captured_train_step=captured["tally"][
+                 "fsmn_conv_dw"],
+             ms_in_train_step_replay=in_train_replay("fsmn_conv_dw"),
              deterministic=main_bwd["deterministic"],
              replay_equal=main_bwd["replay_equal"],
              replay_ms=main_bwd["replay_ms"],

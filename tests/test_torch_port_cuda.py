@@ -815,6 +815,29 @@ def test_a_failing_capture_raises(cuda):
     torch.cuda.synchronize()
 
 
+def test_an_owner_captures_again_after_a_failed_capture(cuda):
+    """Captures that failed end the allocator's routing into the owner's
+    pool, so the same owner's next capture takes the pool and replays
+    its eager function's bits."""
+    from toolbox_for_asr_and_tts_tpu_torch.runtime.graphs import Programs
+    progs = Programs(cuda, "again")
+
+    def syncs(x):
+        return x * float(x.sum().item())
+
+    def good(x):
+        return x * 2.0 + 1.0
+    for _ in range(2):
+        with pytest.raises(Exception):
+            progs.get("sync", lambda: (syncs, [((4,), torch.float32)]))
+    prog = progs.get("good", lambda: (good, [((4,), torch.float32)]))
+    x = np.arange(4, dtype=np.float32)
+    got = prog(x)
+    torch.cuda.synchronize()
+    assert prog.graph is not None and progs.captures == 1
+    assert torch.equal(got.cpu(), good(torch.from_numpy(x)))
+
+
 # -------------------------------------- K1 under autograd (fine-tuning)
 from toolbox_for_asr_and_tts_tpu_torch.ops.kernels import (  # noqa: E402
     fsmn_conv_dw as kdw)
@@ -1426,3 +1449,173 @@ def test_single_phase_synthesis_on_card_matches_cpu(cuda, no_tf32, mode,
     pcm = lambda w: np.round(w.astype(np.float64) * 32767.0)  # noqa: E731
     assert len(got.wav) == len(want.wav)
     assert np.abs(pcm(got.wav) - pcm(want.wav)).max() <= 1
+
+
+# ------------------ the captured fine-tuning step (runtime/train_graph.py)
+def _train_cfg(remat=False):
+    from toolbox_for_asr_and_tts_tpu_torch.models import paraformer as pf
+    return pf.ParaformerConfig(d_model=32, n_heads=2, ffn_dim=64,
+                               encoder_layers=3, decoder_layers=2,
+                               vocab_size=64, remat=remat)
+
+
+def _train_state(cfg, dev):
+    """A fresh seed-0 tree on `dev`, its AdamW (`trainstep.adamw`) and its
+    eager step."""
+    from toolbox_for_asr_and_tts_tpu_torch.models import paraformer as pf
+    from toolbox_for_asr_and_tts_tpu_torch.models.convert import tree_map
+    from toolbox_for_asr_and_tts_tpu_torch.parallel import trainstep as ts
+    params = tree_map(lambda a: a.to(dev), pf.init_params(
+        cfg, torch.Generator().manual_seed(0)))
+    init_opt, step = ts.make_train_step(cfg, device=dev)
+    return params, init_opt(params), step
+
+
+def _train_batch(cfg, dev):
+    from toolbox_for_asr_and_tts_tpu_torch.tools import finetune
+    rows = [(w, list(range(4, 4 + n))) for w, n in
+            zip(_wavs(14, (24000, 17000)), (7, 5))]
+    return finetune._features(rows, cfg.frontend, 8, dev)
+
+
+def _train_tensors(params, opt):
+    """Every parameter and AdamW state tensor, in order."""
+    from toolbox_for_asr_and_tts_tpu_torch.parallel import trainstep as ts
+    leaves = ts.param_leaves(params)
+    return leaves + [opt.state[p][k] for p in leaves
+                     for k in sorted(opt.state[p])]
+
+
+@pytest.fixture
+def deterministic():
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = flag
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_captured_train_step_equals_eager(cuda, no_tf32, deterministic,
+                                          remat):
+    """5 calls of the captured step (the eager step at the batch's shape,
+    the eager step and its capture, then 3 replays) against 5 eager steps
+    of the same AdamW made capturable: losses, parameters and AdamW state
+    bit for bit, the storages kept from call to call, no gradient left
+    behind. Under remat the recompute runs on autograd's thread inside the
+    capture."""
+    from toolbox_for_asr_and_tts_tpu_torch.parallel import trainstep as ts
+    from toolbox_for_asr_and_tts_tpu_torch.runtime.train_graph import (
+        capturable, capture_train_step)
+    cfg = _train_cfg(remat)
+    batch = _train_batch(cfg, cuda)
+    params, opt, step = _train_state(cfg, cuda)
+    assert not opt.param_groups[0]["capturable"]
+    capturable(opt)
+    want = [step(params, opt, batch)[2]["loss"].item() for _ in range(5)]
+    want_t = _train_tensors(params, opt)
+    params, opt, step = _train_state(cfg, cuda)
+    cstep = capture_train_step(step, params, opt)
+    assert opt.param_groups[0]["capturable"]
+    got, ptrs = [], []
+    for _ in range(5):
+        got.append(cstep(params, opt, batch)[2]["loss"].item())
+        ptrs.append([t.data_ptr() for t in _train_tensors(params, opt)])
+        assert all(p.grad is None for p in ts.param_leaves(params))
+    assert got == want
+    assert ptrs[0] == ptrs[1] == ptrs[2] == ptrs[3] == ptrs[4]
+    for a, b in zip(_train_tensors(params, opt), want_t):
+        assert torch.equal(a, b)
+    stats = cstep.stats()
+    assert (stats["programs"], stats["eager"], stats["captures"],
+            stats["replays"]) == (1, 1, 1, 3)
+    assert stats["pool_bytes"] > 0
+
+
+def test_train_replay_counts_k1_and_its_backward(cuda, no_tf32,
+                                                 deterministic):
+    """Every call counts one K1 and one backward per FSMN layer, a replay
+    by its capture's tally (the backward launches from autograd's thread,
+    on the capture stream); K2 stays with the features."""
+    from toolbox_for_asr_and_tts_tpu_torch.runtime.train_graph import (
+        capture_train_step)
+    cfg = _train_cfg()
+    layers = cfg.encoder_layers + cfg.decoder_layers
+    batch = _train_batch(cfg, cuda)
+    params, opt, step = _train_state(cfg, cuda)
+    cstep = capture_train_step(step, params, opt)
+    for _ in range(4):
+        torch.cuda.synchronize()
+        a, b, c = k1.launches, kdw.launches, k2.launches
+        cstep(params, opt, batch)
+        torch.cuda.synchronize()
+        assert (k1.launches - a, kdw.launches - b, k2.launches - c) == \
+            (layers, layers, 0)
+    assert cstep.programs.replays == 2
+    prog = cstep.programs._progs[next(iter(cstep.programs))]
+    assert prog.tally == {"fsmn_conv": layers, "fsmn_conv_dw": layers}
+
+
+def test_a_failing_train_capture_raises(cuda):
+    """A step that syncs with the host inside its function: the first
+    call's eager step runs; the second runs the step, then its capture
+    raises, saying the step was applied; so does the third. The program
+    stays without a graph: nothing runs eagerly in a capture's place."""
+    from toolbox_for_asr_and_tts_tpu_torch.runtime.train_graph import (
+        capture_train_step)
+    cfg = _train_cfg()
+    batch = _train_batch(cfg, cuda)
+    params, opt, step = _train_state(cfg, cuda)
+    capturing = []
+
+    def syncing(p, o, b):
+        out = step(p, o, b)
+        capturing.append(torch.cuda.is_current_stream_capturing())
+        float(out[2]["loss"])
+        return out
+    cstep = capture_train_step(syncing, params, opt)
+    cstep(params, opt, batch)
+    assert capturing == [False]
+    for _ in range(2):
+        with pytest.raises(Exception) as err:
+            cstep(params, opt, batch)
+        assert "advanced one step" in " ".join(err.value.__notes__)
+        progs = cstep.programs
+        assert len(progs) == 1 and capturing[-1] is True
+        assert progs._progs[next(iter(progs))].graph is None
+    torch.cuda.synchronize()
+
+
+def test_restore_into_a_captured_step(cuda, no_tf32, deterministic,
+                                      tmp_path):
+    """A checkpoint restored into a step that has captured: the parameters
+    keep their storages, the optimizer takes the saved state, and the step
+    drops its program and makes it again (an eager step, then the step and
+    its capture); the run continues bit-equal to the run that was saved."""
+    from toolbox_for_asr_and_tts_tpu_torch.parallel import trainstep as ts
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import train_ckpt as tc
+    from toolbox_for_asr_and_tts_tpu_torch.runtime.train_graph import (
+        capture_train_step)
+    cfg = _train_cfg()
+    batch = _train_batch(cfg, cuda)
+    params, opt, step = _train_state(cfg, cuda)
+    cstep = capture_train_step(step, params, opt)
+    for i in range(5):
+        if i == 2:
+            tc.save_train_state(str(tmp_path), 2, params, opt)
+        cstep(params, opt, batch)
+    # copies outside autograd: a clone under grad mode would keep the
+    # leaves' gradient accumulators on this stream, which the capture
+    # on its side stream cannot use
+    want = [t.detach().clone() for t in _train_tensors(params, opt)]
+    ptrs = [p.data_ptr() for p in ts.param_leaves(params)]
+    assert cstep.programs.captures == 1 and cstep.programs.replays == 3
+    assert tc.restore_train_state(str(tmp_path), params, opt)[0] == 2
+    assert [p.data_ptr() for p in ts.param_leaves(params)] == ptrs
+    assert all(t.is_cuda for t in _train_tensors(params, opt))
+    for _ in range(3):
+        cstep(params, opt, batch)
+    stats = cstep.stats()
+    assert (stats["programs"], stats["eager"], stats["captures"],
+            stats["replays"]) == (1, 2, 2, 4)
+    for a, b in zip(_train_tensors(params, opt), want):
+        assert torch.equal(a, b)

@@ -213,7 +213,10 @@ def encode(params: nn.Params, feats: torch.Tensor, mask: torch.Tensor,
     remat = cfg.remat and torch.is_grad_enabled()
     for i, layer in enumerate(params["encoder"]["layers"]):
         if remat:   # keep only each layer's input; recompute in backward
-            x = checkpoint(layer_fn, layer, x, i == 0, use_reentrant=False)
+            # no random draws in a layer, and reading the card's generator
+            # state is refused inside a CUDA graph capture
+            x = checkpoint(layer_fn, layer, x, i == 0, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             x = layer_fn(layer, x, i == 0)
     x = nn.layernorm(params["encoder"]["after_norm"], x)

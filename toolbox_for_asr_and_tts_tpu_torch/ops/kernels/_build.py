@@ -135,27 +135,42 @@ def load() -> ctypes.CDLL:
 
 
 _tally = threading.local()
+# raw CUDA stream handle → the open `tallied(stream)` block's counts
+_stream_tallies: Dict[int, Dict[str, int]] = {}
 
 
 @contextlib.contextmanager
-def tallied():
+def tallied(stream: Optional[int] = None):
     """Within the block, the kernel launches this thread makes count into
     the yielded dict (kernel module name → launches) instead of the
     modules' `launches`: they are a program's warm-up or capture
-    (`runtime/graphs.py`), not runs. A replay adds the capture's tally."""
+    (`runtime/graphs.py`), not runs. A replay adds the capture's tally.
+
+    stream: a raw CUDA stream handle whose launches count into the dict
+    too, whichever thread makes them. Autograd runs a backward pass on a
+    thread of its own, on the forward's stream, so a captured training
+    step (`runtime/train_graph.py`) tallies its backward's launches
+    through its capture stream."""
     prev = getattr(_tally, "counts", None)
     counts: Dict[str, int] = {}
     _tally.counts = counts
+    if stream is not None:
+        _stream_tallies[stream] = counts
     try:
         yield counts
     finally:
         _tally.counts = prev
+        if stream is not None:
+            _stream_tallies.pop(stream, None)
 
 
-def count_launch(name: str) -> bool:
-    """Record one launch of kernel `name` in the open `tallied()` block of
-    this thread; False when there is none (the launch is a run)."""
+def count_launch(name: str, stream: Optional[int] = None) -> bool:
+    """Record one launch of kernel `name` on raw stream `stream` in the
+    open `tallied()` block of this thread, or else in the one open for that
+    stream; False when there is none (the launch is a run)."""
     counts = getattr(_tally, "counts", None)
+    if counts is None and stream is not None:
+        counts = _stream_tallies.get(stream)
     if counts is None:
         return False
     counts[name] = counts.get(name, 0) + 1

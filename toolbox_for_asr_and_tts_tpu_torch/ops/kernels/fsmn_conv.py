@@ -267,11 +267,13 @@ def launch(x: torch.Tensor, w: torch.Tensor, pad_l: int,
             b, t, d, stride_b, stride_t, k, pad_l, *tile)
     index = x.device.index
     if index == torch.cuda.current_device():
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        err = fn(*args, stream)
     else:
         with torch.cuda.device(index):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+            stream = torch._C._cuda_getCurrentRawStream(index)
+            err = fn(*args, stream)
     _build.check(err, name)
-    if not _build.count_launch("fsmn_conv"):
+    if not _build.count_launch("fsmn_conv", stream):
         add_launches()
     return y

@@ -320,6 +320,6 @@ def launch(x: torch.Tensor, g: torch.Tensor, w: Optional[torch.Tensor],
                 g.stride(0), g.stride(1), k, pad_l, *tile, stream)
         err = fn(*args, exit_after) if exit_after else fn(*args)
     _build.check(err, name)
-    if not exit_after and not _build.count_launch("fsmn_conv_dw"):
+    if not exit_after and not _build.count_launch("fsmn_conv_dw", stream):
         add_launches()
     return dx, dw

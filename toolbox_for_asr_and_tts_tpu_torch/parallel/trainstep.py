@@ -10,7 +10,8 @@ require grad and updates them in place, so the tree stays the one a
 `Recognizer` holds (its captured graphs bind those storages). Autograd runs
 through kernel K1 (`ops/kernels/fsmn_conv.py::FsmnDepthwiseFn`: dx and dw
 by one launch of K1's backward kernel, `fsmn_conv_dw.fsmn_conv_bwd`). The
-step runs eagerly.
+step runs eagerly; `runtime/train_graph.py::capture_train_step` makes it
+one CUDA graph per batch shape, the reference's `jax.jit` of it.
 
 Over a mesh (`make_train_step(cfg, mesh=...)`) the step is the reference's
 dp + tp `jit` over `shard_params` trees (`tests/test_parallel_llm.py`):

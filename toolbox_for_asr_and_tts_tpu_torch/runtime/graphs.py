@@ -7,6 +7,9 @@ here: on the card, one `torch.cuda.CUDAGraph` captured from the eager
 function at the bucket's shapes and replayed with static input and output
 buffers; on the CPU, the eager function itself, with no capture. Both run
 behind the same cache, keys and locks, so the CPU tests exercise them.
+The fine-tuning step's programs (`runtime/train_graph.py::TrainProgram`)
+are of this layer too: forward, autograd and the optimizer in one graph
+per batch shape, on an owner of their own.
 
 `Programs` is one owner's cache (one recognizer, one ticker, one spotter,
 or one mesh position of a recognizer or a ticker, since a graph binds its
@@ -34,13 +37,16 @@ and its events are that card's whichever card the caller had current:
   are copied on the card. Buffers a program binds for good (a ticker's
   state rows, the weights) are not inputs: the graph reads and writes them
   where they are;
-- K1 and K2 launched while a program is warmed or captured are not counted
-  as runs (`ops/kernels/_build.tallied`); the capture's launches become the
-  program's tally, which every replay adds to the kernels' `launches`
-  counters, so a replay counts what the eager call would have counted.
+- K1, K1's backward and K2 launched while a program is warmed or captured
+  are not counted as runs (`ops/kernels/_build.tallied`); the capture's
+  launches become the program's tally, which every replay adds to the
+  kernels' `launches` counters, so a replay counts what the eager call
+  would have counted.
 
 A capture that fails raises; nothing falls back to an eager run on the
-card, and there is no switch that turns graphs off there. An owner on the
+card, and there is no switch that turns graphs off there. The owner's
+next capture takes a fresh graph pool (`end_capture`: torch takes no
+further capture into a failed capture's pool). An owner on the
 card resolves the dispatch profile (`runtime/autotune.py`) when it is
 made, so a knob read inside a capture never runs the profile's probe.
 """
@@ -56,7 +62,7 @@ import numpy as np
 import torch
 
 from ..models.convert import tree_map
-from ..ops.kernels import _build, frame_window, fsmn_conv
+from ..ops.kernels import _build, frame_window, fsmn_conv, fsmn_conv_dw
 from .compile_lock import COMPILE_LOCK
 
 WARMUP_RUNS = 1     # eager runs on the capture stream before each capture
@@ -64,6 +70,7 @@ WARMUP_RUNS = 1     # eager runs on the capture stream before each capture
 Spec = Tuple[Tuple[int, ...], torch.dtype]
 # kernel module name → its counter (what a replay adds its tally to)
 _COUNTERS = {"fsmn_conv": fsmn_conv.add_launches,
+             "fsmn_conv_dw": fsmn_conv_dw.add_launches,
              "frame_window": frame_window.add_launches}
 _OWNERS: "weakref.WeakSet[Programs]" = weakref.WeakSet()
 _STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
@@ -77,6 +84,63 @@ def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
     if stream is None:
         stream = _STREAMS[device] = torch.cuda.Stream(device)
     return stream
+
+
+def end_capture(graph: "torch.cuda.CUDAGraph", owner: "Programs") -> None:
+    """`graph.capture_end()`. Where it raises (an illegal call, such as a
+    host sync, invalidated the capture), torch leaves the allocator
+    routing the capture stream's allocations into the owner's pool, and
+    that pool takes no further capture: end the routing, give the owner a
+    fresh pool for its next capture, then raise."""
+    try:
+        graph.capture_end()
+    except BaseException:
+        end = getattr(torch._C, "_cuda_endAllocateToPool", None)
+        if end is not None:
+            try:
+                end(owner.device.index, owner.pool())
+            except RuntimeError:     # this torch ended the routing itself
+                pass
+        owner.retire_pool()
+        raise
+
+
+def capture_graph(owner: "Programs", warm_up: Callable[[], Any],
+                  fn: Callable[[], Any]) -> Tuple[Any, Any, Any, Dict]:
+    """On the owner's card (current), from the calling thread: run
+    `warm_up()` on the capture's side stream, then capture `fn()` there
+    into the owner's pool → (graph, warm_up's result, fn's outputs, the
+    capture's tally of kernel launches). The launches counted are those
+    this thread makes and those any thread makes on the side stream
+    (autograd's backward threads). The caller's stream waits for the side
+    stream's work."""
+    dev = owner.device
+    current = torch.cuda.current_stream(dev)
+    side = _capture_stream(dev)
+    side.wait_stream(current)
+    graph = torch.cuda.CUDAGraph()
+    # no collection inside the capture window: a finalizer that touched
+    # the card would land in this graph
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.stream(side):
+            warm = warm_up()
+            # torch.cuda.graph's own entry would synchronize the card and
+            # empty the allocator's cache per capture; neither is needed,
+            # and both are slow between many captures
+            graph.capture_begin(pool=owner.pool(),
+                                capture_error_mode="thread_local")
+            try:
+                with _build.tallied(side.cuda_stream) as tally:
+                    out = fn()
+            finally:
+                end_capture(graph, owner)
+    finally:
+        if was_enabled:
+            gc.enable()
+        current.wait_stream(side)
+    return graph, warm, out, dict(tally)
 
 
 def owners() -> List["Programs"]:
@@ -100,7 +164,7 @@ class Program:
         self.fn = fn
         self.specs = [(tuple(int(n) for n in s), dt) for s, dt in specs]
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.tally: Dict[str, int] = {}   # K1 / K2 launches per replay
+        self.tally: Dict[str, int] = {}   # kernel launches per replay
         self.replays = 0
         self._static_in: List[torch.Tensor] = []
         self._static_out: Any = None
@@ -120,34 +184,14 @@ class Program:
             self._static_in = [torch.zeros(s, dtype=dt, device=dev)
                                for s, dt in self.specs]
             self._staging = [None] * len(self.specs)
-            side = _capture_stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            graph = torch.cuda.CUDAGraph()
-            # no collection inside the capture window: a finalizer that
-            # touched the card would land in this graph
-            was_enabled = gc.isenabled()
-            gc.disable()
-            try:
-                with torch.cuda.stream(side):
-                    with _build.tallied():
-                        for _ in range(WARMUP_RUNS):
-                            self.fn(*self._static_in)
-                    # torch.cuda.graph's own entry would synchronize the
-                    # card and empty the allocator's cache per capture;
-                    # neither is needed, and both are slow between many
-                    # captures
-                    graph.capture_begin(pool=self.owner.pool(),
-                                        capture_error_mode="thread_local")
-                    try:
-                        with _build.tallied() as tally:
-                            out = self.fn(*self._static_in)
-                    finally:
-                        graph.capture_end()
-            finally:
-                if was_enabled:
-                    gc.enable()
-            torch.cuda.current_stream(dev).wait_stream(side)
-            self.graph, self._static_out, self.tally = graph, out, dict(tally)
+
+            def warm_up():
+                with _build.tallied():
+                    for _ in range(WARMUP_RUNS):
+                        self.fn(*self._static_in)
+            graph, _, out, tally = capture_graph(
+                self.owner, warm_up, lambda: self.fn(*self._static_in))
+            self.graph, self._static_out, self.tally = graph, out, tally
         self.owner._count_capture(time.perf_counter() - t0)
 
     # ------------------------------------------------------------- run
@@ -257,6 +301,7 @@ class Programs:
         self.lock = threading.RLock()
         self._progs: Dict[Hashable, Program] = {}
         self._pool = None
+        self._retired: List[Any] = []    # pools of failed captures
         self.captures = 0
         self.capture_s = 0.0
         self.replays = 0
@@ -277,19 +322,28 @@ class Programs:
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool
 
+    def retire_pool(self) -> None:
+        """After a failed capture: the next capture takes a fresh pool;
+        the old one stays with the graphs already in it."""
+        if self._pool is not None:
+            self._retired.append(self._pool)
+            self._pool = None
+
     def get(self, key: Hashable,
-            build: Callable[[], Tuple[Callable[..., Any], Sequence[Spec]]]
-            ) -> Program:
+            build: Callable[[], Tuple[Callable[..., Any], Sequence[Spec]]],
+            make: Callable[..., Program] = Program) -> Program:
         """The program of `key`, built once: `build()` returns the eager
-        function and its inputs' (shape, dtype). Concurrent first calls
-        build it once: the lookup is double-checked under COMPILE_LOCK."""
+        function and its inputs' (shape, dtype), `make` the program's class
+        (a `Program`, or a `train_graph.TrainProgram`). Concurrent first
+        calls build it once: the lookup is double-checked under
+        COMPILE_LOCK."""
         prog = self._progs.get(key)
         if prog is None:
             with COMPILE_LOCK:
                 prog = self._progs.get(key)
                 if prog is None:
                     fn, specs = build()
-                    prog = Program(self, key, fn, specs)
+                    prog = make(self, key, fn, specs)
                     self._progs[key] = prog
         return prog
 
@@ -303,21 +357,28 @@ class Programs:
         return iter(list(self._progs))
 
     def pop(self, key: Hashable, default: Any = None) -> Any:
-        """Drop a program (its graph's memory returns to the pool)."""
+        """Drop a program (its graph's memory returns to the pool). With
+        the last graph goes the pool: torch releases a pool that no graph
+        uses and takes no further capture into it, so the next capture
+        takes a fresh one."""
         with COMPILE_LOCK, self.lock:
-            return self._progs.pop(key, default)
+            prog = self._progs.pop(key, default)
+            if all(p.graph is None for p in self._progs.values()):
+                self._pool = None
+            return prog
 
     def _count_capture(self, seconds: float) -> None:
         self.captures += 1
         self.capture_s += seconds
 
     def pool_bytes(self, snapshot: Optional[list] = None) -> Optional[int]:
-        """Bytes of the card's memory that this owner's graph pool holds
-        (the allocator's segments of the pool); 0 on the CPU, None where
+        """Bytes of the card's memory that this owner's graph pools hold
+        (the allocator's segments of the pools); 0 on the CPU, None where
         the allocator's snapshot does not name pools."""
-        if self._pool is None:
+        want = {tuple(p) for p in self._retired + [self._pool]
+                if p is not None}
+        if not want:
             return 0
-        want = tuple(self._pool)
         total, named = 0, False
         for seg in (torch.cuda.memory_snapshot() if snapshot is None
                     else snapshot):
@@ -325,7 +386,7 @@ class Programs:
             if pid is None:
                 continue
             named = True
-            if tuple(pid) == want:
+            if tuple(pid) in want:
                 total += int(seg["total_size"])
         return total if named else None
 
@@ -340,5 +401,6 @@ def report() -> List[Dict[str, Any]]:
     """Every live owner's stats, from one allocator snapshot."""
     live = owners()
     snapshot = (torch.cuda.memory_snapshot()
-                if any(o._pool is not None for o in live) else [])
+                if any(o._pool is not None or o._retired for o in live)
+                else [])
     return [dict(o.stats(snapshot), id=id(o)) for o in live]

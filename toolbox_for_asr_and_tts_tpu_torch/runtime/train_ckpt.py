@@ -4,7 +4,12 @@ Port of `toolbox_for_asr_and_tts_tpu/runtime/train_ckpt.py` for one card,
 without orbax: `<ckpt_dir>/<step>/params.pt` holds the flat parameters
 (`checkpoints.flatten_params` names → tensors) and `opt_state.pt` the
 optimizer's `state_dict()`, both written with `torch.save` and read with
-`torch.load(weights_only=True)`. A step is written into a temporary directory
+`torch.load(weights_only=True)`. A restore copies the parameters into the
+template tree's own storages, which a Recognizer's graphs bind, and gives
+the optimizer the checkpoint's state (`load_state_dict`, keeping the
+template's device flags); a captured training step
+(`runtime/train_graph.py`) sees the new state and captures again. A step
+is written into a temporary directory
 beside it and moved into place with `os.replace`, so a step directory holds
 both files or does not exist; `latest_step` also skips a step directory that
 lacks either (a save interrupted some other way). Serving meets training at
@@ -117,12 +122,31 @@ def restore_train_state(ckpt_dir: str, params_template: Any,
                                  f"{tuple(flat[name].shape)} vs model "
                                  f"{tuple(leaf.shape)}")
             leaf.copy_(flat[name])
-    # read on the host: load_state_dict moves the moments to the
-    # parameters' device and keeps AdamW's step counts where it wants them
-    opt_template.load_state_dict(torch.load(
+    load_opt_state(opt_template, torch.load(
         os.path.join(path, OPT_FILE), map_location="cpu", weights_only=True))
     logger.info("restored training state step=%d from %s", step, path)
     return int(step), params_template, opt_template
+
+
+# the template's own: how its optimizer runs on its device, not the run's
+# numbers (a captured step's capturable checkpoint restores into an eager
+# optimizer, a CPU run's into a card's)
+_DEVICE_FLAGS = ("capturable", "foreach", "fused", "differentiable")
+
+
+def load_opt_state(opt: torch.optim.Optimizer, saved: Dict[str, Any]) -> None:
+    """`opt.load_state_dict(saved)` (read on the host: moments onto the
+    parameters' device, step counts where the optimizer's flags put them),
+    with the optimizer's own device flags kept."""
+    groups, saved_groups = opt.param_groups, saved["param_groups"]
+    if len(groups) != len(saved_groups) or any(
+            len(g["params"]) != len(s["params"])
+            for g, s in zip(groups, saved_groups)):
+        raise ValueError("the saved optimizer state has other parameter "
+                         "groups than the optimizer")
+    opt.load_state_dict(dict(saved, param_groups=[
+        dict(s, **{k: g[k] for k in _DEVICE_FLAGS if k in g})
+        for g, s in zip(groups, saved_groups)]))
 
 
 def export_params_npz(params: Any, out_path: str) -> str:

@@ -11,7 +11,15 @@ plus `--device` (the card unless "cpu" is given). `--manifest` is JSONL
 automatic from the newest complete step under --ckpt-dir; `--export` writes
 the final params as the port's serving `torch_params.npz`. Features are
 fbank → LFR without CMVN, as the reference computes them here, one K2 launch
-per batch on the card; the step (`parallel/trainstep.py`) runs eagerly.
+per batch on the card, outside the step. The step (`parallel/trainstep.py`)
+runs as the reference's `jax.jit(train_step, donate_argnums=(0, 1))` does:
+wrapped after the restore by `runtime/train_graph.py::capture_train_step`,
+one CUDA graph per batch shape on the card, the eager step on the CPU. A
+batch is padded to the longest row drawn, so a manifest of mixed lengths
+gives one program per distinct frame count T, as the reference compiles
+once per shape; the synthetic batch has one shape. A shape's first step
+runs eagerly and its second is captured, so a T drawn once costs no
+capture; later steps at that T replay.
 """
 from __future__ import annotations
 
@@ -82,13 +90,18 @@ def _features(sel: Sequence[Tuple[np.ndarray, List[int]]], fe_cfg,
 
 def _batch(items, batch, fe_cfg, k_max, rng, device):
     """A random batch of `items` (the reference's draw) → `_features`."""
-    sel = [items[i] for i in rng.integers(0, len(items), batch)]
-    return _features(sel, fe_cfg, k_max, device)
+    return _features(_draw(items, batch, rng), fe_cfg, k_max, device)
+
+
+def _draw(items, batch, rng):
+    """The rows of one batch: `batch` of `items`, drawn with replacement."""
+    return [items[i] for i in rng.integers(0, len(items), batch)]
 
 
 def main(argv=None) -> Dict[str, Any]:
-    """Run the CLI. Returns the tuned parameters, the config and the
-    losses, for callers that drive it in-process."""
+    """Run the CLI. Returns the tuned parameters, the config, the losses
+    and the step's program stats (`CapturedStep.stats`: eager first steps,
+    captures, replays), for callers that drive it in-process."""
     logging.basicConfig(level=logging.INFO)
     ap = argparse.ArgumentParser()
     ap.add_argument("--manifest", default=None)
@@ -114,6 +127,7 @@ def main(argv=None) -> Dict[str, Any]:
     from ..models import paraformer
     from ..parallel.trainstep import adamw, make_train_step
     from ..runtime import train_ckpt as tc
+    from ..runtime.train_graph import capture_train_step
 
     dev = resolve_device(args.device)
     if args.model_dir:
@@ -137,6 +151,7 @@ def main(argv=None) -> Dict[str, Any]:
     if restored is not None:
         start, params, opt_state = restored
         logger.info("resuming from step %d", start)
+    step_fn = capture_train_step(train_step, params, opt_state)
 
     rng = np.random.default_rng(0)
     if args.manifest:
@@ -151,7 +166,7 @@ def main(argv=None) -> Dict[str, Any]:
     for step in range(start, args.steps):
         batch = _batch(items, args.batch, fe_cfg, args.k_max, rng, dev)
         t0 = time.perf_counter()
-        params, opt_state, metrics = train_step(params, opt_state, batch)
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["loss"])
         losses.append(loss)
         if not np.isfinite(loss):
@@ -165,7 +180,8 @@ def main(argv=None) -> Dict[str, Any]:
         tc.export_params_npz(params, args.export)
         logger.info("exported serving params to %s", args.export)
     return {"params": params, "cfg": cfg, "tokenizer": tokenizer,
-            "start": start, "losses": losses}
+            "start": start, "losses": losses,
+            "train_graphs": step_fn.stats()}
 
 
 if __name__ == "__main__":
