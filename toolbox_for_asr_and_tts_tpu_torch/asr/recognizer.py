@@ -53,7 +53,8 @@ from ..ops import nn
 from ..runtime.bucketing import Bucketer
 from ..runtime.graphs import Program, Programs, to_host
 from ..runtime.mesh import per_position, serving_mesh
-from ..runtime.metrics import RTFMeter, Tally, timing_log
+from ..runtime import profiling
+from ..runtime.metrics import Tally, real_time_factor, timing_log
 from .tokenizer import CharTokenizer
 
 
@@ -135,7 +136,6 @@ class Recognizer:
         from ..runtime.autotune import env_or_profile
         self._int16_transfer = env_or_profile("PARAFORMER_TRANSFER_INT16",
                                               "asr_int16_transfer")
-        self.rtf = RTFMeter()
         # one program per (batch, audio bucket) forward and per rescoring
         # bucket; on the card each is a captured graph
         self._positions = [Programs(dev, "recognizer" if i == 0
@@ -330,14 +330,27 @@ class Recognizer:
         """Batch of float32 mono 16 kHz waveforms → results.
 
         `hotwords` ({word: weight}) applies constrained rescoring of the
-        greedy output (asr/hotword_bias.py)."""
+        greedy output (asr/hotword_bias.py).
+
+        Spans (`runtime/profiling.py`): `recognizer.transcribe`, the
+        request, over `recognizer.pad` (padding and casts), the program's
+        own, `recognizer.rescore` (the hotword / LM pass) and
+        `recognizer.decode` (the results, on the host)."""
+        with profiling.annotate("recognizer.transcribe"):
+            return self._transcribe(wavs, hotwords)
+
+    def _transcribe(self, wavs, hotwords) -> List[TranscribeResult]:
         if not isinstance(wavs, (list, tuple)):
             wavs = [wavs]
         n_pos = len(self._positions)
-        batch, lens = self.bucketer.pad_batch([np.asarray(w) for w in wavs],
-                                              batch_multiple=n_pos)
+        with profiling.annotate("recognizer.pad"):
+            batch, lens = self.bucketer.pad_batch(
+                [np.asarray(w) for w in wavs], batch_multiple=n_pos)
+            t0 = time.perf_counter()
+            batch = np.asarray(batch, np.float32)
+            if self._int16_transfer:
+                batch = to_int16_pcm(batch)
         want_logits = bool(hotwords) or self.lm is not None
-        t0 = time.perf_counter()
         per = batch.shape[0] // n_pos
         t_lfr, k_max = self._bucket_shapes(batch.shape[1])
 
@@ -348,9 +361,6 @@ class Recognizer:
                     if want_logits and dev["packed"].is_cuda else dev)
             return to_host(dev["packed"]), kept
 
-        batch = np.asarray(batch, np.float32)
-        if self._int16_transfer:
-            batch = to_int16_pcm(batch)
         self.forwards.add(n_pos)
         # every position's replay and fetch queued, then waited on
         shards = [self._fn_for(per, batch.shape[1], i)(
@@ -369,63 +379,65 @@ class Recognizer:
             out["us_end"] = packed[:, 1 + 5 * k_max: 1 + 6 * k_max]
         logits_np = None
         if want_logits and int(out["token_count"].max()) > 0:
-            kb = self.K_BUCKET
-            k_b = min(-(-int(out["token_count"].max()) // kb) * kb, k_max)
-            self.rescorings.add(n_pos)
-            waits = [self._logits_fn(per, t_lfr, k_b, i)(
-                *(dev[k] for k in self._RESCORING_INPUTS),
-                read=lambda lg: to_host(lg.float()))
-                for i, (_, dev) in enumerate(shards)]
-            logits_np = np.concatenate([wait() for wait in waits])
+            with profiling.annotate("recognizer.rescore"):
+                kb = self.K_BUCKET
+                k_b = min(-(-int(out["token_count"].max()) // kb) * kb, k_max)
+                self.rescorings.add(n_pos)
+                waits = [self._logits_fn(per, t_lfr, k_b, i)(
+                    *(dev[k] for k in self._RESCORING_INPUTS),
+                    read=lambda lg: to_host(lg.float()))
+                    for i, (_, dev) in enumerate(shards)]
+                logits_np = np.concatenate([wait() for wait in waits])
         proc_s = time.perf_counter() - t0
         timing_log("offline_asr_batch", proc_s * 1000)
         sr = self.fe_cfg.sample_rate
         audio_s = float(lens.sum()) / sr
-        rtf = self.rtf.record(proc_s, audio_s, label=f"b{len(wavs)}")
+        rtf = real_time_factor(proc_s, audio_s, label=f"b{len(wavs)}")
         results = []
-        for i in range(len(wavs)):
-            n = int(out["token_count"][i])
-            ids = out["tokens"][i, :n].tolist()
-            if n and logits_np is not None:
-                from scipy.special import log_softmax
-                logp = log_softmax(
-                    logits_np[i, :n].astype(np.float64), axis=-1)
-                if self.lm is not None:
-                    from .ngram_lm import lm_rescore
-                    ids = lm_rescore(ids, logp, self.lm,
-                                     self.tokenizer.tokens, self.lm_weight)
-                if hotwords:
-                    from .hotword_bias import apply_hotword_bias
-                    ids = apply_hotword_bias(ids, logp, hotwords,
-                                             self.tokenizer.token_to_id)
-            toks = self.tokenizer.ids_to_tokens(ids)
-            # refined timestamps: CIF center of mass of each token's window
-            ts = (out["token_center"][i, :n].astype(np.float64)
-                  * self.frame_ms).astype(int).tolist()
-            # FunASR-style [start_ms, end_ms] intervals per token
-            if self.has_bicif:
-                # BiCIF boundaries at 20 ms; FunASR caps a token at 30
-                # upsampled frames (600 ms)
-                starts = out["us_start"][i, :n] * self.us_ms
-                ends = (out["us_end"][i, :n] + 1) * self.us_ms
-                ends = np.minimum(ends, starts + 600.0)
-                spans = list(zip(starts.astype(int).tolist(),
-                                 ends.astype(int).tolist()))
-            else:
-                spans = list(zip(
-                    (out["token_start"][i, :n] * self.frame_ms).astype(int)
-                    .tolist(),
-                    ((out["fire_frame"][i, :n] + 1) * self.frame_ms)
-                    .astype(int).tolist()))
-            results.append(TranscribeResult(
-                text=self.tokenizer.ids_to_text(ids),
-                tokens=toks,
-                token_ids=ids,
-                timestamps_ms=ts,
-                timestamp=spans,
-                audio_s=float(lens[i]) / sr,
-                rtf=rtf,
-            ))
+        with profiling.annotate("recognizer.decode"):
+            for i in range(len(wavs)):
+                n = int(out["token_count"][i])
+                ids = out["tokens"][i, :n].tolist()
+                if n and logits_np is not None:
+                    from scipy.special import log_softmax
+                    logp = log_softmax(
+                        logits_np[i, :n].astype(np.float64), axis=-1)
+                    if self.lm is not None:
+                        from .ngram_lm import lm_rescore
+                        ids = lm_rescore(ids, logp, self.lm,
+                                         self.tokenizer.tokens, self.lm_weight)
+                    if hotwords:
+                        from .hotword_bias import apply_hotword_bias
+                        ids = apply_hotword_bias(ids, logp, hotwords,
+                                                 self.tokenizer.token_to_id)
+                toks = self.tokenizer.ids_to_tokens(ids)
+                # refined timestamps: CIF center of mass of each token's window
+                ts = (out["token_center"][i, :n].astype(np.float64)
+                      * self.frame_ms).astype(int).tolist()
+                # FunASR-style [start_ms, end_ms] intervals per token
+                if self.has_bicif:
+                    # BiCIF boundaries at 20 ms; FunASR caps a token at 30
+                    # upsampled frames (600 ms)
+                    starts = out["us_start"][i, :n] * self.us_ms
+                    ends = (out["us_end"][i, :n] + 1) * self.us_ms
+                    ends = np.minimum(ends, starts + 600.0)
+                    spans = list(zip(starts.astype(int).tolist(),
+                                     ends.astype(int).tolist()))
+                else:
+                    spans = list(zip(
+                        (out["token_start"][i, :n] * self.frame_ms).astype(int)
+                        .tolist(),
+                        ((out["fire_frame"][i, :n] + 1) * self.frame_ms)
+                        .astype(int).tolist()))
+                results.append(TranscribeResult(
+                    text=self.tokenizer.ids_to_text(ids),
+                    tokens=toks,
+                    token_ids=ids,
+                    timestamps_ms=ts,
+                    timestamp=spans,
+                    audio_s=float(lens[i]) / sr,
+                    rtf=rtf,
+                ))
         return results
 
     def warmup_rescoring(self, batch: int, n_samples: int,

@@ -66,6 +66,7 @@ from ..models import paraformer_online as po
 from ..models.convert import tree_to
 from ..models.paraformer_streaming import StreamingFrontend
 from ..ops import frontend as fe
+from ..runtime import profiling
 from ..runtime.autotune import env_or_profile
 from ..runtime.graphs import Programs
 from ..runtime.mesh import Mesh, per_position
@@ -250,6 +251,12 @@ class BatchedChunkedASR:
     `finalize_slot` needs it. bucketed (default: fused and no mesh; an
     explicit value is ANDed with that): the packed pow-2 prefix steps;
     off, every step covers every row, slot = row.
+
+    Spans (`runtime/profiling.py`) per step: `ticker.stage` (the cover
+    batch built on the host), `ticker.dispatch` (the program call) and
+    `ticker.harvest` (the wait on the previous step's copies, and their
+    ids handed out). `rows_stepped` counts the rows the steps covered and
+    `rows_active` those of them that carried a chunk.
     """
 
     FBANK_QUANTA = 24   # fbank frames per unfused fbank call: one shape
@@ -323,6 +330,8 @@ class BatchedChunkedASR:
         self._frontends: Dict[int, StreamingFrontend] = {}
         self._queues: Dict[int, np.ndarray] = {}
         self.steps = 0            # device steps run (K1 in every layer)
+        self.rows_stepped = 0     # rows those steps covered
+        self.rows_active = 0      # of them, rows that carried a chunk
         self.fbanks = 0           # unfused fbank quantum calls (one K2 each)
         sig = ("chunked", capacity, fused, self.partials, self.bucketed,
                self._int16_transfer, self.cfg, self.ocfg,
@@ -519,6 +528,8 @@ class BatchedChunkedASR:
         the host (async on the card). Returns (outputs, counts, the copies'
         events)."""
         b = batch.shape[0]
+        self.rows_stepped += b
+        self.rows_active += int(np.count_nonzero(row_active))
         host_out, host_n = self._host[self._flip]
         self._flip ^= 1
         if self._int16_transfer:
@@ -553,14 +564,15 @@ class BatchedChunkedASR:
             return
         pos, (out, n, events) = self._inflight
         self._inflight = None
-        for done in events:
-            done.synchronize()
-        for s, r in pos.items():
-            k = int(n[r])
-            if k > 0:
-                got = out[r, :k]
-                self._carry.setdefault(s, []).extend(
-                    got.tolist() if self.partials else list(got.copy()))
+        with profiling.annotate("ticker.harvest"):
+            for done in events:
+                done.synchronize()
+            for s, r in pos.items():
+                k = int(n[r])
+                if k > 0:
+                    got = out[r, :k]
+                    self._carry.setdefault(s, []).extend(
+                        got.tolist() if self.partials else list(got.copy()))
 
     # ------------------------------------------------------------ finalize
     @torch.inference_mode()
@@ -667,26 +679,35 @@ class BatchedChunkedASR:
                       fired: Dict[int, list]) -> Dict[int, list]:
         """The unfused tick (ref `tick`'s second half): the batched fbank of
         this tick's slots, then a full-capacity step while any queue holds
-        c1 frames."""
-        self._batched_fbank(list(chunks))
+        c1 frames. Its spans: `ticker.stage` (the fbank calls with the host
+        LFR drain, and each step's batch), `ticker.dispatch` (the step and
+        its fetch, which waits for the card) and `ticker.harvest` (the
+        fired embeddings handed to their slots)."""
+        with profiling.annotate("ticker.stage"):
+            self._batched_fbank(list(chunks))
         c1, d_in = self.ocfg.c1, self.cfg.input_dim
         while True:
             slots = [s for s, q in self._queues.items() if len(q) >= c1]
             if not slots:
                 return fired
-            batch = np.zeros((self.capacity, c1, d_in), np.float32)
-            row_active = np.zeros((self.capacity,), np.float32)
-            for s in slots:                  # slot = row
-                batch[s] = self._queues[s][:c1]
-                self._queues[s] = self._queues[s][c1:]
-                row_active[s] = 1.0
-            embeds, n = self._unfused_fn()(
-                batch, row_active,
-                read=lambda r: (r[0].cpu().numpy(), r[1].cpu().numpy()))
+            with profiling.annotate("ticker.stage"):
+                batch = np.zeros((self.capacity, c1, d_in), np.float32)
+                row_active = np.zeros((self.capacity,), np.float32)
+                for s in slots:                  # slot = row
+                    batch[s] = self._queues[s][:c1]
+                    self._queues[s] = self._queues[s][c1:]
+                    row_active[s] = 1.0
+            with profiling.annotate("ticker.dispatch"):
+                embeds, n = self._unfused_fn()(
+                    batch, row_active,
+                    read=lambda r: (r[0].cpu().numpy(), r[1].cpu().numpy()))
             self.steps += 1
-            for s in slots:
-                if n[s] > 0:
-                    fired.setdefault(s, []).extend(embeds[s, :n[s]])
+            self.rows_stepped += self.capacity
+            self.rows_active += len(slots)
+            with profiling.annotate("ticker.harvest"):
+                for s in slots:
+                    if n[s] > 0:
+                        fired.setdefault(s, []).extend(embeds[s, :n[s]])
 
     # ------------------------------------------------------------ tick
     def tick(self, chunks: Dict[int, np.ndarray]) -> Dict[int, list]:
@@ -706,19 +727,21 @@ class BatchedChunkedASR:
             slots = [s for s, a in self._audio.items() if len(a) >= a_len]
             if not slots:
                 break
-            # the pow-2 cover of the highest ready row (≤ n_live); rows in
-            # the prefix without a chunk ride along masked
-            bucket = self._rows.cover(slots)
-            batch = np.zeros((bucket, a_len), np.float32)
-            row_active = np.zeros((bucket,), np.float32)
-            pos = {}
-            for s in slots:
-                r = self.row_of(s)
-                batch[r] = self._audio[s][:a_len]
-                self._audio[s] = self._audio[s][a_len:]
-                row_active[r] = 1.0
-                pos[s] = r
-            res = self._dispatch(batch, row_active)
+            with profiling.annotate("ticker.stage"):
+                # the pow-2 cover of the highest ready row (≤ n_live); rows
+                # in the prefix without a chunk ride along masked
+                bucket = self._rows.cover(slots)
+                batch = np.zeros((bucket, a_len), np.float32)
+                row_active = np.zeros((bucket,), np.float32)
+                pos = {}
+                for s in slots:
+                    r = self.row_of(s)
+                    batch[r] = self._audio[s][:a_len]
+                    self._audio[s] = self._audio[s][a_len:]
+                    row_active[r] = 1.0
+                    pos[s] = r
+            with profiling.annotate("ticker.dispatch"):
+                res = self._dispatch(batch, row_active)
             self._harvest()                 # the previous dispatch's outputs
             self._inflight = (pos, res)
             if not self.pipelined:

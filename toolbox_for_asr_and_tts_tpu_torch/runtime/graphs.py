@@ -43,6 +43,11 @@ and its events are that card's whichever card the caller had current:
   kernels' `launches` counters, so a replay counts what the eager call
   would have counted.
 
+Spans (`runtime/profiling.py`): `program.lock_wait` (the owner's lock),
+`program.stage` (`_fill`: the wait on the last staging copies and the
+pinned staging), `program.replay` (the launch; on the CPU the eager run)
+and `program.fetch` (`to_host`'s wait for the card).
+
 A capture that fails raises; nothing falls back to an eager run on the
 card, and there is no switch that turns graphs off there. The owner's
 next capture takes a fresh graph pool (`end_capture`: torch takes no
@@ -63,6 +68,7 @@ import torch
 
 from ..models.convert import tree_map
 from ..ops.kernels import _build, frame_window, fsmn_conv, fsmn_conv_dw
+from . import profiling
 from .compile_lock import COMPILE_LOCK
 
 WARMUP_RUNS = 1     # eager runs on the capture stream before each capture
@@ -199,26 +205,27 @@ class Program:
         if len(args) != len(self._static_in):
             raise ValueError(f"program {self.key!r} takes "
                              f"{len(self._static_in)} inputs, got {len(args)}")
-        if self._staged is not None:
-            # the last copies from the staging buffers have finished
-            self._staged.synchronize()
-        for i, (dst, a) in enumerate(zip(self._static_in, args)):
-            shape = tuple(a.shape)
-            if shape != tuple(dst.shape):
-                raise ValueError(f"program {self.key!r} input {i}: shape "
-                                 f"{shape}, captured {tuple(dst.shape)}")
-            if isinstance(a, torch.Tensor):
-                dst.copy_(a, non_blocking=True)
-                continue
-            stage = self._staging[i]
-            if stage is None:
-                stage = torch.empty(dst.shape, dtype=dst.dtype,
-                                    pin_memory=True)
-                self._staging[i] = stage
-            stage.numpy()[...] = a
-            dst.copy_(stage, non_blocking=True)
-        self._staged = torch.cuda.Event()
-        self._staged.record()
+        with profiling.annotate("program.stage"):
+            if self._staged is not None:
+                # the last copies from the staging buffers have finished
+                self._staged.synchronize()
+            for i, (dst, a) in enumerate(zip(self._static_in, args)):
+                shape = tuple(a.shape)
+                if shape != tuple(dst.shape):
+                    raise ValueError(f"program {self.key!r} input {i}: shape "
+                                     f"{shape}, captured {tuple(dst.shape)}")
+                if isinstance(a, torch.Tensor):
+                    dst.copy_(a, non_blocking=True)
+                    continue
+                stage = self._staging[i]
+                if stage is None:
+                    stage = torch.empty(dst.shape, dtype=dst.dtype,
+                                        pin_memory=True)
+                    self._staging[i] = stage
+                stage.numpy()[...] = a
+                dst.copy_(stage, non_blocking=True)
+            self._staged = torch.cuda.Event()
+            self._staged.record()
 
     def _eager_inputs(self, args: Sequence[Any]) -> List[torch.Tensor]:
         """The CPU's inputs: checked and cast as a capture's static inputs
@@ -238,16 +245,20 @@ class Program:
 
     def __call__(self, *args: Any, read: Optional[Callable] = None) -> Any:
         owner = self.owner
-        with owner.lock:
+        with profiling.annotate("program.lock_wait"):
+            owner.lock.acquire()
+        try:
             if self.graph is None:
-                with torch.inference_mode():
+                with torch.inference_mode(), \
+                        profiling.annotate("program.replay"):
                     out = self.fn(*self._eager_inputs(args))
                 if read is None:
                     read = _identity
             else:
                 with torch.inference_mode(), torch.cuda.device(owner.device):
                     self._fill(args)
-                    self.graph.replay()
+                    with profiling.annotate("program.replay"):
+                        self.graph.replay()
                 for name, n in self.tally.items():
                     _COUNTERS[name](n)
                 out = self._static_out
@@ -260,6 +271,8 @@ class Program:
                     return read(out)
                 with torch.cuda.device(owner.device):
                     return read(out)
+        finally:
+            owner.lock.release()
 
 
 def to_host(t: torch.Tensor):
@@ -275,7 +288,8 @@ def to_host(t: torch.Tensor):
     done.record()
 
     def wait() -> np.ndarray:
-        done.synchronize()
+        with profiling.annotate("program.fetch"):
+            done.synchronize()
         return host.numpy()
     return wait
 

@@ -13,7 +13,7 @@ import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -90,28 +90,37 @@ class Tally:
             self.n += k
 
 
+def real_time_factor(proc_s: float, audio_s: float, label: str = "") -> float:
+    """processing_seconds / audio_seconds (lower is better); warns where a
+    call ran slower than real time."""
+    rtf = proc_s / max(audio_s, 1e-9)
+    if rtf > 1.0:
+        logger.warning("RTF %.2f > 1.0 for %s — slower than real time",
+                       rtf, label)
+    return rtf
+
+
 @dataclass
 class RTFMeter:
-    """Real-time factor: processing_seconds / audio_seconds (lower is better)."""
+    """Real-time factor over many calls: running sums of processing and
+    audio seconds, no per-call list."""
 
-    items: List[Dict[str, float]] = field(default_factory=list)
+    calls: int = 0
+    proc_s: float = 0.0
+    audio_s: float = 0.0
 
     def record(self, proc_s: float, audio_s: float, label: str = "") -> float:
-        rtf = proc_s / max(audio_s, 1e-9)
-        self.items.append(
-            {"label": label, "proc_s": proc_s, "audio_s": audio_s, "rtf": rtf}
-        )
-        if rtf > 1.0:
-            logger.warning("RTF %.2f > 1.0 for %s — slower than real time", rtf, label)
-        return rtf
+        self.calls += 1
+        self.proc_s += proc_s
+        self.audio_s += audio_s
+        return real_time_factor(proc_s, audio_s, label)
 
     @property
     def overall(self) -> Optional[float]:
-        if not self.items:
+        if not self.calls:
             return None
-        proc = sum(i["proc_s"] for i in self.items)
-        audio = sum(i["audio_s"] for i in self.items)
-        return proc / max(audio, 1e-9)
+        return self.proc_s / max(self.audio_s, 1e-9)
 
     def detailed(self) -> Dict[str, Any]:
-        return {"overall_rtf": self.overall, "items": list(self.items)}
+        return {"overall_rtf": self.overall, "calls": self.calls,
+                "proc_s": self.proc_s, "audio_s": self.audio_s}

@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from ..models.convert import tree_map
+from . import profiling
 from .compile_lock import COMPILE_LOCK
 from .graphs import _COUNTERS, Program, Programs, capture_graph
 
@@ -126,15 +127,21 @@ class TrainProgram(Program):
 
     def _replay(self, args: Sequence[Any]) -> Dict[str, Any]:
         owner = self.owner
-        with owner.lock, torch.cuda.device(owner.device):
-            with torch.no_grad():
-                self._fill(args)
-                self.graph.replay()
-                out = {k: v.clone() for k, v in self._static_out.items()}
-            for name, n in self.tally.items():
-                _COUNTERS[name](n)
-            self.replays += 1
-            owner.replays += 1
+        with profiling.annotate("program.lock_wait"):
+            owner.lock.acquire()
+        try:
+            with torch.cuda.device(owner.device):
+                with torch.no_grad():
+                    self._fill(args)
+                    with profiling.annotate("program.replay"):
+                        self.graph.replay()
+                    out = {k: v.clone() for k, v in self._static_out.items()}
+                for name, n in self.tally.items():
+                    _COUNTERS[name](n)
+                self.replays += 1
+                owner.replays += 1
+        finally:
+            owner.lock.release()
         return out
 
     def __call__(self, *args: Any) -> Dict[str, Any]:

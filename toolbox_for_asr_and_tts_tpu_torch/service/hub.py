@@ -41,7 +41,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from ..device import DeviceLike
-from ..runtime import prom
+from ..runtime import profiling, prom
 
 logger = logging.getLogger("toolbox.hub")
 
@@ -100,7 +100,8 @@ class _TickLoop:
             if not self._work.wait(timeout=0.25):
                 continue
             self._work.clear()
-            time.sleep(self.tick_ms / 1000.0)   # batch-gather window
+            with profiling.annotate("hub.gather"):
+                time.sleep(self.tick_ms / 1000.0)   # batch-gather window
             with self._lock:
                 batch = self._pending
                 self._pending = {}
@@ -220,7 +221,14 @@ class ChunkedHub(_TickLoop):
     chunk joins one `BatchedChunkedASR.tick` (fused step with partials) per
     serving tick. Decoded ids accumulate per slot; `submit` returns the
     session's partial text so far. Rows shard over an optional mesh's
-    "data" axis (`BatchedChunkedASR(mesh=...)`)."""
+    "data" axis (`BatchedChunkedASR(mesh=...)`).
+
+    Spans (`runtime/profiling.py`): `hub.queue` per submission, from the
+    submit until the tick that carries it holds the ticker lock (its
+    `cause` is that `hub.tick`); `hub.gather`, the tick thread's gather
+    sleep; `hub.tick`, the interval the tick histogram observes, over
+    `hub.lock_wait`; `hub.finalize`, over `hub.finalize.lock_wait` and
+    `hub.finalize.hold` (the drain under the ticker lock)."""
 
     def __init__(self, params, cfg, ocfg, tokenizer, cmvn=None,
                  capacity: int = 16, tick_ms: float = 10.0,
@@ -272,7 +280,8 @@ class ChunkedHub(_TickLoop):
             if not keep_ids:
                 self._ids.pop(slot, None)
         if dropped is not None:
-            for ev, _ in dropped[1]:
+            for ev, holder in dropped[1]:
+                profiling.end(holder["queue"])
                 ev.set()
 
     def leave(self, slot: int) -> None:
@@ -291,9 +300,10 @@ class ChunkedHub(_TickLoop):
     def submit(self, slot: int, chunk: np.ndarray,
                timeout: Optional[float] = None) -> str:
         """Queue this session's chunk for the next tick, block until the
-        tick that includes it resolves, return the partial text so far."""
+        tick that includes it resolves, return the partial text so far.
+        Its `hub.queue` span ends when that tick holds the ticker lock."""
         del timeout
-        ev, holder = threading.Event(), {}
+        ev, holder = threading.Event(), {"queue": profiling.begin("hub.queue")}
         chunk = np.asarray(chunk, np.float32)
         with self._lock:
             gen = self._gen.get(slot, 0)
@@ -315,40 +325,56 @@ class ChunkedHub(_TickLoop):
     def finalize(self, slot: int) -> str:
         """Drain the slot (remainder + lookahead + CIF tail fire), return
         the utterance's final text and reset the slot."""
-        self._release(slot, keep_ids=True)
-        with self._ticker_lock:
-            fired = self.ticker.finalize_slot(slot)
-        with self._lock:
-            # the drain may have advanced other rows' queued audio too
-            for s, ids in fired.items():
-                if ids and s in self._ids:
-                    self._ids[s].extend(int(i) for i in ids)
-            text = self.tokenizer.ids_to_text(self._ids.get(slot, []))
-            self._ids[slot] = []
-        with self._ticker_lock:
-            self.ticker.reset_slot(slot)
-        return text
-
-    def _tick(self, batch) -> None:
-        t_tick = time.perf_counter()
-        exc = None
-        try:
-            with self._ticker_lock:
-                with self._lock:
-                    live = {s: v for s, v in batch.items()
-                            if self._gen.get(s, 0) == v[2]}
-                fired = self.ticker.tick(
-                    {s: c for s, (c, _, _) in live.items()})
+        with profiling.annotate("hub.finalize"):
+            self._release(slot, keep_ids=True)
+            with profiling.annotate("hub.finalize.lock_wait"):
+                self._ticker_lock.acquire()
+            try:
+                with profiling.annotate("hub.finalize.hold"):
+                    fired = self.ticker.finalize_slot(slot)
+            finally:
+                self._ticker_lock.release()
             with self._lock:
+                # the drain may have advanced other rows' queued audio too
                 for s, ids in fired.items():
                     if ids and s in self._ids:
                         self._ids[s].extend(int(i) for i in ids)
-        except Exception as e:
-            logger.exception("chunked hub tick failed")
-            exc = e
-        self.ticks += 1
-        self.submissions += len(batch)
-        _observe("chunked", len(batch), time.perf_counter() - t_tick)
+                text = self.tokenizer.ids_to_text(self._ids.get(slot, []))
+                self._ids[slot] = []
+            with self._ticker_lock:
+                self.ticker.reset_slot(slot)
+            return text
+
+    def _tick(self, batch) -> None:
+        # `hub.tick` spans the interval the tick histogram observes
+        with profiling.annotate("hub.tick") as tick:
+            t_tick = time.perf_counter()
+            exc = None
+            try:
+                with profiling.annotate("hub.lock_wait"):
+                    self._ticker_lock.acquire()
+                try:
+                    if tick is not None:
+                        for _, waiters, _ in batch.values():
+                            for _, holder in waiters:
+                                profiling.end(holder["queue"], cause=tick)
+                    with self._lock:
+                        live = {s: v for s, v in batch.items()
+                                if self._gen.get(s, 0) == v[2]}
+                    fired = self.ticker.tick(
+                        {s: c for s, (c, _, _) in live.items()})
+                finally:
+                    self._ticker_lock.release()
+                with self._lock:
+                    for s, ids in fired.items():
+                        if ids and s in self._ids:
+                            self._ids[s].extend(int(i) for i in ids)
+            except Exception as e:
+                logger.exception("chunked hub tick failed")
+                exc = e
+            self.ticks += 1
+            self.submissions += len(batch)
+            _observe("chunked", len(batch), time.perf_counter() - t_tick)
         for _, waiters, _ in batch.values():
             for ev, holder in waiters:
                 if exc is not None:

@@ -61,7 +61,7 @@ from ..runtime.bucketing import Bucketer
 from ..runtime.config import TTSConfig
 from ..runtime.graphs import Program, Programs, to_host
 from ..runtime.mesh import per_position, serving_mesh
-from ..runtime.metrics import RTFMeter, Tally, timing_log
+from ..runtime.metrics import Tally, real_time_factor, timing_log
 from .concat import StreamingConcat, concat_segments
 from .text_frontend import (G2P, LingVocab, pause_after, split_text_for_tts,
                             text_to_ling_ids)
@@ -237,7 +237,6 @@ class Synthesizer:
         self.two_phase = os.getenv("TTS_TWO_PHASE", "1") in ("1", "true")
         self.mel_group = env_or_profile("TTS_MEL_GROUP", "tts_mel_group")
         self.bucketer = Bucketer(PHONE_BUCKETS)
-        self.rtf = RTFMeter()
         self.sample_rate = self.cfg.sampling_rate
         # telemetry: the device programs run (duration probes, synth
         # groups), the PNCA decoder's steps and the mel frames (padding
@@ -507,7 +506,7 @@ class Synthesizer:
                               self.cfg.crossfade_ms)
         proc_s = time.perf_counter() - t0
         audio_s = len(wav) / self.sample_rate
-        rtf = self.rtf.record(proc_s, max(audio_s, 1e-6), label="tts_job")
+        rtf = real_time_factor(proc_s, max(audio_s, 1e-6), label="tts_job")
         return SynthesisResult(wav, self.sample_rate, segments,
                                seg_times, seg_durs, rtf)
 
@@ -576,7 +575,7 @@ class Synthesizer:
         emitted += len(tail)
         proc_s = time.perf_counter() - t0
         audio_s = emitted / self.sample_rate
-        rtf = self.rtf.record(proc_s, max(audio_s, 1e-6), label="tts_job")
+        rtf = real_time_factor(proc_s, max(audio_s, 1e-6), label="tts_job")
         yield {"event": "done", "audio": tail, "rtf": rtf,
                "duration_s": audio_s, "segments": segments,
                "seg_times_ms": seg_times, "seg_durations_s": seg_durs}
