@@ -1431,6 +1431,57 @@ def test_unbucketed_ticker_on_card_equals_bucketed(cuda, no_tf32):
     assert sum(len(v) for v in got[False].values()) > 0
 
 
+def test_finalize_drain_on_card_matches_cpu(cuda, no_tf32, monkeypatch):
+    """The finalize drain on the card, pipelined: the ids of ticks and
+    finalizes equal the CPU's; K1 50 and K2 1 per step, the drains' steps
+    included; the drain's program lives with the tail, so the ticker's own
+    programs are the ticks'; its replays run on a stream that no tick
+    replay ran on."""
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import graphs
+    streams = {}
+    call = graphs.Program.__call__
+
+    def spy(self, *args, **kw):
+        if self.owner.on_card:
+            streams.setdefault(self.key[0], set()).add(
+                torch.cuda.current_stream(self.owner.device).cuda_stream)
+        return call(self, *args, **kw)
+    monkeypatch.setattr(graphs.Program, "__call__", spy)
+    rng = np.random.default_rng(31)
+    audio = [(0.1 * rng.standard_normal(n)).astype(np.float32)
+             for n in (12800, 16000, 19200)]
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        asr = _chunked_on(dev, partials=True, pipelined=True)
+        asr.warm()
+        slots = [asr.join() for _ in audio]
+        back = {s: i for i, s in enumerate(slots)}
+        ids = {i: [] for i in range(3)}
+        k1_0, k2_0, steps_0 = k1.launches, k2.launches, asr.steps
+        for s in range(0, 19200, 6400):
+            for sl, v in asr.tick({sl: a[s:s + 6400] for sl, a in
+                                   zip(slots, audio) if s < len(a)}).items():
+                ids[back[sl]].extend(v)
+        drained = []
+        for sl in slots:
+            before = asr.drain_steps
+            for sl2, v in asr.finalize_slot(sl).items():
+                ids[back[sl2]].extend(v)
+            drained.append(asr.drain_steps - before)
+        assert asr.drains == 3 and all(n in (2, 3) for n in drained)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            n = asr.steps - steps_0
+            assert (k1.launches - k1_0, k2.launches - k2_0) == (50 * n, n)
+            assert {k[0] for k in asr.programs} == {"tick"}
+            assert ("drain", 1) in asr.shared
+        got[dev.type] = ids, drained
+    assert got["cuda"] == got["cpu"]
+    assert sum(len(v) for v in got["cpu"][0].values()) > 0
+    assert streams["drain"] and streams["tick"]
+    assert not streams["drain"] & streams["tick"]
+
+
 @pytest.mark.parametrize("mode", ["nar", "pnca"])
 def test_single_phase_synthesis_on_card_matches_cpu(cuda, no_tf32, mode,
                                                     monkeypatch):

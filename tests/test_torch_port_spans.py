@@ -226,9 +226,9 @@ def _counted_cover(ticker, covers):
 def test_chunked_hub_spans_and_cover_counters(params):
     """Three sessions through a tiny CPU ChunkedHub: one `hub.queue` per
     submission, each caused by a `hub.tick`; each `hub.lock_wait` inside
-    its tick; the finalize spans nested; Σ `hub.tick` over the tick
-    histogram's sum for the same ticks; the counters as the covers the
-    ticker chose."""
+    its tick; the finalize spans nested (its drain too); Σ `hub.tick` over
+    the tick histogram's sum for the same ticks; the counters as the
+    covers the ticker chose."""
     h = hub.ChunkedHub(params, TINY, po.OnlineConfig(),
                        CharTokenizer.dummy(64), capacity=4, device="cpu")
     covers = []
@@ -276,7 +276,8 @@ def test_chunked_hub_spans_and_cover_counters(params):
     hist_s = hist1[0] - hist0[0]
     assert hist_s <= span_s <= 1.02 * hist_s + 2e-3
     (fin,) = [r for r in records if r["name"] == "hub.finalize"]
-    for name in ("hub.finalize.lock_wait", "hub.finalize.hold"):
+    for name in ("hub.finalize.lock_wait", "hub.finalize.hold",
+                 "hub.finalize.drain"):
         (child,) = [r for r in records if r["name"] == name]
         assert child["parent"] == fin["id"]
     names = {r["name"] for r in records}

@@ -19,8 +19,17 @@ reference does, behind the same kind of signature (plus a CMVN and a
 weights fingerprint). A reference executable takes the state as an
 argument, so every lane reuses every program; a graph binds its own lane's
 state buffers, so here each lane keeps its own tick programs and shares
-only the programs that read no state of their own: the chunked finalize's
-"tail" decode (the row's decoder state is copied in) and the VAD fbank.
+only the programs that read no lane's state: the chunked finalize's drain
+step and "tail" decode (over a one-row state of their own, the row copied
+in) and the VAD fbank.
+
+The chunked finalize drains its row in two halves. `take_slot`, under the
+caller's ticker lock, harvests the in-flight step, copies the slot's state
+row and audio remainder out and resets the slot; `drain`, outside that
+lock, steps the copy alone (the b = 1 "drain" program, 2-3 replays) and
+fires the CIF tail, on a stream of its own on the card, serialized with
+other drains by the drain lock. Ticks go on meanwhile: the row has no
+audio and is masked, and a `leave` that moves it cannot touch the copy.
 
 PARAFORMER_TRANSFER_INT16 (else the dispatch profile's
 `asr_int16_transfer`), read at construction as the reference reads it:
@@ -53,7 +62,7 @@ from __future__ import annotations
 import hashlib
 import logging
 import threading
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,7 +77,7 @@ from ..models.paraformer_streaming import StreamingFrontend
 from ..ops import frontend as fe
 from ..runtime import profiling
 from ..runtime.autotune import env_or_profile
-from ..runtime.graphs import Programs
+from ..runtime.graphs import Programs, to_host
 from ..runtime.mesh import Mesh, per_position
 
 logger = logging.getLogger("toolbox.stream_batcher")
@@ -110,19 +119,42 @@ def _weights_id(params) -> str:
     return hashlib.sha1(np.asarray(ptrs, np.int64).tobytes()).hexdigest()
 
 
-def _share(exec_cache: Optional[dict], sig: tuple, device,
-           name: str) -> Programs:
+def _share(exec_cache: Optional[dict], sig: tuple, device, name: str,
+           own_stream: bool = False) -> Programs:
     """The programs shared through `exec_cache` (a fresh owner without
     one); a cache already holding another signature raises."""
     if exec_cache is None:
-        return Programs(device, name)
+        return Programs(device, name, own_stream)
     if exec_cache.setdefault("signature", sig) != sig:
         raise ValueError(
             "exec_cache shared across differently-configured tickers: "
             f"{exec_cache['signature']} vs {sig}")
     if "shared" not in exec_cache:
-        exec_cache["shared"] = Programs(device, name)
+        exec_cache["shared"] = Programs(device, name, own_stream)
     return exec_cache["shared"]
+
+
+class _Drain:
+    """The finalize drain's one-row state (a row is copied in per drain),
+    the lock that serializes drains over it and, on the card, the stream
+    they run on: shared, as the drain's program, by the tickers of one
+    `exec_cache`."""
+
+    def __init__(self, cfg, ocfg, partials: bool, device: torch.device):
+        with torch.inference_mode():
+            self.state = po.init_fused_state(cfg, ocfg, 1, partials, device)
+        self.lock = threading.Lock()
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+
+
+class _Taken(NamedTuple):
+    """A slot taken for its drain (`BatchedChunkedASR.take_slot`)."""
+    slot: int
+    fired: Dict[int, list]           # every row's carried results
+    state: Dict[str, torch.Tensor]   # the slot's state row, copied
+    audio: np.ndarray                # its audio remainder
+    ready: Optional["torch.cuda.Event"]   # recorded after the copy
 
 
 class AtCapacity(RuntimeError):
@@ -231,20 +263,23 @@ class BatchedChunkedASR:
     default, parsed from CHUNKED_PIPELINE by the hub): a step's fired
     outputs go by an async copy into one of two pinned host buffers, and
     the host reads them at the next dispatch (or at `leave`, `reset_slot`,
-    `finalize_slot`), so the copy and the host work overlap the next step.
-    Results lag one step; the finalize drain runs unpipelined and returns
-    everything.
+    `take_slot`), so the copy and the host work overlap the next step.
+    Results lag one step; the finalize drain returns everything.
+
+    Finalize (`finalize_slot` = `take_slot`, then `drain`; see the module's
+    docstring): the drain steps a one-row copy of the slot's state with the
+    b = 1 "drain" program, so no drain steps the tick's pow-2 cover, and
+    the slot is reset at the take.
 
     exec_cache: a dict shared by identically configured tickers (the lanes
     of one `LanedHub`). The signature holds capacity, partials, the int16
     upload, both configs, a CMVN fingerprint, the devices and the weights'
     buffers; a mismatch raises ValueError. Each lane's tick programs bind
-    its own state rows and are its own; the finalize "tail" decode, which
-    copies its row's decoder state in, is shared.
+    its own state rows and are its own; the finalize drain's step, its
+    one-row state and lock, and the "tail" decode are shared.
 
     mesh: rows shard over its "data" axis (see the module's docstring);
-    the finalize tail runs on the first position, its row's decoder state
-    copied in.
+    the finalize drain runs on the first position, its row copied there.
 
     fused=False: the host-frontend ticker (see the module's docstring);
     `partials` and `pipelined` take effect only with `fused`, and
@@ -255,8 +290,10 @@ class BatchedChunkedASR:
     Spans (`runtime/profiling.py`) per step: `ticker.stage` (the cover
     batch built on the host), `ticker.dispatch` (the program call) and
     `ticker.harvest` (the wait on the previous step's copies, and their
-    ids handed out). `rows_stepped` counts the rows the steps covered and
-    `rows_active` those of them that carried a chunk.
+    ids handed out). Counters: `steps`, every device step (drains'
+    included); `rows_stepped`, the rows the ticks' steps covered, and
+    `rows_active`, those of them that carried a chunk; `drains`, the
+    finalizes drained, and `drain_steps`, their steps.
     """
 
     FBANK_QUANTA = 24   # fbank frames per unfused fbank call: one shape
@@ -330,14 +367,28 @@ class BatchedChunkedASR:
         self._frontends: Dict[int, StreamingFrontend] = {}
         self._queues: Dict[int, np.ndarray] = {}
         self.steps = 0            # device steps run (K1 in every layer)
-        self.rows_stepped = 0     # rows those steps covered
+        self.rows_stepped = 0     # rows the ticks' steps covered
         self.rows_active = 0      # of them, rows that carried a chunk
         self.fbanks = 0           # unfused fbank quantum calls (one K2 each)
+        self.drains = 0           # finalizes drained on the one-row path
+        self.drain_steps = 0      # their steps (also in `steps`)
+        self._counts = threading.Lock()   # ticks and drains count apart
         sig = ("chunked", capacity, fused, self.partials, self.bucketed,
                self._int16_transfer, self.cfg, self.ocfg,
                _fingerprint(self.cmvn), tuple(str(d) for d in positions),
                _weights_id(self.params))
-        self.shared = _share(exec_cache, sig, self.device, "chunked-shared")
+        # the drain's graphs run beside the ticks' on a stream of their
+        # own: their owner captures on its own side stream too
+        self.shared = _share(exec_cache, sig, self.device, "chunked-shared",
+                             own_stream=True)
+        self._drain = None
+        if fused:
+            self._drain = (exec_cache or {}).get("drain")
+            if self._drain is None:
+                self._drain = _Drain(self.cfg, self.ocfg, self.partials,
+                                     self.device)
+                if exec_cache is not None:
+                    exec_cache["drain"] = self._drain
         # the fused step's fired outputs, copied out per dispatch into one
         # of two host buffers (pinned on the card)
         k_cap = self.ocfg.tokens_per_chunk
@@ -451,10 +502,10 @@ class BatchedChunkedASR:
 
     def warm(self) -> None:
         """Build the step program of every pow-2 prefix up to capacity (not
-        bucketed: each position's full step), and the finalize tail, so no
-        tick waits on a build (on the card: a capture, which runs
-        all-masked steps and leaves the state as it was). The unfused
-        ticker builds nothing here, as the reference's."""
+        bucketed: each position's full step), and the finalize drain's step
+        and tail, so no tick or drain waits on a build (on the card: a
+        capture, which runs all-masked steps and leaves the state as it
+        was). The unfused ticker builds nothing here, as the reference's."""
         if not self.fused:
             return
         if not self.bucketed:
@@ -468,40 +519,51 @@ class BatchedChunkedASR:
                 if b == self.capacity:
                     break
                 b *= 2
+        self._drain_fn()
         if self.partials:
             self._tail_fn()
 
     # ------------------------------------------------------------ step
+    def _step(self, shard: _Shard, sub: Dict[str, torch.Tensor]):
+        """The fused step over the state rows `sub` with `shard`'s weights,
+        as a program's (function, inputs): audio [b, chunk] and row
+        activity [b] → (fired ids [b, k_cap] int32 or embeddings
+        [b, k_cap, d] f32, fired counts [b] int32), `sub` merged in place
+        for the active rows."""
+        int16_in = self._int16_transfer
+        b = sub["cif_mass"].shape[0]
+
+        def run(audio, active):
+            if int16_in:
+                audio = from_int16_pcm(audio)
+            res = po.fused_step(shard.params, sub, audio, self.cfg,
+                                self.ocfg, cmvn=shard.cmvn,
+                                k_cap=self.ocfg.tokens_per_chunk,
+                                decode_partials=self.partials)
+            keep = active.bool()
+            for key, new in res[0].items():
+                _masked_merge(sub[key], new, keep, po.batch_dim(key))
+            n = res[2].int() * active.int()
+            out = res[3].int() if self.partials else res[1].float()
+            return out, n
+        return run, [((b, self.chunk_samples),
+                      torch.int16 if int16_in else torch.float32),
+                     ((b,), torch.float32)]
+
     def _tick_fn(self, b: int, pos: int = 0):
         """The step program of the prefix of b rows of mesh position `pos`
-        (ref `_prefix_exec`, `_full_exec`): audio [b, chunk] and row
-        activity [b] → (fired ids [b, k_cap] int32 or embeddings
-        [b, k_cap, d] f32, fired counts [b] int32), the state prefix merged
-        in place for the active rows."""
-        int16_in = self._int16_transfer
+        (ref `_prefix_exec`, `_full_exec`; see `_step`)."""
         shard = self._shards[pos]
+        return shard.programs.get(("tick", b), lambda: self._step(
+            shard, {k: a.narrow(po.batch_dim(k), 0, b)
+                    for k, a in shard.state.items()}))
 
-        def build():
-            sub = {k: a.narrow(po.batch_dim(k), 0, b)
-                   for k, a in shard.state.items()}
-
-            def run(audio, active):
-                if int16_in:
-                    audio = from_int16_pcm(audio)
-                res = po.fused_step(shard.params, sub, audio, self.cfg,
-                                    self.ocfg, cmvn=shard.cmvn,
-                                    k_cap=self.ocfg.tokens_per_chunk,
-                                    decode_partials=self.partials)
-                keep = active.bool()
-                for key, new in res[0].items():
-                    _masked_merge(sub[key], new, keep, po.batch_dim(key))
-                n = res[2].int() * active.int()
-                out = res[3].int() if self.partials else res[1].float()
-                return out, n
-            return run, [((b, self.chunk_samples),
-                          torch.int16 if int16_in else torch.float32),
-                         ((b,), torch.float32)]
-        return shard.programs.get(("tick", b), build)
+    def _drain_fn(self):
+        """The finalize drain's step (see `_step`): one row, the first
+        position's weights, over the drain's one-row state; it reads no
+        lane's state, so it is shared through `exec_cache`."""
+        return self.shared.get(("drain", 1), lambda: self._step(
+            self._shards[0], self._drain.state))
 
     def _tail_fn(self):
         """The finalize tail (ref "tail"): one CIF embedding [1, 1, d] and
@@ -553,7 +615,8 @@ class BatchedChunkedASR:
                                            read=read)
             outs.append(out)
             ns.append(n)
-            self.steps += 1
+            with self._counts:
+                self.steps += 1
         if events:
             return host_out[:b].numpy(), host_n[:b].numpy(), events
         return np.concatenate(outs), np.concatenate(ns), events
@@ -575,42 +638,96 @@ class BatchedChunkedASR:
                         got.tolist() if self.partials else list(got.copy()))
 
     # ------------------------------------------------------------ finalize
-    @torch.inference_mode()
     def finalize_slot(self, slot: int) -> Dict[int, list]:
-        """Drain a slot for its final result (FunASR is_final semantics):
-        pad its audio remainder to whole chunks plus two silence chunks
-        (2·c1 ≥ c2, so every real frame passes the encoder lookahead into
-        the CIF active region), run the steps unpipelined, then apply the
-        host-side tail-threshold fire. Returns slot → new ids (or
-        embeddings when partials=False) for every row the drain advanced,
-        carried results of earlier steps first. The slot's state is not
-        reset here; callers follow with reset_slot or leave."""
+        """Drain a slot for its final result (FunASR is_final semantics)
+        and reset it: `take_slot`, then `drain`. Returns slot → new ids (or
+        embeddings when partials=False) for every row with carried results
+        of earlier steps, the slot's drained ids after its own."""
+        taken = self.take_slot(slot)
+        taken.fired[slot].extend(self.drain(taken))
+        return taken.fired
+
+    @torch.inference_mode()
+    def take_slot(self, slot: int) -> _Taken:
+        """The drain's first half, under the caller's ticker lock: harvest
+        the in-flight step (every row's carried results come out), copy the
+        slot's state row toward the drain's device (after the step that
+        last wrote it, in stream order) and hand its audio remainder over,
+        then reset the slot (row zeroed, remainder emptied)."""
         if not self.fused:
             raise ValueError("finalize_slot requires the fused ticker "
                              "(fused=True)")
-        a_len = self.chunk_samples
-        rem = len(self._audio.get(slot, ()))
-        pad = (-rem) % a_len + 2 * a_len
         self._harvest()
-        pipelined, self.pipelined = self.pipelined, False
-        try:
-            fired = self.tick({slot: np.zeros(pad, np.float32)})
-        finally:
-            self.pipelined = pipelined
+        fired: Dict[int, list] = {slot: []}
+        for s, v in self._carry.items():
+            fired[s] = v + fired.get(s, [])
+        self._carry.clear()
         state, row = self._at(self.row_of(slot))
-        mass = float(state["cif_mass"][row])
-        frac = mass - np.floor(mass)
-        if frac > 0 and frac + self.cfg.predictor_tail_threshold >= 1.0:
-            acc = state["cif_acc"][row]
-            if self.partials:
-                dstate = [state[k].narrow(po.batch_dim(k), row, 1)
-                          for k in po.DECODER_KEYS]
-                ids = self._tail_fn()(acc.float()[None, None, :], *dstate,
-                                      read=lambda t: t.cpu().numpy())
-                fired.setdefault(slot, []).append(int(ids[0, 0]))
-            else:
-                fired.setdefault(slot, []).append(acc.float().cpu().numpy())
-        return fired
+        copy = {k: a.narrow(po.batch_dim(k), row, 1).to(self.device,
+                                                         copy=True)
+                for k, a in state.items()}
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        audio = self._audio.get(slot, np.zeros(0, np.float32))
+        self._reset_slot(slot)
+        self._audio[slot] = np.zeros(0, np.float32)
+        return _Taken(slot, fired, copy, audio, ready)
+
+    @torch.inference_mode()
+    def drain(self, taken: _Taken) -> list:
+        """The drain's second half, outside the ticker lock: pad the
+        remainder to whole chunks plus two silence chunks (2·c1 ≥ c2, so
+        every real frame passes the encoder lookahead into the CIF active
+        region), step the row's copy alone (the "drain" program, under the
+        drain lock, on the drain's stream on the card), then apply the
+        host-side tail-threshold fire. Returns the slot's new ids (or
+        embeddings when partials=False)."""
+        a_len = self.chunk_samples
+        rem = len(taken.audio)
+        audio = np.concatenate([taken.audio, np.zeros(
+            (-rem) % a_len + 2 * a_len, np.float32)]).reshape(-1, 1, a_len)
+        if self._int16_transfer:
+            audio = to_int16_pcm(audio)
+        one = np.ones((1,), np.float32)
+        prog, drain = self._drain_fn(), self._drain
+        new: list = []
+        # the stream's card is current too; no stream on the CPU: a no-op
+        with drain.lock, torch.cuda.stream(drain.stream):
+            if taken.ready is not None:
+                drain.stream.wait_event(taken.ready)
+            for k, a in drain.state.items():
+                a.copy_(taken.state[k])
+            fetches = []
+            for chunk in audio:
+                fetches.append(prog(chunk, one, read=lambda r: (
+                    to_host(r[0]), to_host(r[1]))))
+                with self._counts:
+                    self.steps += 1
+                    self.drain_steps += 1
+            mass_at = to_host(drain.state["cif_mass"])
+            for out, n in fetches:
+                out, k = out(), int(n()[0])
+                if k > 0:
+                    got = out[0, :k]
+                    new.extend(got.tolist() if self.partials
+                               else list(got.copy()))
+            mass = float(mass_at()[0])
+            frac = mass - np.floor(mass)
+            if frac > 0 and frac + self.cfg.predictor_tail_threshold >= 1.0:
+                acc = drain.state["cif_acc"][0]
+                if self.partials:
+                    ids = self._tail_fn()(
+                        acc.float()[None, None, :],
+                        *[drain.state[k] for k in po.DECODER_KEYS],
+                        read=lambda t: t.cpu().numpy())
+                    new.append(int(ids[0, 0]))
+                else:   # a copy: the next drain overwrites the state
+                    new.append(acc.float().cpu().numpy().copy())
+        with self._counts:
+            self.drains += 1
+        return new
 
     # ------------------------------------------------------------ unfused
     def _fbank_quantum_fn(self, n: int):

@@ -24,7 +24,11 @@ and its events are that card's whichever card the caller had current:
   require), then captures it there with `capture_error_mode=
   "thread_local"`: other threads may go on launching and fetching on
   their own streams during a capture, which only the capturing thread's
-  calls can invalidate;
+  calls can invalidate. A graph binds the cuBLAS workspace of the handle
+  and stream it was captured on, so graphs captured on one side stream
+  must not run at once: an owner whose graphs are replayed beside other
+  owners' on another stream (the chunked finalize drain's) is made with
+  `own_stream=True` and captures on a side stream of its own;
 - every program of one owner allocates from one graph memory pool, and the
   owner's replays are serialized by one lock (`Programs.lock`), held from
   the copy into the static inputs through the copy out of the static
@@ -122,7 +126,7 @@ def capture_graph(owner: "Programs", warm_up: Callable[[], Any],
     stream's work."""
     dev = owner.device
     current = torch.cuda.current_stream(dev)
-    side = _capture_stream(dev)
+    side = owner.capture_stream()
     side.wait_stream(current)
     graph = torch.cuda.CUDAGraph()
     # no collection inside the capture window: a finalizer that touched
@@ -306,7 +310,7 @@ class Programs:
     """One owner's programs by bucket key, with one graph memory pool and
     one replay lock."""
 
-    def __init__(self, device, name: str):
+    def __init__(self, device, name: str, own_stream: bool = False):
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # "cuda": the card current now, fixed for the owner's life
@@ -319,6 +323,8 @@ class Programs:
         self.captures = 0
         self.capture_s = 0.0
         self.replays = 0
+        self.own_stream = own_stream
+        self._side: Optional["torch.cuda.Stream"] = None
         if self.on_card:
             from .autotune import get_profile
             get_profile()
@@ -327,6 +333,16 @@ class Programs:
     @property
     def on_card(self) -> bool:
         return self.device.type == "cuda"
+
+    def capture_stream(self) -> "torch.cuda.Stream":
+        """The side stream this owner's warm-ups and captures run on: the
+        card's shared one, or with `own_stream` one of the owner's own, so
+        its graphs bind a cuBLAS workspace no other owner's graph binds."""
+        if not self.own_stream:
+            return _capture_stream(self.device)
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        return self._side
 
     def pool(self):
         """The owner's graph memory pool. The handle is only an id: the

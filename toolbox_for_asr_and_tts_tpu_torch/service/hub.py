@@ -223,12 +223,18 @@ class ChunkedHub(_TickLoop):
     session's partial text so far. Rows shard over an optional mesh's
     "data" axis (`BatchedChunkedASR(mesh=...)`).
 
+    `finalize` takes the ticker lock once, for the ticker's `take_slot`
+    (the in-flight step harvested, the slot's state row copied out, the
+    slot reset), and drains the copy outside it (`drain`: the row's own
+    steps and the CIF tail fire), so ticks go on while a drain runs.
+
     Spans (`runtime/profiling.py`): `hub.queue` per submission, from the
     submit until the tick that carries it holds the ticker lock (its
     `cause` is that `hub.tick`); `hub.gather`, the tick thread's gather
     sleep; `hub.tick`, the interval the tick histogram observes, over
-    `hub.lock_wait`; `hub.finalize`, over `hub.finalize.lock_wait` and
-    `hub.finalize.hold` (the drain under the ticker lock)."""
+    `hub.lock_wait`; `hub.finalize`, over `hub.finalize.lock_wait`,
+    `hub.finalize.hold` (the take, under the ticker lock) and
+    `hub.finalize.drain` (the steps and the tail, off it)."""
 
     def __init__(self, params, cfg, ocfg, tokenizer, cmvn=None,
                  capacity: int = 16, tick_ms: float = 10.0,
@@ -236,15 +242,15 @@ class ChunkedHub(_TickLoop):
                  device: DeviceLike = None, mesh=None):
         from ..parallel.stream_batcher import BatchedChunkedASR
         # serving default: double-buffered dispatch, the fetch of tick t−1
-        # overlapping tick t; partials lag one tick, finalize drains
-        # exactly. CHUNKED_PIPELINE=0 fetches every tick.
+        # overlapping tick t; partials lag one tick, finalize returns every
+        # id. CHUNKED_PIPELINE=0 fetches every tick.
         self.ticker = BatchedChunkedASR(
             params, cfg, ocfg, capacity=capacity, cmvn=cmvn, partials=True,
             pipelined=os.getenv("CHUNKED_PIPELINE", "1") in ("1", "true"),
             exec_cache=exec_cache, device=device, mesh=mesh)
         if _aot_ticks():
             # the step program of every pow-2 occupancy and the finalize
-            # tail, before the tick thread starts
+            # drain's step and tail, before the tick thread starts
             self.ticker.warm()
         self.device = self.ticker.device
         self.cfg = cfg   # model geometry, as the per-session recognizers
@@ -255,8 +261,8 @@ class ChunkedHub(_TickLoop):
         self._pending: Dict[int, Tuple[np.ndarray, list, int]] = {}
         self._gen: Dict[int, int] = {}   # see VadHub._gen
         self._lock = threading.Lock()
-        # serializes ticker state (tick vs join/leave/reset/finalize): a
-        # tick also drains other slots' leftover audio
+        # serializes ticker state (tick vs join/leave/reset and the
+        # finalize's take; its drain runs off it)
         self._ticker_lock = threading.Lock()
         self.ticks = 0
         self.submissions = 0
@@ -324,26 +330,30 @@ class ChunkedHub(_TickLoop):
 
     def finalize(self, slot: int) -> str:
         """Drain the slot (remainder + lookahead + CIF tail fire), return
-        the utterance's final text and reset the slot."""
+        the utterance's final text; the slot is reset at the take."""
         with profiling.annotate("hub.finalize"):
             self._release(slot, keep_ids=True)
             with profiling.annotate("hub.finalize.lock_wait"):
                 self._ticker_lock.acquire()
             try:
                 with profiling.annotate("hub.finalize.hold"):
-                    fired = self.ticker.finalize_slot(slot)
+                    taken = self.ticker.take_slot(slot)
             finally:
                 self._ticker_lock.release()
+            # the take harvested every row's carried ids
+            self._extend(taken.fired)
+            with profiling.annotate("hub.finalize.drain"):
+                new = self.ticker.drain(taken)
             with self._lock:
-                # the drain may have advanced other rows' queued audio too
-                for s, ids in fired.items():
-                    if ids and s in self._ids:
-                        self._ids[s].extend(int(i) for i in ids)
-                text = self.tokenizer.ids_to_text(self._ids.get(slot, []))
+                ids = self._ids.get(slot, []) + [int(i) for i in new]
                 self._ids[slot] = []
-            with self._ticker_lock:
-                self.ticker.reset_slot(slot)
-            return text
+            return self.tokenizer.ids_to_text(ids)
+
+    def _extend(self, fired: Dict[int, list]) -> None:
+        with self._lock:
+            for s, ids in fired.items():
+                if ids and s in self._ids:
+                    self._ids[s].extend(int(i) for i in ids)
 
     def _tick(self, batch) -> None:
         # `hub.tick` spans the interval the tick histogram observes
@@ -365,10 +375,7 @@ class ChunkedHub(_TickLoop):
                         {s: c for s, (c, _, _) in live.items()})
                 finally:
                     self._ticker_lock.release()
-                with self._lock:
-                    for s, ids in fired.items():
-                        if ids and s in self._ids:
-                            self._ids[s].extend(int(i) for i in ids)
+                self._extend(fired)
             except Exception as e:
                 logger.exception("chunked hub tick failed")
                 exc = e
