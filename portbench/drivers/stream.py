@@ -246,6 +246,13 @@ class Driver:
         return (self.hub.ticks, self.hub.submissions, hub_stats(),
                 sum(o["captures"] for o in graphs.report()))
 
+    def counters(self) -> Dict[str, int]:
+        """The ticker's cover and drain counters (always on in the
+        program), for the readers of a traced run."""
+        t = self.hub.ticker
+        return {"rows_stepped": t.rows_stepped, "rows_active": t.rows_active,
+                "drains": t.drains, "drain_steps": t.drain_steps}
+
     def _replays(self) -> Dict[int, int]:
         progs = self.hub.ticker.programs
         out = {}

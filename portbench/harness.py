@@ -6,6 +6,12 @@ per-layer metric is a file of its own, found by the name in
 `BENCHMARK.json`:
 
 - `portbench/configs/<config>.json`: the model's sizes, its source and cut;
+  its family is the stem of the file its `reference` names
+  (`portbench/reference/<family>.py`, the plain reference);
+- `portbench/families/<family>.py`: what the readers need to know of the
+  family (`call_flops`, the model FLOPs of one recorded call) and the tiny
+  geometry of the CPU tests (`TINY`); `portbench/tests/test_family_<family>
+  .py` holds its configurations to the program's geometry;
 - `portbench/traffic/<traffic>.json`: the driver that generates it, its
   parameters and the limits of its correctness check;
 - `portbench/drivers/<driver>.py`: one general generator per kind of
@@ -19,7 +25,18 @@ per-layer metric is a file of its own, found by the name in
 
 A driver builds the program under test in `setup`, measures in `window`,
 frees the program's state in `free` and compares what the window served
-with the plain reference in `check`.
+with the plain reference in `check`; where it has `counters()` (the
+program's counters by name), a `--trace 1` run hands the readers their
+deltas.
+
+In a `--trace 1` run the program records its spans (`runtime/profiling.py`)
+through the window. The readers get those that ended before the profile
+began or started after it had stopped (`ctx["spans"]`, records as
+`profiling.drain` gives them), and the counters' deltas over the same
+stretches (`ctx["counters"]`): the whole window but the profiled second,
+in which the profiler slows the host. The profiled second's spans split
+the card's idle time (`breakdown["idle_by_span"]`). A `--trace 0` run
+records none.
 """
 from __future__ import annotations
 
@@ -29,6 +46,7 @@ import json
 import math
 import os
 import sys
+import time
 from typing import Any, Callable, Dict, List, Optional
 
 PKG = os.path.dirname(os.path.abspath(__file__))
@@ -52,6 +70,25 @@ def load_module(path: str, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def family_name(config: Dict) -> str:
+    """A configuration's family: the stem of its `reference` file."""
+    return os.path.splitext(os.path.basename(config["reference"]))[0]
+
+
+def family_path(name: str) -> str:
+    return os.path.join(PKG, "families", f"{name}.py")
+
+
+def load_family(name: str):
+    """The module `portbench/families/<name>.py`."""
+    return load_module(family_path(name), f"portbench_family_{name}")
+
+
+def family(config: Dict):
+    """The family module of a configuration."""
+    return load_family(family_name(config))
 
 
 class Cell:
@@ -116,11 +153,12 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
                       for k, v in getattr(drv, "phases", {}).items())
     log(f"portbench: {cell.name} seed {seed}: set-up {setup_s:.3f} s "
         f"(before the driver's set-up {t_setup - t_start:.3f}; {parts})")
-    tracer = Tracer(trace)
-    if trace:
-        log(f"portbench: profiler's first start {tracer.prepare():.3f} s")
-    drv.window(seconds, tracer)
-    tracer.finish()
+    if not trace:
+        tracer = Tracer(False)
+        drv.window(seconds, tracer)
+        tracer.finish()
+    else:
+        tracer, spans, counters = _traced_window(drv, seconds, log)
     on_card = torch.device(device).type == "cuda"
     dev = {"platform": "gpu" if on_card else "cpu",
            "kind": (torch.cuda.get_device_name(torch.device(device))
@@ -131,6 +169,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     e2e = dict(drv.end_to_end(), setup_s=setup_s)
     ctx = dict(drv.context(), trace=tracer.summary, config=cell.config,
                traffic=cell.traffic)
+    if trace:
+        ctx.update(spans=spans, counters=counters)
     metrics: Dict[str, Dict] = {}
     if trace:
         for m in cell.per_layer:
@@ -158,10 +198,45 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     out = {"correct": correct, "attempted": attempted, "failed": failed,
            "metrics": metrics, "device": dev}
     if trace and tracer.summary is not None:
-        out["breakdown"] = {"device_ops": tracer.summary["device_ops"],
-                            "idle_gaps": tracer.summary["idle_gaps"]}
+        out["breakdown"] = {k: tracer.summary[k] for k in (
+            "device_ops", "idle_gaps", "idle_by_span")}
     diag = {k: v for k, v in numbers.items() if k not in limits}
     if diag:
         log(f"portbench: diagnostics {json.dumps(diag)}")
     out["checks"] = checks
     return out
+
+
+def _traced_window(drv, seconds: float, log):
+    """The window of a `--trace 1` run, with the program's spans recorded
+    through it → (the tracer, reduced with the profiled second's spans; the
+    spans outside the profile; the deltas of the driver's counters over the
+    same stretches)."""
+    from portbench.trace import Tracer
+    from toolbox_for_asr_and_tts_tpu_torch.runtime import profiling
+
+    read = getattr(drv, "counters", dict)
+    marks: List = []         # (ns, counters) as the profile begins, stops
+
+    def mark():
+        marks.append((time.perf_counter_ns(), read()))
+
+    tracer = Tracer(True, mark=mark)
+    log(f"portbench: profiler's first start {tracer.prepare():.3f} s")
+    profiling.drain()
+    profiling.set_recording(True)
+    try:
+        before = read()
+        drv.window(seconds, tracer)
+        after = read()
+    finally:
+        records, dropped = profiling.drain()
+        profiling.set_recording(False)
+    tracer.finish(records)
+    (begin, at_begin), (stop, at_stop) = (marks + [(math.inf, after)] * 2)[:2]
+    spans = [r for r in records if r["end_ns"] <= begin or
+             r["start_ns"] >= stop]
+    log(f"portbench: {len(records)} spans recorded ({dropped} dropped), "
+        f"{len(spans)} outside the profile")
+    return tracer, spans, {k: at_begin[k] - before[k] + after[k] - at_stop[k]
+                           for k in before}

@@ -13,18 +13,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-TINY = dict(d_model=32, n_heads=2, ffn_dim=64, encoder_layers=2,
-            decoder_layers=2, vocab_size=64)
-
 
 def tiny_cell(name, **params):
-    """The cell of BENCHMARK.json at a tiny geometry, its traffic params
-    overridden."""
+    """The cell of BENCHMARK.json at its family's tiny geometry
+    (`portbench/families/<family>.py::TINY`, merged group by group), its
+    traffic params overridden."""
     from portbench import harness
     cell = harness.Cell(harness.load_json(os.path.join(ROOT,
                                                        "BENCHMARK.json")),
                         name)
-    cell.config["model"].update(TINY)
+    for group, keys in harness.family(cell.config).TINY.items():
+        cell.config[group].update(keys)
     cell.traffic["params"].update(params)
     return cell
 

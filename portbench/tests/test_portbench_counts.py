@@ -42,7 +42,8 @@ def _tr(kernels, busy=1.0, window=2.0):
             "kernels": {k: [1, v] for k, v in kernels.items()}}
 
 
-CFG = {"model": dict(d_model=512, kernel_size=11, encoder_layers=2,
+CFG = {"reference": "portbench/reference/paraformer.py",
+       "model": dict(d_model=512, kernel_size=11, encoder_layers=2,
                      decoder_layers=1, ffn_dim=2048, input_dim=560,
                      predictor_kernel=3, vocab_size=100),
        "frontend": dict(lfr_n=6, frame_shift=160, frame_length=400),
@@ -111,6 +112,72 @@ def test_train_and_stream_readers():
     assert harness.read_metric("rows_per_tick.stream", ctx) == 2.5
     assert harness.read_metric("hub_tick_ms.stream", ctx) == \
         pytest.approx(50.0)
+
+
+def _span(name, i, start, end, parent=None, thread="MainThread"):
+    return {"name": name, "id": i, "parent": parent, "request": i,
+            "cause": None, "thread": thread, "start_ns": start,
+            "end_ns": end}
+
+
+def test_span_and_counter_readers():
+    ms = 1_000_000
+    # 20 submissions waiting 1..20 ms; two ticks of 10 and 30 ms with 1 and
+    # 3 ms of lock wait; holds of 4 and 8 ms
+    spans = [_span("hub.queue", i, 0, (i + 1) * ms) for i in range(20)]
+    spans += [_span("hub.tick", 30, 0, 10 * ms),
+              _span("hub.lock_wait", 31, 0, 1 * ms, 30),
+              _span("hub.tick", 32, 20 * ms, 50 * ms),
+              _span("hub.lock_wait", 33, 20 * ms, 23 * ms, 32),
+              _span("hub.finalize.hold", 34, 0, 4 * ms),
+              _span("hub.finalize.hold", 35, 0, 8 * ms)]
+    ctx = {"spans": spans, "counters": {"rows_stepped": 64,
+                                        "rows_active": 4}}
+    assert harness.read_metric("hub_queue_p95_ms.stream", ctx) == \
+        pytest.approx(19.05)
+    assert harness.read_metric("lock_wait_pct.stream", ctx) == \
+        pytest.approx(10.0)
+    assert harness.read_metric("finalize_hold_ms.stream", ctx) == \
+        pytest.approx(6.0)
+    assert harness.read_metric("cover_waste_pct.stream", ctx) == \
+        pytest.approx(93.75)
+    # two calls of 30 and 40 ms, 20 and 28 of it in fetches, one of them
+    # under a child span; a fetch of no call counts for none
+    calls = [_span("recognizer.transcribe", 1, 0, 30 * ms),
+             _span("program.fetch", 2, 5 * ms, 25 * ms, 1),
+             _span("recognizer.transcribe", 3, 40 * ms, 80 * ms),
+             _span("recognizer.rescore", 4, 45 * ms, 75 * ms, 3),
+             _span("program.fetch", 5, 45 * ms, 73 * ms, 4),
+             _span("program.fetch", 6, 90 * ms, 99 * ms)]
+    assert harness.read_metric("transcribe_host_ms", {"spans": calls}) == \
+        pytest.approx(11.0)
+    for name in ("hub_queue_p95_ms", "lock_wait_pct", "finalize_hold_ms",
+                 "cover_waste_pct", "transcribe_host_ms"):
+        assert harness.read_metric(name, {"spans": [], "counters": {}}) \
+            is None
+
+
+def test_idle_by_span():
+    # traced 0–100 µs; the card busy 10–20 and 60–100: idle 0–10, 20–60.
+    # The replaying thread has `outer` 0–50 over `inner` 25–35; `hub.queue`
+    # and a thread that replays nothing are left out
+    dev = [("k", 10.0, 20.0), ("k", 60.0, 100.0)]
+    program = [("outer", "T", 0.0, 50.0), ("inner", "T", 25.0, 35.0),
+               ("program.replay", "T", 10.0, 20.0),
+               ("hub.queue", "T", 0.0, 100.0),
+               ("elsewhere", "U", 0.0, 100.0)]
+    s = summarize(dev, [], 100e-6, program, (0.0, 100.0))
+    got = {n: v for n, v in s["idle_by_span"]}
+    # outer: 0–10, 20–25, 35–50; inner 25–35; none 50–60
+    assert got == {"outer": pytest.approx(30e-6),
+                   "inner": pytest.approx(10e-6),
+                   "(none)": pytest.approx(10e-6)}
+    assert s["idle_by_span"][-1][0] == "(none)"
+    assert sum(got.values()) == pytest.approx(s["window_s"] - s["busy_s"])
+    # the gaps name the program's span too
+    assert s["idle_gaps"][0][0].startswith("no benchmark span open / outer")
+    # no program spans recorded: no split
+    assert "idle_by_span" not in summarize(dev, [], 100e-6)
 
 
 def test_trace_busy_is_a_union():

@@ -7,6 +7,8 @@ import shutil
 import subprocess
 import sys
 
+import pytest
+
 from conftest import ROOT
 
 from portbench import harness
@@ -49,12 +51,15 @@ def test_no_benchmark_file_imports_jax():
                            "toolbox_for_asr_and_tts_tpu"}, path
 
 
-def test_a_cpu_run_loads_no_jax():
+@pytest.mark.parametrize("trace", [False, True])
+def test_a_cpu_run_loads_no_jax(trace):
+    """Nor does a traced run, which records the program's spans."""
     code = (
         "import sys, time; sys.path.insert(0, 'portbench/tests');"
         "import conftest; from portbench import harness;"
-        "c = conftest.tiny_cell('offline-b8-mixed', batches=2);"
-        "harness.run(c, 1, 0.2, False, 'cpu', time.perf_counter(),"
+        "c = conftest.tiny_cell('offline-b8-mixed', batches=2,"
+        " trace={'after_s': 0.05, 'seconds': 0.1});"
+        f"harness.run(c, 1, 0.2, {trace}, 'cpu', time.perf_counter(),"
         " time.perf_counter, log=lambda s: None);"
         "print(harness.forbidden_modules(sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,

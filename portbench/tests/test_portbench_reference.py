@@ -10,10 +10,12 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import ROOT, TINY
+from conftest import ROOT
 
-from portbench import weights
+from portbench import harness, weights
 from portbench.reference import paraformer as ref
+
+TINY = harness.load_family("paraformer").TINY["model"]
 
 
 def _cfg(name):
