@@ -2,7 +2,9 @@
 recorder off and on, parents, requests and causes, a full buffer, the
 profiler's clock and `trace_to`'s Chrome trace; then the spans a tiny
 `ChunkedHub`, the unfused ticker and a tiny `Recognizer` record, and the
-tickers' `rows_stepped` / `rows_active` against the pow-2 cover."""
+tickers' `rows_stepped` / `rows_active` against the pow-2 cover; and the
+spans of a TTS job through `TTSJobManager` over a tiny PNCA `Synthesizer`
+and its `mel_frames_valid` counter."""
 import json
 import os
 import threading
@@ -21,6 +23,8 @@ from toolbox_for_asr_and_tts_tpu_torch.parallel import stream_batcher as sb  # n
 from toolbox_for_asr_and_tts_tpu_torch.runtime import profiling  # noqa: E402
 from toolbox_for_asr_and_tts_tpu_torch.runtime.bucketing import Bucketer  # noqa: E402
 from toolbox_for_asr_and_tts_tpu_torch.service import hub  # noqa: E402
+from toolbox_for_asr_and_tts_tpu_torch.tts.jobs import TTSJobManager  # noqa: E402
+from toolbox_for_asr_and_tts_tpu_torch.tts.synthesizer import Synthesizer  # noqa: E402
 
 TINY = pf.ParaformerConfig(input_dim=560, d_model=32, n_heads=2, ffn_dim=64,
                            encoder_layers=2, decoder_layers=2, vocab_size=64)
@@ -329,3 +333,100 @@ def test_recognizer_transcribe_spans(params):
             "program.lock_wait", "program.replay"} <= children
     assert any(r.token_ids for r in res)
     assert "recognizer.rescore" in children
+
+
+# ------------------------------------------------------------------- TTS
+# seven segments: the first alone, then a batch of six in two phone buckets
+TTS_TEXT = ("你好。今天天气很好，我们一起去公园散步吧。好的。明天可能会下雨，"
+            "记得带伞，也别忘了带上水杯和外套。是。这是一段用来测试语音合成的"
+            "文字。最后一句话在这里结束，谢谢大家。")
+
+
+@pytest.fixture(scope="module")
+def tts_synth():
+    """The tiny synthesizer on the PNCA decoder, grouped as the card's
+    profile groups it (one call per phone bucket, one mel group)."""
+    saved = {k: os.environ.get(k) for k in ("TTS_GROUP_BY_LENGTH",
+                                             "TTS_MEL_GROUP")}
+    os.environ.update(TTS_GROUP_BY_LENGTH="1", TTS_MEL_GROUP="0")
+    try:
+        s = Synthesizer.random(tiny=True, device="cpu")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    s.decoder_mode = "pnca"
+    return s
+
+
+def _job(synth):
+    mgr = TTSJobManager(synth, max_workers=1)
+    try:
+        job = mgr.start_task(TTS_TEXT)
+        while mgr.get_result(job)["status"] in ("pending", "processing"):
+            time.sleep(0.01)
+        return mgr.get_result(job)
+    finally:
+        mgr.close()
+
+
+def test_tts_job_spans_nest(tts_synth):
+    """A streamed job is one `tts.job` request: `synth.segments` per batch
+    and `synth.concat` per segment fed and the flush under it, the probes'
+    and groups' spans under their batch, the programs' own spans under
+    those."""
+    profiling.set_recording(True)
+    result = _job(tts_synth)
+    records, dropped = profiling.drain()
+    assert result["status"] == "completed", result["error"]
+    assert dropped == 0
+    by = _by_id(records)
+    (job,) = [r for r in records if r["name"] == "tts.job"]
+    assert job["parent"] is None
+    assert all(r["request"] == job["id"] for r in records)
+
+    def parent(r):
+        return by[r["parent"]]["name"]
+    n = result["n_segments"]
+    batches = [r for r in records if r["name"] == "synth.segments"]
+    assert len(batches) == 1 + -(-(n - 1) // 8) and n > 2
+    assert {parent(r) for r in batches} == {"tts.job"}
+    concat = [r for r in records if r["name"] == "synth.concat"]
+    assert len(concat) == n + 1 and {parent(r) for r in concat} == {"tts.job"}
+    probes = [r for r in records if r["name"] == "synth.probe"]
+    groups = [r for r in records if r["name"] == "synth.group"]
+    assert len(probes) == len(groups) > len(batches)
+    assert {parent(r) for r in probes + groups} == {"synth.segments"}
+    replays = [r for r in records if r["name"] == "program.replay"]
+    assert len(replays) == len(probes) + len(groups)
+    assert {parent(r) for r in replays} == {"synth.probe", "synth.group"}
+    for r in records:
+        if r["parent"] is not None:
+            up = by[r["parent"]]
+            assert up["start_ns"] <= r["start_ns"] <= r["end_ns"] \
+                <= up["end_ns"]
+
+
+def test_tts_mel_frames_valid_counts_the_mel_lengths(tts_synth):
+    """`mel_frames_valid` grows by the segments' mel lengths, and
+    `mel_frames` by the padded frames the groups computed."""
+    s = tts_synth
+    counts = {k: getattr(s, k).n for k in ("mel_frames", "mel_frames_valid",
+                                           "synths", "ar_steps")}
+    segments = ["你好，", "今天天气很好，我们一起去公园散步吧。", "记得带伞。"]
+    wavs, durs = s.synthesize_segments(segments, "zhitian_emo")
+    hop = s.vcfg.hop_length
+    lens = [len(w) // hop for w in wavs]
+    assert [round(d * s.sample_rate / hop) for d in durs] == lens
+    assert s.mel_frames_valid.n - counts["mel_frames_valid"] == sum(lens)
+    assert s.mel_frames.n - counts["mel_frames"] > sum(lens)
+    assert s.synths.n > counts["synths"] and s.ar_steps.n > counts["ar_steps"]
+
+
+def test_tts_records_nothing_while_off(tts_synth):
+    """Recording off: a whole job records no span."""
+    result = _job(tts_synth)
+    assert result["status"] == "completed", result["error"]
+    assert profiling.drain() == ([], 0)

@@ -82,7 +82,8 @@ def test_mha_with_a_partial_key_mask():
     assert float((free[1] - got[1]).abs().max()) > 1e-3
 
 
-@pytest.mark.parametrize("stride,kernel", [(5, 11), (4, 8), (2, 4), (3, 7)])
+@pytest.mark.parametrize("stride,kernel", [(5, 11), (4, 8), (2, 4), (3, 7),
+                                           (10, 20)])
 def test_conv_transpose1d_matches_jax(stride, kernel):
     key = jax.random.PRNGKey(stride)
     p = {"w": jax.random.uniform(key, (12, 6, kernel), jnp.float32, -0.3, 0.3),
@@ -203,8 +204,10 @@ def test_sambert_forward_nar(acoustic, override):
 
 @pytest.mark.parametrize("bands", [dict(h_band=20, x_band=-1),
                                    dict(h_band=-1, x_band=-1),
-                                   dict(h_band=2, x_band=4)],
-                         ids=["h_band20", "unbounded", "both_banded"])
+                                   dict(h_band=2, x_band=4),
+                                   dict(h_band=20, x_band=-1, n_heads=8)],
+                         ids=["h_band20", "unbounded", "both_banded",
+                              "heads8"])
 def test_sambert_forward_ar_pnca(acoustic, bands):
     jp, tp = acoustic
     jcfg = dataclasses.replace(ACFG, **bands)
@@ -224,8 +227,14 @@ def test_sambert_forward_ar_pnca(acoustic, bands):
 @pytest.mark.parametrize("cfg", [
     VCFG,
     JH.HifiGanConfig(upsample_initial_channel=16, resblock_kernels=(3, 7),
-                     resblock_dilations=((1, 3, 5), (1, 3, 5)))],
-    ids=["tiny", "two_resblocks"])
+                     resblock_dilations=((1, 3, 5), (1, 3, 5))),
+    # the KAN-TTS 16 kHz upsampling: ×10 with a kernel of 20 (2 taps per
+    # phase in the port's transposed convolution), then ×5, ×2, ×2
+    JH.HifiGanConfig(upsample_initial_channel=16,
+                     upsample_rates=(10, 5, 2, 2),
+                     upsample_kernels=(20, 11, 4, 4), resblock_kernels=(3,),
+                     resblock_dilations=((1, 3),))],
+    ids=["tiny", "two_resblocks", "kantts_16k"])
 def test_hifigan_forward_matches_jax(cfg):
     jp = JH.init_params(jax.random.PRNGKey(1), cfg)
     mel = _x(2, 13, cfg.n_mels, seed=6)

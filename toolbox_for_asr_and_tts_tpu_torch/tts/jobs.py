@@ -18,6 +18,9 @@ poll during processing can already return the audio synthesized so far
 (`get_result(partial=True)` → REST `?partial=1`, or the /api/v1/tts/ws
 streaming endpoint). Chunk concatenation is sample-identical to the one-shot
 result. TTS_STREAM_JOBS=0 restores whole-job synthesis.
+
+Span (`runtime/profiling.py`): `tts.job`, a job on its worker from taking
+it to storing its result, over the synthesizer's spans.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import uuid
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional
 
-from ..runtime import prom
+from ..runtime import profiling, prom
 from ..utils.audio import encode_wav_bytes
 
 logger = logging.getLogger("toolbox.tts.jobs")
@@ -222,6 +225,10 @@ class TTSJobManager:
         }
 
     def _process(self, job_id: str) -> None:
+        with profiling.annotate("tts.job"):
+            self._run(job_id)
+
+    def _run(self, job_id: str) -> None:
         t0 = time.time()
         try:
             with self._lock:

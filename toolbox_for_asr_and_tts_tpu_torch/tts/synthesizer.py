@@ -39,6 +39,13 @@ keyed as the reference keys its compiled functions: a probe per (b, l), a
 synthesis per (decoder, b, l, t_mel). On the card each is a captured CUDA
 graph; in PNCA mode the whole AR scan of ⌈t_mel / r⌉ steps is inside the
 synthesis graph.
+
+Spans (`runtime/profiling.py`): `synth.segments` (one
+`synthesize_segments` call) over `synth.probe` (a phone group's duration
+probe: staging, replay and fetch) and `synth.group` (one mel group's
+synthesis: staging, replay and fetch), each over the programs' own spans;
+`synth.concat` (`StreamingConcat.feed` and `flush` in
+`synthesize_stream`).
 """
 from __future__ import annotations
 
@@ -57,6 +64,7 @@ from ..device import DeviceLike, resolve_device
 from ..models import hifigan, sambert
 from ..models.convert import params_from_numpy, tree_to
 from ..runtime import checkpoints as ckpt
+from ..runtime import profiling
 from ..runtime.bucketing import Bucketer
 from ..runtime.config import TTSConfig
 from ..runtime.graphs import Program, Programs, to_host
@@ -239,12 +247,14 @@ class Synthesizer:
         self.bucketer = Bucketer(PHONE_BUCKETS)
         self.sample_rate = self.cfg.sampling_rate
         # telemetry: the device programs run (duration probes, synth
-        # groups), the PNCA decoder's steps and the mel frames (padding
-        # included) that the decoder and vocoder computed
+        # groups), the PNCA decoder's steps, the mel frames (padding
+        # included) that the decoder and vocoder computed, and the valid
+        # ones among them (the segments' mel lengths)
         self.probes = Tally()
         self.synths = Tally()
         self.ar_steps = Tally()
         self.mel_frames = Tally()
+        self.mel_frames_valid = Tally()
         # one program per probe and synthesis bucket; on the card a graph
         self._positions = [Programs(dev, "synthesizer" if i == 0
                                     else f"synthesizer@{i}")
@@ -402,6 +412,11 @@ class Synthesizer:
         """Batch-synthesize text segments → per-segment waveforms, in the
         order given. With TTS_GROUP_BY_LENGTH, one call per phone bucket;
         else one call for the whole batch at the longest row's bucket."""
+        with profiling.annotate("synth.segments"):
+            return self._synthesize_segments(segments, voice)
+
+    def _synthesize_segments(self, segments: Sequence[str], voice: str
+                             ) -> Tuple[List[np.ndarray], List[float]]:
         spk_id = self.voice_to_id.get(voice, 0)
         ids_list = [text_to_ling_ids(s, self.g2p, self.vocab)
                     for s in segments]
@@ -443,8 +458,10 @@ class Synthesizer:
                 mel_groups[t_cap] = list(range(b))
             else:
                 self.probes.add(n_pos)
-                probe = self._sharded(
-                    lambda per, i: self._dur_prog(per, l, i), ids, lens, spk)
+                with profiling.annotate("synth.probe"):
+                    probe = self._sharded(
+                        lambda per, i: self._dur_prog(per, l, i), ids, lens,
+                        spk)
                 t_rows = np.minimum(-(-probe // mb) * mb, t_cap)
                 t_rows = np.maximum(t_rows, mb).astype(int)
                 if self.mel_group and self.mesh is None:
@@ -459,14 +476,16 @@ class Synthesizer:
                     self.ar_steps.add(
                         n_prog * -(-t_mel // self.acfg.outputs_per_step))
                 self.mel_frames.add(len(rows) * t_mel)
-                packed = self._sharded(
-                    lambda per, i: self._synth_prog(per, l, t_mel, i),
-                    ids[rows], lens[rows], spk[rows])
+                with profiling.annotate("synth.group"):
+                    packed = self._sharded(
+                        lambda per, i: self._synth_prog(per, l, t_mel, i),
+                        ids[rows], lens[rows], spk[rows])
                 pcm, mel_lens = packed[:, :-1], packed[:, -1]
                 for g_row, row in enumerate(rows):
                     if row >= len(idxs):
                         continue   # mesh padding: no segment behind it
                     idx = idxs[row]
+                    self.mel_frames_valid.add(int(mel_lens[g_row]))
                     n = int(mel_lens[g_row]) * hop
                     wavs[idx] = pcm[g_row, :n].astype(np.float32) / 32767.0
                     durs[idx] = n / self.sample_rate
@@ -561,9 +580,9 @@ class Synthesizer:
             seg_durs += durs
             for seg_text, w in zip(batch, wavs):
                 fed = stream.segments_fed
-                chunk = stream.feed(
-                    w, pauses[fed - 1] if fed >= 1 and fed - 1 < len(pauses)
-                    else 0)
+                pause = pauses[fed - 1] if 1 <= fed <= len(pauses) else 0
+                with profiling.annotate("synth.concat"):
+                    chunk = stream.feed(w, pause)
                 idx = done
                 done += 1
                 if len(chunk):
@@ -571,7 +590,8 @@ class Synthesizer:
                     yield {"event": "chunk", "audio": chunk,
                            "segment_index": idx, "n_segments": len(segments),
                            "text": seg_text}
-        tail = stream.flush()
+        with profiling.annotate("synth.concat"):
+            tail = stream.flush()
         emitted += len(tail)
         proc_s = time.perf_counter() - t0
         audio_s = emitted / self.sample_rate
